@@ -1,0 +1,7 @@
+"""Federated datasets, port of fedml_tpu/data: a ``FederatedData`` per
+dataset. This slice carries the synthetic sequence datasets."""
+
+from fedml_tpu_torch.core.client_data import FederatedData
+from fedml_tpu_torch.data.registry import DATASETS, load_dataset
+
+__all__ = ["DATASETS", "FederatedData", "load_dataset"]

@@ -1,0 +1,5 @@
+"""State-dict utilities, port of fedml_tpu/utils."""
+
+from fedml_tpu_torch.utils.tree import tree_weighted_mean
+
+__all__ = ["tree_weighted_mean"]
