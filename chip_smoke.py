@@ -8,8 +8,9 @@ Phases, in order:
   device   the card's name and power limit (nvidia-smi); TF32 switched off
   build    nvcc builds every kernel source in fedml_tpu_torch/ops/csrc
   kernels  each kernel against its plain PyTorch version on the card, at the
-           long-context slice shape and at a ragged shape, with its time,
-           the plain version's time and scaled_dot_product_attention's
+           long-context slice shape and at ragged shapes of every head dim
+           the kernels take; its time, the plain version's time and
+           scaled_dot_product_attention's
   slice    FedAvg over TransformerLM("transformer_flash", vocab 1024, dim
            256, depth 4, heads 8, T 2048): 2 rounds of 4 clients x 2 local
            SGD steps, every attention call through the kernels (launch
@@ -56,8 +57,11 @@ TOL_BWD = 1e-3
 # layers x 4 SGD steps of float32 rounding apart
 TOL_SLICE = 1e-3
 SLICE_SHAPE = dict(B=4, T=2048, H=8, D=32, causal=True)
+# ragged T, and every other head dim the kernels are built for
 RAGGED_SHAPES = (dict(B=2, T=1000, H=4, D=64, causal=True),
-                 dict(B=2, T=1000, H=4, D=64, causal=False))
+                 dict(B=2, T=1000, H=4, D=64, causal=False),
+                 dict(B=1, T=300, H=2, D=16, causal=True),
+                 dict(B=1, T=300, H=2, D=128, causal=False))
 SOURCE = "fedml_tpu_torch/ops/csrc/flash_attention.cu"
 REPLACES = {"flash_fwd": "fedml_tpu/ops/flash_attention.py:79",
             "flash_bwd_dq": "fedml_tpu/ops/flash_attention.py:213",
@@ -85,7 +89,8 @@ def _ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(flash_\w+?_kernel)ILi(\d+)ELb([01])E", m.group(1))
+            k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)ELb([01])E",
+                          m.group(1))
             fn = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else m.group(1)
             spill = 0
         m = re.search(r"(\d+) bytes spill stores", line)

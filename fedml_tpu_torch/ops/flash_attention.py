@@ -7,7 +7,9 @@ of ``csrc/flash_attention.cu``; ``jax.custom_vjp`` becomes
 
 Layout: [B, T, H, D] in and out, as in the JAX package, and lse is
 [B, H, T]. The kernels index that layout with strides and mask the ragged
-edge themselves, so no transpose or padding copy surrounds them.
+edge themselves, so no transpose or padding copy surrounds them. The JAX
+functions' ``block_q`` / ``block_k`` (TPU tile sizes) have no counterpart:
+the CUDA kernels' 64-row tiles are compile-time constants.
 
 Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
 version below (``dense_fwd`` / ``dense_bwd_dq`` / ``dense_bwd_dkv``, the
