@@ -6,11 +6,16 @@
 
 Phases, in order:
   device   the card's name and power limit (nvidia-smi); TF32 switched off
-  build    nvcc builds every kernel source in fedml_tpu_torch/ops/csrc
+  build    nvcc builds every kernel source in fedml_tpu_torch/ops/csrc;
+           ptxas's registers and spills and the count of tensor-core
+           (HMMA) instructions in the built SASS, per instantiation
   kernels  each kernel against its plain PyTorch version on the card, at the
            long-context slice shape and at ragged shapes of every head dim
-           the kernels take; its time, the plain version's time and
-           scaled_dot_product_attention's
+           the kernels take, and each backward kernel run twice for bitwise
+           equal outputs; its time, the plain version's time and
+           scaled_dot_product_attention's, whose CUDA kernels are named;
+           a [B,T,H,D] view off a 16-byte boundary refused by the
+           backward wrappers before any launch
   slice    FedAvg over TransformerLM("transformer_flash", vocab 1024, dim
            256, depth 4, heads 8, T 2048): 2 rounds of 4 clients x 2 local
            SGD steps, every attention call through the kernels (launch
@@ -44,14 +49,22 @@ fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
 PHASES = ("device", "build", "kernels", "slice")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
-# cores, and HBM3 bandwidth
+# cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
+# work on the tensor cores (3xTF32) takes three TF32 products per product,
+# 165 TFLOP/s: the least time the card needs for f32-accurate work, so each
+# kernel's bound_ms takes it; the CUDA-core f32 figure is bound_f32_ms.
 PEAK_F32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 # kernel vs plain, both float32 on the card; allclose(rtol=tol, atol=tol).
 # fwd sums <= T products per output in another order than the plain
 # einsum; the grads add a second such sum (dS) and sum over T queries.
 TOL_FWD = 1e-4
 TOL_BWD = 1e-3
+# the backward kernels (3xTF32 on the tensor cores) against a float64
+# oracle, at the slice shape: max |err| at most this many times that of
+# their plain float32 versions
+F32_ERR_FACTOR = 4
 # the slice's rounds, flash kernels vs plain attention from the same
 # weights: history metrics (relative) and final params (absolute) are 4
 # layers x 4 SGD steps of float32 rounding apart
@@ -62,6 +75,7 @@ RAGGED_SHAPES = (dict(B=2, T=1000, H=4, D=64, causal=True),
                  dict(B=2, T=1000, H=4, D=64, causal=False),
                  dict(B=1, T=300, H=2, D=16, causal=True),
                  dict(B=1, T=300, H=2, D=128, causal=False))
+SLICE_BWD_KERNELS = ("flash_dq_kernel<32,1>", "flash_dkv_kernel<32,1>")
 SOURCE = "fedml_tpu_torch/ops/csrc/flash_attention.cu"
 REPLACES = {"flash_fwd": "fedml_tpu/ops/flash_attention.py:79",
             "flash_bwd_dq": "fedml_tpu/ops/flash_attention.py:213",
@@ -82,16 +96,28 @@ def phase_device(report):
           f"device {torch.cuda.get_device_name(0)}")
 
 
+def _kernel_label(mangled):
+    """kernel<args> from a mangled entry name, every int and bool template
+    argument kept in order (flash_dq_kernel<32,1>)."""
+    k = re.search(r"_kernelI((?:L[ib]\d+E)+)E", mangled)
+    if not k:
+        return mangled
+    end = k.start() + len("_kernel")
+    args = ",".join(re.findall(r"L[ib](\d+)E", k.group(1)))
+    for start in range(end - 1, 0, -1):  # the identifier is <length><name>
+        if mangled[:start].endswith(str(end - start)):
+            return f"{mangled[start:end]}<{args}>"
+    return mangled
+
+
 def _ptxas_report(log):
     """(kernel, registers, spill-store bytes) per compiled entry function,
-    from nvcc's -Xptxas=-v log; template arguments kept as <D,causal>."""
+    from nvcc's -Xptxas=-v log."""
     out, fn, spill = [], None, 0
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            k = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)ILi(\d+)ELb([01])E",
-                          m.group(1))
-            fn = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else m.group(1)
+            fn = _kernel_label(m.group(1))
             spill = 0
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
@@ -103,13 +129,43 @@ def _ptxas_report(log):
     return out
 
 
+def _sass_counts(lib):
+    """{kernel<args>: (HMMA instructions, all instructions)} in the
+    library's SASS (static counts, loops as compiled)."""
+    sass = subprocess.run([loader.cuda_tool("cuobjdump"), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True,
+                          timeout=120).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = _kernel_label(m.group(1))
+            counts[fn] = [0, 0]
+        elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
+            counts[fn][0] += "HMMA" in line
+            counts[fn][1] += 1
+    return counts
+
+
 def phase_build(report):
     t0 = time.perf_counter()
     libs = loader.build_all()
     print(f"build: {len(libs)} source(s) in {time.perf_counter() - t0:.1f} s")
     for lib in libs:
+        sass = _sass_counts(lib)
+        hmma = {fn: c[0] for fn, c in sass.items()}
         for fn, regs, spill in _ptxas_report(lib.with_suffix(".log").read_text()):
-            print(f"  ptxas: {fn:28s} {regs:3d} registers, {spill} bytes spilled")
+            n_hmma, n_all = sass.get(fn, (0, 0))
+            print(f"  ptxas: {fn:28s} {regs:3d} registers, {spill} bytes "
+                  f"spilled; SASS {n_hmma} HMMA of {n_all} instructions")
+        # every instantiation of the backward kernels runs on the tensor
+        # cores, the slice's (D=32, causal) first of all
+        bwd = {fn for fn in hmma if re.match(r"flash_(dq|dkv)_kernel<", fn)}
+        zero = sorted(fn for fn in bwd | set(SLICE_BWD_KERNELS)
+                      if not hmma.get(fn))
+        if zero:
+            raise AssertionError(f"no tensor-core (HMMA) instruction in the "
+                                 f"SASS of {zero}")
 
 
 def _time_ms(fn, reps=7, inner=5):
@@ -140,6 +196,23 @@ def _work(B, T, H, D, causal):
             "flash_bwd_dkv": (8 * D * pairs, 4 * x + 2 * row + 2 * x)}
 
 
+def _f64_bwd(q, k, v, do, lse, corr, causal):
+    """dQ and (dK, dV) of the same inputs in float64, by kernel name: the
+    yardstick of accuracy for the kernels and their plain versions alike."""
+    q, k, v, do, lse, corr = (x.double() for x in (q, k, v, do, lse, corr))
+    T, scale = q.shape[1], 1 / math.sqrt(q.shape[-1])
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
+    if causal:
+        ok = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
+        s = s.masked_fill(~ok, fa.NEG_INF)
+    p = torch.exp(s - lse[..., None])
+    del s
+    ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) + corr[..., None])
+    return {"flash_bwd_dq": (torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,),
+            "flash_bwd_dkv": (torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale,
+                              torch.einsum("bhqk,bqhd->bkhd", p, do))}
+
+
 def _max_err(pairs):
     return max(float((a - b).abs().max()) for a, b in pairs)
 
@@ -153,7 +226,8 @@ def _check_close(name, pairs, tol, where):
 
 
 def check_kernels(B, T, H, D, causal, timed):
-    """Each kernel against its plain version on the same inputs; times too
+    """Each kernel against its plain version on the same inputs, and each
+    backward kernel against a second run of itself (bitwise); times too
     when ``timed``. Returns {kernel: stats}."""
     g = torch.Generator(device="cuda").manual_seed(T * 7 + D)
     shape = (B, T, H, D)
@@ -185,23 +259,56 @@ def check_kernels(B, T, H, D, causal, timed):
         pairs = list(zip(got, plain()))
         _check_close(name, pairs, tol, where)
         err = _max_err(pairs)
+        if name != "flash_fwd":  # no atomics, a fixed summation order
+            again = kern()
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name} is not deterministic at {where}")
         flops, nbytes = work[name]
-        t_flops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES_PER_S
-        st = {"max_abs_err": err, "tol": tol,
-              "bound_ms": 1e3 * max(t_flops, t_bytes),
-              "bound_by": "operations" if t_flops >= t_bytes else "bytes"}
+        t_flops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
+        bound = 1e3 * max(t_flops, t_bytes)
+        st = {"max_abs_err": err, "tol": tol, "bound_ms": bound,
+              "bound_by": "operations" if t_flops >= t_bytes else "bytes",
+              "bound_tc_ms": bound,
+              "bound_f32_ms": 1e3 * max(flops / PEAK_F32_FLOPS, t_bytes)}
         if timed:
             st["ms"] = _time_ms(kern)
             st["plain_ms"] = _time_ms(plain, reps=3, inner=2)
         stats[name] = st
         line = f"  {name:14s} {where}: max|err| {err:.3e} (tol {tol:g})"
+        if name != "flash_fwd":
+            line += ", bitwise deterministic"
         if timed:
             line += (f"  kernel {st['ms']:.4f} ms  plain {st['plain_ms']:.4f}"
-                     f" ms  bound {st['bound_ms']:.4f} ms ({st['bound_by']})")
+                     f" ms  3xTF32 bound {st['bound_ms']:.4f} ms "
+                     f"({st['bound_by']})  f32 CUDA-core bound "
+                     f"{st['bound_f32_ms']:.4f} ms")
         print(line)
     if timed:
-        stats.update(_time_sdpa(q, k, v, do, causal))
+        _check_f64(runs, stats, _f64_bwd(q, k, v, do, lse_ref, corr, causal),
+                   where)
+        sdpa = _time_sdpa(q, k, v, do, causal)
+        stats["sdpa"] = sdpa
+        pair = stats["flash_bwd_dq"]["ms"] + stats["flash_bwd_dkv"]["ms"]
+        print(f"  backward pair  dQ + dK/dV {pair:.4f} ms, SDPA backward "
+              f"{sdpa['bwd_ms']:.4f} ms, ratio {pair / sdpa['bwd_ms']:.3f}")
     return stats
+
+
+def _check_f64(runs, stats, exact, where):
+    """Each backward kernel and its plain version against float64: the
+    kernel's max |err| may be at most F32_ERR_FACTOR times the plain's."""
+    for name, ref in exact.items():
+        kern, plain, _ = runs[name]
+        err = [_max_err(zip((x.double() for x in f()), ref))
+               for f in (kern, plain)]
+        stats[name].update(err_f64=err[0], plain_err_f64=err[1])
+        print(f"  {name:14s} vs float64: kernel max|err| {err[0]:.3e}, plain "
+              f"f32 {err[1]:.3e} (max|ref| {max(float(r.abs().max()) for r in ref):.3f})")
+        if err[0] > F32_ERR_FACTOR * err[1]:
+            raise AssertionError(f"{name} at {where}: max |err| vs float64 "
+                                 f"{err[0]:.3e} > {F32_ERR_FACTOR} x plain f32's "
+                                 f"{err[1]:.3e}")
 
 
 def _time_sdpa(q, k, v, do, causal):
@@ -216,7 +323,28 @@ def _time_sdpa(q, k, v, do, causal):
         out, (qt, kt, vt), dot, retain_graph=True))
     print(f"  sdpa           forward {fwd_ms:.4f} ms  backward (dQ+dK+dV) "
           f"{bwd_ms:.4f} ms")
-    return {"sdpa": {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}}
+    _name_sdpa_kernels(qt, kt, vt, dot, causal)
+    return {"fwd_ms": fwd_ms, "bwd_ms": bwd_ms}
+
+
+def _name_sdpa_kernels(qt, kt, vt, dot, causal):
+    """The CUDA kernels torch.profiler sees for one SDPA forward and one
+    backward call on these f32 inputs: which backend serves them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for what in ("forward", "backward"):
+        out = None if what == "forward" else F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            if out is None:
+                F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            else:
+                torch.autograd.grad(out, (qt, kt, vt), dot)
+            torch.cuda.synchronize()
+        names = [e.key for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        print(f"  sdpa {what} CUDA kernels: {names or 'none seen'}")
 
 
 def phase_kernels(report):
@@ -226,6 +354,28 @@ def phase_kernels(report):
     for r in RAGGED_SHAPES:
         check_kernels(r["B"], r["T"], r["H"], r["D"], r["causal"],
                       timed=False)
+    check_misaligned()
+
+
+def check_misaligned(B=1, T=64, H=1, D=32):
+    """A contiguous [B,T,H,D] view one float off a 16-byte boundary: each
+    backward wrapper raises ValueError and launches nothing (its kernel
+    copies 16 bytes a thread)."""
+    n = B * T * H * D
+    x = torch.randn(n + 1, device="cuda")
+    off, ok = x[1:].view(B, T, H, D), x[:n].view(B, T, H, D)
+    row = torch.zeros(B, H, T, device="cuda")
+    before = dict(fa.LAUNCHES)
+    for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+        try:
+            fn(off, ok, ok, ok, row, row, True)
+        except ValueError as e:
+            print(f"  {fn.__name__}: misaligned q raises: {e}")
+        else:
+            raise AssertionError(f"{fn.__name__} took a misaligned q")
+    torch.cuda.synchronize()  # the context is still sound
+    if fa.LAUNCHES != before:
+        raise AssertionError(f"launches on misaligned input: {fa.LAUNCHES}")
 
 
 def phase_slice(report):
@@ -336,6 +486,7 @@ def profile_round(api, round_idx, tokens):
 def kernel_line(report):
     stats, launches = report.get("kernels", {}), report.get("launches", {})
     sdpa = stats.get("sdpa", {})
+    pair = sdpa.get("bwd_ms")
     rows = []
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         st = stats.get(name, {})
@@ -344,11 +495,13 @@ def kernel_line(report):
             "replaces": REPLACES[name], "launches": launches.get(name),
             "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
             "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),
-            "bound_by": st.get("bound_by"),
+            "bound_by": st.get("bound_by"), "bound_tc_ms": st.get("bound_tc_ms"),
+            "bound_f32_ms": st.get("bound_f32_ms"),
             # one library call computes the forward alone; its backward
-            # computes dQ, dK and dV together, so it is printed above and
-            # not charged to either backward kernel
+            # computes dQ, dK and dV together, so it is set against the two
+            # backward kernels together and charged to neither alone
             "library_ms": sdpa.get("fwd_ms") if name == "flash_fwd" else None,
+            "library_pair_ms": None if name == "flash_fwd" else pair,
         })
     return {"kernels": rows}
 

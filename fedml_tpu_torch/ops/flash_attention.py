@@ -131,6 +131,17 @@ def _check(name, *tensors):
     return B, T, H, D
 
 
+def _check_aligned(name, *tensors):
+    """The backward kernels copy [B,T,H,D] rows 16 bytes a thread
+    (cp.async) and store 8: a view off a 16-byte boundary must raise here,
+    not fault on the card."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: [B,T,H,D] tensors must start on a "
+                             f"16-byte boundary (storage offset "
+                             f"{t.storage_offset()})")
+
+
 def _launch(name, fn, tensors, dims, causal):
     B, T, H, D = dims
     with torch.cuda.device(tensors[0].device):
@@ -156,6 +167,7 @@ def flash_fwd(q, k, v, causal: bool):
 def flash_bwd_dq(q, k, v, do, lse, corr, causal: bool):
     """dQ kernel."""
     dims = _check("flash_bwd_dq", q, k, v, do, lse, corr)
+    _check_aligned("flash_bwd_dq", q, k, v, do)
     dq = torch.empty_like(q)
     _launch("flash_bwd_dq", _kernels().flash_attention_bwd_dq,
             (q, k, v, do, lse, corr, dq), dims, causal)
@@ -165,6 +177,7 @@ def flash_bwd_dq(q, k, v, do, lse, corr, causal: bool):
 def flash_bwd_dkv(q, k, v, do, lse, corr, causal: bool):
     """dK/dV kernel."""
     dims = _check("flash_bwd_dkv", q, k, v, do, lse, corr)
+    _check_aligned("flash_bwd_dkv", q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch("flash_bwd_dkv", _kernels().flash_attention_bwd_dkv,
             (q, k, v, do, lse, corr, dk, dv), dims, causal)

@@ -29,13 +29,15 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 
 
-def nvcc_path() -> str:
+def cuda_tool(name: str) -> str:
+    """Path of a CUDA toolkit program (nvcc, cuobjdump): PATH, then
+    $CUDA_HOME/bin (default /usr/local/cuda)."""
     home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+    for cand in (shutil.which(name), os.path.join(home, "bin", name)):
         if cand and os.path.isfile(cand):
             return cand
-    raise RuntimeError("nvcc not found: the port's kernels are built from "
-                       "source (put nvcc on PATH or set CUDA_HOME)")
+    raise RuntimeError(f"{name} not found: put the CUDA toolkit's bin on PATH "
+                       "or set CUDA_HOME")
 
 
 def library_path(source: str) -> Path:
@@ -54,7 +56,7 @@ def build(source: str) -> Path:
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:

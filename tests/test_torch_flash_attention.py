@@ -6,6 +6,10 @@ Pallas interpret mode on the same numpy inputs: forward at the tolerance of
 tests/test_flash_attention.py:28, gradients (with a nonzero lse cotangent)
 at that of :52. The CUDA kernels themselves are held against the same plain
 version on the card by chip_smoke.py.
+
+The backward kernels run their products on the tensor cores as 3xTF32:
+test_3xtf32_products_keep_f32_accuracy emulates that split on the CPU and
+pins why it is needed.
 """
 
 import functools
@@ -20,6 +24,7 @@ from fedml_tpu.ops.flash_attention import (
     flash_attention_with_lse as jax_flash_with_lse,
 )
 from fedml_tpu_torch.ops.flash_attention import (
+    _check_aligned,
     flash_attention,
     flash_attention_with_lse,
     flash_fwd,
@@ -109,6 +114,16 @@ def test_kernel_wrapper_never_runs_the_plain_version():
         flash_fwd(q, q, q, True)
 
 
+def test_backward_wrappers_refuse_views_off_16_byte_boundary():
+    """The backward kernels copy rows 16 bytes a thread: a contiguous view
+    one float into its storage is refused before launch (chip_smoke.py
+    drives the same refusal through the wrappers on the card)."""
+    x = torch.zeros(1 + 64 * 32)
+    _check_aligned("t", x[:-1].view(1, 64, 1, 32))
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        _check_aligned("t", x[1:].view(1, 64, 1, 32))
+
+
 def test_kernel_library_needs_a_card():
     from fedml_tpu_torch.ops.loader import load_library
 
@@ -116,3 +131,71 @@ def test_kernel_library_needs_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         load_library("flash_attention.cu")
+
+
+def _tf32_rna(x):
+    """float32 x rounded to TF32 (10-bit mantissa), to nearest with ties away
+    from zero, as cvt.rna.tf32.f32 and the kernels' tf32_rna round it."""
+    u = x.contiguous().view(torch.int32)
+    return ((u + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _matmul(a, b, mode):
+    """a @ b with every product emulated as the tensor cores take it: f32
+    (or f64) as is, "1xtf32" from TF32-rounded operands, "3xtf32" as
+    big*small + small*big + big*big of each operand's TF32 split."""
+    if mode in ("f64", "f32"):
+        return a @ b
+    big_a, big_b = _tf32_rna(a), _tf32_rna(b)
+    if mode == "1xtf32":
+        return big_a @ big_b
+    small_a, small_b = _tf32_rna(a - big_a), _tf32_rna(b - big_b)
+    return (big_a @ small_b + small_a @ big_b) + big_a @ big_b
+
+
+def _emulated_bwd(q, k, v, do, lse, corr, causal, mode):
+    """dQ, dK, dV ([BH, T, D]) by the kernels' seven products in ``mode``."""
+    dt = torch.float64 if mode == "f64" else torch.float32
+    q, k, v, do, lse, corr = (x.to(dt) for x in (q, k, v, do, lse, corr))
+    T, scale = q.shape[1], q.shape[-1] ** -0.5
+    s = _matmul(q, k.transpose(1, 2), mode) * scale
+    if causal:
+        s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(), -1e30)
+    p = torch.exp(s - lse[..., None])
+    ds = p * (_matmul(do, v.transpose(1, 2), mode) + corr[..., None])
+    return (_matmul(ds, k, mode) * scale,
+            _matmul(ds.transpose(1, 2), q, mode) * scale,
+            _matmul(p.transpose(1, 2), do, mode))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_products_keep_f32_accuracy(causal):
+    """Against float64, 3xTF32 products give dQ, dK and dV within 4x of
+    plain float32's error; single-pass TF32 is over 100x worse, far outside
+    the kernels' 1e-3 tolerance at long T.
+
+    This pins the operand split only. Each product here is one exactly
+    rounded f32 matmul, so it does not model the tensor cores' truncating
+    adds along a long accumulation chain, which the kernels avoid by adding
+    each tile's product into an f32 register sum (acc_add). That half is
+    held by chip_smoke.py's float64 check on the card (at most 4x plain
+    f32's error at T = 2048)."""
+    rs = np.random.RandomState(3)
+    BH, T, D = 2, 256, 32
+    q, k, v, do = (torch.tensor(rs.randn(BH, T, D).astype(np.float32))
+                   for _ in range(4))
+    g_lse = torch.tensor(rs.randn(BH, T))
+    s = (q.double() @ k.double().transpose(1, 2)) * D ** -0.5
+    if causal:
+        s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(),
+                          float("-inf"))
+    lse = torch.logsumexp(s, -1)
+    corr = g_lse - (do.double() * (torch.softmax(s, -1) @ v.double())).sum(-1)
+    args = (q, k, v, do, lse.float(), corr.float(), causal)
+    exact = _emulated_bwd(*args, "f64")
+    err = {mode: [float((x.double() - r).abs().max())
+                  for x, r in zip(_emulated_bwd(*args, mode), exact)]
+           for mode in ("f32", "3xtf32", "1xtf32")}
+    for name, f32, tc3, tc1 in zip(("dq", "dk", "dv"), *err.values()):
+        assert tc3 <= 4 * f32, (name, tc3, f32)
+        assert tc1 > 100 * f32, (name, tc1, f32)
