@@ -8,14 +8,17 @@ Phases, in order:
   device   the card's name and power limit (nvidia-smi); TF32 switched off
   build    nvcc builds every kernel source in fedml_tpu_torch/ops/csrc;
            ptxas's registers and spills and the count of tensor-core
-           (HMMA) instructions in the built SASS, per instantiation
+           (HMMA) instructions in the built SASS, per instantiation; fails
+           if an instantiation of any of the three kernels has none
   kernels  each kernel against its plain PyTorch version on the card, at the
            long-context slice shape and at ragged shapes of every head dim
-           the kernels take, and each backward kernel run twice for bitwise
-           equal outputs; its time, the plain version's time and
-           scaled_dot_product_attention's, whose CUDA kernels are named;
-           a [B,T,H,D] view off a 16-byte boundary refused by the
-           backward wrappers before any launch
+           the kernels take, and run twice for bitwise equal outputs; the
+           forward (o and lse) against float64 at every one of those
+           shapes, the backward pair at the slice shape, each within
+           F32_ERR_FACTOR x its plain float32 version's error; its time,
+           the plain version's time and scaled_dot_product_attention's,
+           whose CUDA kernels are named; a [B,T,H,D] view off a 16-byte
+           boundary refused by all three wrappers before any launch
   slice    FedAvg over TransformerLM("transformer_flash", vocab 1024, dim
            256, depth 4, heads 8, T 2048): 2 rounds of 4 clients x 2 local
            SGD steps, every attention call through the kernels (launch
@@ -61,9 +64,8 @@ PEAK_BYTES_PER_S = 3.35e12
 # einsum; the grads add a second such sum (dS) and sum over T queries.
 TOL_FWD = 1e-4
 TOL_BWD = 1e-3
-# the backward kernels (3xTF32 on the tensor cores) against a float64
-# oracle, at the slice shape: max |err| at most this many times that of
-# their plain float32 versions
+# the kernels (3xTF32 on the tensor cores) against a float64 oracle: max
+# |err| at most this many times that of their plain float32 versions
 F32_ERR_FACTOR = 4
 # the slice's rounds, flash kernels vs plain attention from the same
 # weights: history metrics (relative) and final params (absolute) are 4
@@ -75,7 +77,8 @@ RAGGED_SHAPES = (dict(B=2, T=1000, H=4, D=64, causal=True),
                  dict(B=2, T=1000, H=4, D=64, causal=False),
                  dict(B=1, T=300, H=2, D=16, causal=True),
                  dict(B=1, T=300, H=2, D=128, causal=False))
-SLICE_BWD_KERNELS = ("flash_dq_kernel<32,1>", "flash_dkv_kernel<32,1>")
+SLICE_KERNELS = ("flash_fwd_kernel<32,1>", "flash_dq_kernel<32,1>",
+                 "flash_dkv_kernel<32,1>")
 SOURCE = "fedml_tpu_torch/ops/csrc/flash_attention.cu"
 REPLACES = {"flash_fwd": "fedml_tpu/ops/flash_attention.py:79",
             "flash_bwd_dq": "fedml_tpu/ops/flash_attention.py:213",
@@ -158,10 +161,11 @@ def phase_build(report):
             n_hmma, n_all = sass.get(fn, (0, 0))
             print(f"  ptxas: {fn:28s} {regs:3d} registers, {spill} bytes "
                   f"spilled; SASS {n_hmma} HMMA of {n_all} instructions")
-        # every instantiation of the backward kernels runs on the tensor
+        # every instantiation of the three kernels runs on the tensor
         # cores, the slice's (D=32, causal) first of all
-        bwd = {fn for fn in hmma if re.match(r"flash_(dq|dkv)_kernel<", fn)}
-        zero = sorted(fn for fn in bwd | set(SLICE_BWD_KERNELS)
+        flash = {fn for fn in hmma
+                 if re.match(r"flash_(fwd|dq|dkv)_kernel<", fn)}
+        zero = sorted(fn for fn in flash | set(SLICE_KERNELS)
                       if not hmma.get(fn))
         if zero:
             raise AssertionError(f"no tensor-core (HMMA) instruction in the "
@@ -196,15 +200,31 @@ def _work(B, T, H, D, causal):
             "flash_bwd_dkv": (8 * D * pairs, 4 * x + 2 * row + 2 * x)}
 
 
-def _f64_bwd(q, k, v, do, lse, corr, causal):
-    """dQ and (dK, dV) of the same inputs in float64, by kernel name: the
-    yardstick of accuracy for the kernels and their plain versions alike."""
-    q, k, v, do, lse, corr = (x.double() for x in (q, k, v, do, lse, corr))
+def _f64_scores(q, k, causal):
     T, scale = q.shape[1], 1 / math.sqrt(q.shape[-1])
     s = torch.einsum("bqhd,bkhd->bhqk", q, k) * scale
     if causal:
         ok = torch.ones(T, T, dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~ok, fa.NEG_INF)
+    return s
+
+
+def _f64_fwd(q, k, v, causal):
+    """(o, lse) of the same inputs in float64, by kernel name: the yardstick
+    of accuracy for the forward kernel and its plain version alike."""
+    q, k, v = (x.double() for x in (q, k, v))
+    s = _f64_scores(q, k, causal)
+    lse = torch.logsumexp(s, -1)
+    o = torch.einsum("bhqk,bkhd->bqhd", torch.exp(s - lse[..., None]), v)
+    return {"flash_fwd": (o, lse)}
+
+
+def _f64_bwd(q, k, v, do, lse, corr, causal):
+    """dQ and (dK, dV) of the same inputs in float64, by kernel name: the
+    yardstick of accuracy for the kernels and their plain versions alike."""
+    q, k, v, do, lse, corr = (x.double() for x in (q, k, v, do, lse, corr))
+    scale = 1 / math.sqrt(q.shape[-1])
+    s = _f64_scores(q, k, causal)
     p = torch.exp(s - lse[..., None])
     del s
     ds = p * (torch.einsum("bqhd,bkhd->bhqk", do, v) + corr[..., None])
@@ -226,9 +246,10 @@ def _check_close(name, pairs, tol, where):
 
 
 def check_kernels(B, T, H, D, causal, timed):
-    """Each kernel against its plain version on the same inputs, and each
-    backward kernel against a second run of itself (bitwise); times too
-    when ``timed``. Returns {kernel: stats}."""
+    """Each kernel against its plain version on the same inputs and
+    against a second run of itself (bitwise), the forward against float64;
+    times, SDPA's and the backward pair against float64 too when
+    ``timed``. Returns {kernel: stats}."""
     g = torch.Generator(device="cuda").manual_seed(T * 7 + D)
     shape = (B, T, H, D)
     q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
@@ -259,11 +280,10 @@ def check_kernels(B, T, H, D, causal, timed):
         pairs = list(zip(got, plain()))
         _check_close(name, pairs, tol, where)
         err = _max_err(pairs)
-        if name != "flash_fwd":  # no atomics, a fixed summation order
-            again = kern()
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"{name} is not deterministic at {where}")
+        again = kern()  # no atomics, a fixed summation order
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name} is not deterministic at {where}")
         flops, nbytes = work[name]
         t_flops, t_bytes = 3 * flops / PEAK_TF32_FLOPS, nbytes / PEAK_BYTES_PER_S
         bound = 1e3 * max(t_flops, t_bytes)
@@ -275,17 +295,17 @@ def check_kernels(B, T, H, D, causal, timed):
             st["ms"] = _time_ms(kern)
             st["plain_ms"] = _time_ms(plain, reps=3, inner=2)
         stats[name] = st
-        line = f"  {name:14s} {where}: max|err| {err:.3e} (tol {tol:g})"
-        if name != "flash_fwd":
-            line += ", bitwise deterministic"
+        line = (f"  {name:14s} {where}: max|err| {err:.3e} (tol {tol:g}), "
+                f"bitwise deterministic")
         if timed:
             line += (f"  kernel {st['ms']:.4f} ms  plain {st['plain_ms']:.4f}"
                      f" ms  3xTF32 bound {st['bound_ms']:.4f} ms "
                      f"({st['bound_by']})  f32 CUDA-core bound "
                      f"{st['bound_f32_ms']:.4f} ms")
         print(line)
+    _check_f64(runs, _f64_fwd(q, k, v, causal), where)
     if timed:
-        _check_f64(runs, stats, _f64_bwd(q, k, v, do, lse_ref, corr, causal),
+        _check_f64(runs, _f64_bwd(q, k, v, do, lse_ref, corr, causal),
                    where)
         sdpa = _time_sdpa(q, k, v, do, causal)
         stats["sdpa"] = sdpa
@@ -295,20 +315,23 @@ def check_kernels(B, T, H, D, causal, timed):
     return stats
 
 
-def _check_f64(runs, stats, exact, where):
-    """Each backward kernel and its plain version against float64: the
-    kernel's max |err| may be at most F32_ERR_FACTOR times the plain's."""
+def _check_f64(runs, exact, where):
+    """Each kernel and its plain version against float64, output by
+    output: the kernel's max |err| may be at most F32_ERR_FACTOR times the
+    plain's."""
     for name, ref in exact.items():
         kern, plain, _ = runs[name]
-        err = [_max_err(zip((x.double() for x in f()), ref))
-               for f in (kern, plain)]
-        stats[name].update(err_f64=err[0], plain_err_f64=err[1])
-        print(f"  {name:14s} vs float64: kernel max|err| {err[0]:.3e}, plain "
-              f"f32 {err[1]:.3e} (max|ref| {max(float(r.abs().max()) for r in ref):.3f})")
-        if err[0] > F32_ERR_FACTOR * err[1]:
-            raise AssertionError(f"{name} at {where}: max |err| vs float64 "
-                                 f"{err[0]:.3e} > {F32_ERR_FACTOR} x plain f32's "
-                                 f"{err[1]:.3e}")
+        outs = [[x.double() for x in f()] for f in (kern, plain)]
+        for i, r in enumerate(ref):
+            err = [float((out[i] - r).abs().max()) for out in outs]
+            print(f"  {name:14s} output {i} vs float64: kernel max|err| "
+                  f"{err[0]:.3e}, plain f32 {err[1]:.3e} (max|ref| "
+                  f"{float(r.abs().max()):.3f})")
+            if err[0] > F32_ERR_FACTOR * err[1]:
+                raise AssertionError(
+                    f"{name} output {i} at {where}: max |err| vs float64 "
+                    f"{err[0]:.3e} > {F32_ERR_FACTOR} x plain f32's "
+                    f"{err[1]:.3e}")
 
 
 def _time_sdpa(q, k, v, do, causal):
@@ -359,16 +382,19 @@ def phase_kernels(report):
 
 def check_misaligned(B=1, T=64, H=1, D=32):
     """A contiguous [B,T,H,D] view one float off a 16-byte boundary: each
-    backward wrapper raises ValueError and launches nothing (its kernel
-    copies 16 bytes a thread)."""
+    wrapper raises ValueError and launches nothing (its kernel copies 16
+    bytes a thread)."""
     n = B * T * H * D
     x = torch.randn(n + 1, device="cuda")
     off, ok = x[1:].view(B, T, H, D), x[:n].view(B, T, H, D)
     row = torch.zeros(B, H, T, device="cuda")
     before = dict(fa.LAUNCHES)
-    for fn in (fa.flash_bwd_dq, fa.flash_bwd_dkv):
+    calls = ((fa.flash_fwd, (off, ok, ok, True)),
+             (fa.flash_bwd_dq, (off, ok, ok, ok, row, row, True)),
+             (fa.flash_bwd_dkv, (off, ok, ok, ok, row, row, True)))
+    for fn, args in calls:
         try:
-            fn(off, ok, ok, ok, row, row, True)
+            fn(*args)
         except ValueError as e:
             print(f"  {fn.__name__}: misaligned q raises: {e}")
         else:
@@ -479,8 +505,11 @@ def profile_round(api, round_idx, tokens):
     print(f"profile: device busy {busy:.4f} s = {busy / wall:.1%} of wall; "
           + ", ".join(f"{g} {t:.4f} s ({t / busy:.1%})"
                       for g, t in groups.items()))
-    for name, t in sorted(us.items(), key=lambda kv: -kv[1])[:6]:
-        print(f"profile:   {t / 1e3:9.3f} ms  {name[:90]}")
+    top = sorted(us.items(), key=lambda kv: -kv[1])
+    calls = {e.key: e.count for e in kernels}
+    for name, t in top[:6] + [kv for kv in top[6:] if "flash_" in kv[0]]:
+        print(f"profile:   {t / 1e3:9.3f} ms  {calls[name]:4d} launches  "
+              f"{name[:90]}")
 
 
 def kernel_line(report):

@@ -5,241 +5,110 @@
 //   flash_dq_kernel   <- _bwd_dq_kernel   (:213, launched by _pallas_bwd, first call)
 //   flash_dkv_kernel  <- _bwd_dkv_kernel  (:238, launched by _pallas_bwd, second call)
 //
-// Forward. What bounds it: arithmetic. At the long-context training shape
-// (B*H = 32 heads, T = 2048, D = 32) it does 4*D flops per unmasked (query,
-// key) pair and reads ~34 MB, so f32 FMA work exceeds the memory time by an
-// order of magnitude. It stays in f32 on the CUDA cores, and its real
-// limiter is the shared-memory load rate feeding those FMAs:
-// - one block of 256 threads owns a 64-row query tile and loops over 64-row
-//   key tiles staged through shared memory; rows are padded to D+1 floats so
-//   column walks hit distinct banks;
-// - each thread keeps a 4x4 register micro-tile of scores (rows ty+16i, cols
-//   tx+16j), so each shared-memory value it loads feeds four FMAs; row maxima
-//   and sums of the online softmax are reduced with 16-lane shuffles.
-//
-// Backward (dQ, dK/dV). What bounds them: matrix products, 6*D (dQ) and 8*D
-// (dK/dV) flops per unmasked pair, seven products per tile pair:
+// What bounds them: matrix products, 4*D (forward), 6*D (dQ) and 8*D (dK/dV)
+// flops per unmasked (query, key) pair, in two, three and four products per
+// tile pair:
+//   forward:      S = Q K^T, O += P V (online softmax between them)
 //   dQ kernel:    S = Q K^T, dP = dO V^T, dQ += dS K
 //   dK/dV kernel: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q
-// They run on the tensor cores, which hold most of the card's arithmetic,
-// at float32 accuracy, so their floor is 3xTF32 tensor-core work (three
-// TF32 products per product at 495 TFLOP/s). Above that floor what limits
-// them is instruction issue: of every ten instructions about one is an mma,
-// the rest split operands, load fragments from shared memory, add partials
-// and apply the softmax. The design:
+// At the long-context training shape (B*H = 32 heads, T = 2048, D = 32) that
+// work exceeds the time to move 34-51 MB of inputs and outputs several
+// times over. All three run on the tensor cores, which hold most of the
+// card's arithmetic, at float32 accuracy, so their floor is 3xTF32
+// tensor-core work (three TF32 products per product at 495 TFLOP/s). Above
+// that floor what limits them is instruction issue: most instructions split
+// operands, load fragments from shared memory, add partials and apply the
+// softmax; about one in ten is an mma. The design:
 // - 3xTF32. mma.sync m16n8k8 takes TF32 operands (10-bit mantissa), which
-//   alone would put ~1e-3 errors into the gradients. Each f32 operand x is
+//   alone would put ~1e-3 errors into the outputs. Each f32 operand x is
 //   split into big = tf32(x) and small = tf32(x - big), and every product
 //   is accumulated in f32 as big*small + small*big + big*big (small*small,
 //   ~2^-22 relative, is dropped), at a third of the TF32 rate: ~165 TFLOP/s
 //   of f32-accurate work against 67 on the CUDA cores. No product runs as a
 //   single TF32 pass. The tensor cores add with truncation, so the sums over
-//   the streamed rows start from zero in each tile and each tile's partial
-//   is added into an f32 register sum, rounded (acc_add). Against a float64
-//   oracle the gradients are then as accurate as the plain f32 version
-//   (chip_smoke.py checks it).
+//   the streamed rows (O, dQ, dK, dV) start from zero in each tile and each
+//   tile's partial is added into an f32 register sum, rounded (acc_add, or
+//   the forward's rescale-and-add). Against a float64 oracle the outputs are
+//   then as accurate as the plain f32 version (chip_smoke.py checks it).
 // - Scores stay in registers. One block of 4 warps owns a 64-row tile
-//   (queries for dQ, keys for dK/dV), 16 rows per warp. The m16n8
-//   accumulator fragments of S and dP become the A fragments of the next
-//   product without a trip through shared memory. An accumulator holds
-//   columns (2t, 2t+1) where an A fragment wants (t, t+4), so the
-//   contraction index is permuted instead of the registers: logical k = t
-//   is physical row 2t and t+4 is 2t+1, and the B rows are loaded in that
-//   order (a sum does not depend on its order).
-// - Asynchronous loads. The streamed tiles (K, V in dQ; Q, dO, lse, corr in
-//   dK/dV) arrive by cp.async, 16 bytes a thread, double-buffered, so the
-//   next tile's copy runs under this tile's products. Rows are padded to
-//   D+4 floats: 16-byte aligned for cp.async, and every fragment load,
-//   including those of the operands contracted over a tile's rows (K in
-//   dS K; dO and Q in dK/dV), hits 32 distinct banks.
+//   (queries for the forward and dQ, keys for dK/dV), 16 rows per warp. The
+//   m16n8 accumulator fragments of S and dP become the A fragments of the
+//   next product (P V, dS K, P^T dO, dS^T Q) without a trip through shared
+//   memory. An accumulator holds columns (2t, 2t+1) where an A fragment
+//   wants (t, t+4), so the contraction index is permuted instead of the
+//   registers: logical k = t is physical row 2t and t+4 is 2t+1, and the B
+//   rows are loaded in that order (a sum does not depend on its order).
+// - Forward's online softmax. A row's scores lie in the 4 lanes of a quad;
+//   its running max m is taken across the quad with two shuffles per tile,
+//   its running sum l is kept per lane and added across the quad once at
+//   the end. Scores are kept in log2 units (scale * log2(e) folded into the
+//   scale), so each exponential is one exp2. Per tile: m_new = max(m, rowmax
+//   S), corr = exp(m - m_new), P = exp(S - m_new), l = l corr + rowsum P,
+//   O = O corr + P V with the tile's P V from zero. Q does not change across
+//   key tiles, so for D <= 32 its split A fragments are made once and held
+//   in registers (32 of them at D = 32); from D = 64 they would crowd out
+//   the O accumulators, and are loaded and split per tile as in dQ.
+// - Asynchronous loads. The streamed tiles (K, V in the forward and dQ; Q,
+//   dO, lse, corr in dK/dV) arrive by cp.async, 16 bytes a thread,
+//   double-buffered, so the next tile's copy runs under this tile's
+//   products. Rows are padded to D+4 floats: 16-byte aligned for cp.async,
+//   and every fragment load, including those of the operands contracted
+//   over a tile's rows (V in P V, K in dS K; dO and Q in dK/dV), hits 32
+//   distinct banks.
+// - Operands are split per warp. Each warp splits the K and V fragments it
+//   loads, so the four warps of a block split every streamed element four
+//   times. Splitting each element once per tile into big and small tiles in
+//   shared memory (FLASH_FWD_SPLIT_ONCE=1, forward only) removes those
+//   repeats but doubles the bytes read from shared memory per fragment and
+//   adds a pass and a barrier per tile; it was slower on the card (PERF.md).
 // - Registers and shared memory. Streamed tiles are 64 rows; 32 for dK/dV
 //   from D = 64, whose two accumulators need the registers; 16 at D = 128,
-//   where two owned and four streamed tiles would fill shared memory for one
-//   block per SM. dQ, dK and dV are summed tile by tile (acc_add) in passes
-//   of at most 32 columns.
+//   where the tiles would otherwise fill shared memory for one block per SM.
+//   O, dQ, dK and dV are summed tile by tile in passes of at most 32
+//   columns.
 // - Causal balance. The grid is (B*H, tiles) and blocks are issued x first,
-//   so every head's heaviest tile goes first: a dQ query tile i visits i+1
-//   key tiles, so dQ walks its tiles in reverse; a dK/dV key tile i visits
-//   n-i query tiles, so it walks them in order.
+//   so every head's heaviest tile goes first: a query tile i visits i+1 key
+//   tiles, so the forward and dQ walk their tiles in reverse; a dK/dV key
+//   tile i visits n-i query tiles, so it walks them in order.
 // - Why mma.sync and not wgmma: for tf32, wgmma takes both operands K-major
-//   from shared memory (only 16-bit types may be transposed), and three of
-//   the seven products (dS K, P^T dO, dS^T Q) contract over a tile's rows,
-//   so wgmma would need transposed copies of those tiles. mma.sync loads its
-//   fragments per thread in any order.
+//   from shared memory (only 16-bit types may be transposed), and P V, dS K,
+//   P^T dO and dS^T Q contract over a tile's rows, so wgmma would need
+//   transposed copies of V, K, dO and Q, and the split big and small tiles,
+//   in shared memory. mma.sync loads its fragments per thread in any order.
+//   That redesign is later work.
 //
 // All three kernels skip tiles wholly above the causal diagonal (the TPU
 // kernels did the full T^2 work) and mask the ragged edge k >= T here, so the
 // caller passes unpadded [B, T, H, D] tensors and no padding copy exists. The
-// dQ / dK,dV split of the TPU version is kept: no atomics, and every output
-// element is summed in a fixed order, so results are the same bitwise from
-// run to run.
+// forward's per-row l is floored at 1e-30 and lse = m + log(l), as in the
+// TPU kernel. The dQ / dK,dV split of the TPU version is kept: no atomics,
+// and every output element is summed in a fixed order, so results are the
+// same bitwise from run to run.
 //
 // Layouts: q, k, v, o, dO, dQ, dK, dV are contiguous [B, T, H, D]; lse and
 // corr (= lse cotangent - rowsum(dO * O)) are contiguous [B, H, T]. The
-// backward kernels need q, k, v and dO to start on a 16-byte boundary (the
-// Python wrappers refuse other views) and write dQ, dK, dV 8 bytes at a
-// time. Kernels
-// launch on the caller's stream, allocate nothing, and each C entry point
-// returns cudaGetLastError() of its launch.
+// kernels need q, k, v and dO to start on a 16-byte boundary (the Python
+// wrappers refuse other views) and write o, dQ, dK, dV 8 bytes at a time.
+// Kernels launch on the caller's stream, allocate nothing, and each C entry
+// point returns cudaGetLastError() of its launch.
 
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
 
+#ifndef FLASH_FWD_SPLIT_ONCE
+#define FLASH_FWD_SPLIT_ONCE 0
+#endif
+
+
 namespace {
 
-constexpr int kBlock = 64;         // rows per tile, both operands
-constexpr int kThreads = 256;      // 16 x 16 threads, 4 x 4 scores each
-constexpr int kLdS = kBlock + 1;   // padded stride of score tiles in shared memory
 constexpr float kNegInf = -1e30f;  // the TPU kernels' mask value
-
-__device__ __forceinline__ float group16_max(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group16_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1) x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// Rows row0 .. row0+63 of one head (src points at element (b, 0, h, 0); row t
-// lies at src + t * stride) into a [64][D+1] shared tile; rows >= T are zero.
-template <int D>
-__device__ __forceinline__ void load_rows(float* __restrict__ dst, const float* __restrict__ src,
-                                          int row0, int T, int stride) {
-  for (int i = threadIdx.x; i < kBlock * D; i += kThreads) {
-    const int r = i / D, d = i % D;
-    const int t = row0 + r;
-    dst[r * (D + 1) + d] = t < T ? src[(size_t)t * stride + d] : 0.f;
-  }
-}
-
-// Key tiles a 64-row query tile starting at q0 must visit.
-template <bool kCausal>
-__device__ __forceinline__ int key_tiles(int q0, int T) {
-  const int n = (T + kBlock - 1) / kBlock;
-  return kCausal ? min(n, (q0 + kBlock - 1) / kBlock + 1) : n;
-}
-
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int T, int H, float scale) {
-  constexpr int LD = D + 1, DJ = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBlock * LD;
-  float* Vs = Ks + kBlock * LD;
-  float* Ps = Vs + kBlock * LD;
-
-  const int bh = blockIdx.y, b = bh / H, h = bh - b * H;
-  const int q0 = blockIdx.x * kBlock;
-  const int stride = H * D;
-  const size_t base = ((size_t)b * T * H + h) * D;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-
-  load_rows<D>(Qs, q + base, q0, T, stride);
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jd = 0; jd < DJ; ++jd) acc[i][jd] = 0.f;
-  }
-
-  const int n_tiles = key_tiles<kCausal>(q0, T);
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int k0 = kt * kBlock;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<D>(Ks, k + base, k0, T, stride);
-    load_rows<D>(Vs, v + base, k0, T, stride);
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float a[4], c[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Qs[(ty + 16 * i) * LD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) c[j] = Ks[(tx + 16 * j) * LD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], c[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool ok = kpos < T && (!kCausal || kpos <= qpos);
-        s[i][j] = ok ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      mx = group16_max(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float corr = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = expf(s[i][j] - m_new);
-        rs += s[i][j];
-      }
-      rs = group16_sum(rs);
-      l[i] = l[i] * corr + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int jd = 0; jd < DJ; ++jd) acc[i][jd] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) Ps[(ty + 16 * i) * kLdS + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int n = 0; n < kBlock; ++n) {
-      float a[4], c[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = Ps[(ty + 16 * i) * kLdS + n];
-#pragma unroll
-      for (int jd = 0; jd < DJ; ++jd) c[jd] = Vs[n * LD + tx + 16 * jd];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jd = 0; jd < DJ; ++jd) acc[i][jd] = fmaf(a[i], c[jd], acc[i][jd]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t < T) {
-      const float l_safe = fmaxf(l[i], 1e-30f);
-      float* orow = o + base + (size_t)t * stride;
-#pragma unroll
-      for (int jd = 0; jd < DJ; ++jd) orow[tx + 16 * jd] = acc[i][jd] / l_safe;
-      if (tx == 0) lse[(size_t)bh * T + t] = m[i] + logf(l_safe);
-    }
-  }
-}
-
-// ---------------------------------------------------------------- backward
-constexpr int kBwdWarps = 4;
-constexpr int kBwdThreads = 32 * kBwdWarps;
-constexpr int kOwn = 16 * kBwdWarps;  // rows a block owns: 16 per warp
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kOwn = 16 * kWarps;  // rows a block owns: 16 per warp
 
 // Rows of the streamed tiles: 64; 32 for dK/dV from D = 64, whose two
 // accumulators would not fit in registers beside 64-row score tiles; 16 at
@@ -251,7 +120,7 @@ __host__ __device__ constexpr int stream_rows() {
 }
 template <int D>
 __host__ __device__ constexpr int tile_ld() { return D + 4; }
-// Column groups of 8 whose tile partials one pass of dQ/dK/dV's product
+// Column groups of 8 whose tile partials one pass of the O/dQ/dK/dV product
 // holds in registers at once.
 template <int D>
 __host__ __device__ constexpr int col_groups() { return D / 8 < 4 ? D / 8 : 4; }
@@ -284,10 +153,10 @@ template <int D, int ROWS>
 __device__ __forceinline__ void async_rows(float* dst, const float* __restrict__ src, int row0,
                                            int T, int stride) {
   constexpr int kPerRow = D / 4, kChunks = ROWS * kPerRow;
-  static_assert(kChunks % kBwdThreads == 0, "tile copy must split evenly over the block");
+  static_assert(kChunks % kThreads == 0, "tile copy must split evenly over the block");
 #pragma unroll
-  for (int it = 0; it < kChunks / kBwdThreads; ++it) {
-    const int i = it * kBwdThreads + threadIdx.x;
+  for (int it = 0; it < kChunks / kThreads; ++it) {
+    const int i = it * kThreads + threadIdx.x;
     const int r = i / kPerRow, c = (i % kPerRow) * 4;
     const int t = row0 + r;
     const bool ok = t < T;
@@ -300,7 +169,7 @@ __device__ __forceinline__ void async_rows(float* dst, const float* __restrict__
 template <int ROWS>
 __device__ __forceinline__ void async_vec(float* dst, const float* __restrict__ src, int row0,
                                           int T) {
-  for (int i = threadIdx.x; i < ROWS; i += kBwdThreads) {
+  for (int i = threadIdx.x; i < ROWS; i += kThreads) {
     const int t = row0 + i;
     const bool ok = t < T;
     cp_async4(dst + i, src + (ok ? t : 0), ok);
@@ -372,9 +241,9 @@ __device__ __forceinline__ void load_b_trans(Frag<2>& f, const float* p, int ld,
   split_frag(f, x);
 }
 
-// B fragment taken from a row-major tile p contracted over its ROWS (as K in
-// dS K), in the permuted contraction order that matches accum_to_a: logical
-// rows t and t+4 are physical rows 2t and 2t+1.
+// B fragment taken from a row-major tile p contracted over its ROWS (as V in
+// P V, K in dS K), in the permuted contraction order that matches
+// accum_to_a: logical rows t and t+4 are physical rows 2t and 2t+1.
 __device__ __forceinline__ void load_b_perm(Frag<2>& f, const float* p, int ld, int g, int t) {
   const float x[2] = {p[2 * t * ld + g], p[(2 * t + 1) * ld + g]};
   split_frag(f, x);
@@ -388,18 +257,239 @@ __device__ __forceinline__ void accum_to_a(Frag<4>& f, const float (&c)[4]) {
   split_frag(f, x);
 }
 
+#if FLASH_FWD_SPLIT_ONCE
+// The A/B variant: a tile split once in place (big) beside its small parts
+// (a second tile of the same layout), so a fragment load is two reads.
+__device__ __forceinline__ void split_tile(float* big, float* small, int rows, int D, int ld) {
+  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
+    const int at = (i / D) * ld + i % D;
+    uint32_t b, s;
+    split_tf32(big[at], b, s);
+    big[at] = __uint_as_float(b);
+    small[at] = __uint_as_float(s);
+  }
+}
+
+__device__ __forceinline__ void read_b(Frag<2>& f, const float* big, const float* small, int a0,
+                                       int a1) {
+  f.big[0] = __float_as_uint(big[a0]);
+  f.big[1] = __float_as_uint(big[a1]);
+  f.small[0] = __float_as_uint(small[a0]);
+  f.small[1] = __float_as_uint(small[a1]);
+}
+#endif
+
+// O and lse for one 64-row query tile, looping over streamed key tiles with
+// an online softmax (source note above).
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(kThreads)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
+                 float* __restrict__ lse, int T, int H, float scale) {
+  constexpr int LD = tile_ld<D>(), BN = stream_rows<D, false>(), KD = D / 8, NJ = BN / 8,
+                KC = col_groups<D>();
+  constexpr bool kQInRegs = D <= 32;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
+  float* Ks = Qs + kOwn * LD;  // [2][BN][LD]
+  float* Vs = Ks + 2 * BN * LD;
+#if FLASH_FWD_SPLIT_ONCE
+  float* Ksm = Vs + 2 * BN * LD;  // [BN][LD]: small parts of the current tile
+  float* Vsm = Ksm + BN * LD;
+#endif
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;  // heaviest causal tiles first
+  const int stride = H * D;
+  const size_t base = ((size_t)b * T * H + h) * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  const int r0 = warp * 16;  // this warp's rows of the tile
+  const float scale2 = scale * kLog2e;  // scores in log2 units
+
+  async_rows<D, kOwn>(Qs, q + base, q0, T, stride);
+  cp_async_commit();
+  async_rows<D, BN>(Ks, k + base, 0, T, stride);
+  async_rows<D, BN>(Vs, v + base, 0, T, stride);
+  cp_async_commit();
+
+  Frag<4> qf[kQInRegs ? KD : 1];
+  if constexpr (kQInRegs) {
+    cp_async_wait<1>();  // Q only
+    __syncthreads();
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) load_a(qf[kd], Qs + r0 * LD + kd * 8, LD, g, t4);
+  }
+
+  // rows g and g+8 of this warp: running max (log2 units) and this lane's
+  // part of the running sum
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float acc[KD][4];
+#pragma unroll
+  for (int nd = 0; nd < KD; ++nd)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
+
+  const int n_all = (T + BN - 1) / BN;
+  const int n_tiles = kCausal ? min(n_all, (q0 + kOwn + BN - 1) / BN) : n_all;
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    const int cur = kt & 1;
+    if (kt + 1 < n_tiles) {  // the next tile's copy runs under this tile's products
+      async_rows<D, BN>(Ks + (cur ^ 1) * BN * LD, k + base, (kt + 1) * BN, T, stride);
+      async_rows<D, BN>(Vs + (cur ^ 1) * BN * LD, v + base, (kt + 1) * BN, T, stride);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    float* Kt = Ks + cur * BN * LD;
+    float* Vt = Vs + cur * BN * LD;
+    const int k0 = kt * BN;
+#if FLASH_FWD_SPLIT_ONCE
+    split_tile(Kt, Ksm, BN, D, LD);
+    split_tile(Vt, Vsm, BN, D, LD);
+    __syncthreads();
+#endif
+
+    // S = Q K^T, summed from zero in the tensor cores over each 32 columns
+    // of D, the chunks added in f32: one chain of truncating adds over all
+    // of D = 64 or 128 would bias the scores, and so lse, toward zero
+    float s[NJ][4];
+#pragma unroll
+    for (int c0 = 0; c0 < KD; c0 += 4) {
+      float part[NJ][4] = {};
+#pragma unroll
+      for (int kd = c0; kd < c0 + 4 && kd < KD; ++kd) {
+        Frag<4> aq;
+        if constexpr (kQInRegs) {
+          aq = qf[kd];
+        } else {
+          load_a(aq, Qs + r0 * LD + kd * 8, LD, g, t4);
+        }
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) {
+          Frag<2> bk;
+#if FLASH_FWD_SPLIT_ONCE
+          const int at = (j * 8 + g) * LD + kd * 8 + t4;
+          read_b(bk, Kt, Ksm, at, at + 4);
+#else
+          load_b_trans(bk, Kt + j * 8 * LD + kd * 8, LD, g, t4);
+#endif
+          mma_3xtf32(part[j], aq, bk);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < NJ; ++j) {
+        if (c0 == 0) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) s[j][e] = part[j][e];
+        } else {
+          acc_add(s[j], part[j]);
+        }
+      }
+    }
+
+    // scale, and mask where the tile crosses the ragged edge or, for this
+    // warp's rows, the causal diagonal (a warp-uniform test)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
+    if (k0 + BN > T || (kCausal && k0 + BN - 1 > q0 + r0)) {
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qpos = q0 + r0 + g + 8 * (e >> 1);
+          const int kpos = k0 + j * 8 + 2 * t4 + (e & 1);
+          if (kpos >= T || (kCausal && kpos > qpos)) s[j][e] = kNegInf;
+        }
+    }
+
+    // online softmax: P in place of S
+    float corr[2], mx[2] = {kNegInf, kNegInf}, rs[2] = {0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m_r[i], mx[i]);
+      corr[i] = exp2f(m_r[i] - m_new);
+      m_r[i] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[j][e] = exp2f(s[j][e] - m_r[e >> 1]);
+        rs[e >> 1] += s[j][e];
+      }
+#pragma unroll
+    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * corr[i] + rs[i];
+
+    // O = O corr + P V, the tile's P V summed from zero in the tensor cores
+#pragma unroll
+    for (int n1 = 0; n1 < KD; n1 += KC) {
+      float part[KC][4] = {};
+#pragma unroll
+      for (int kk = 0; kk < NJ; ++kk) {
+        Frag<4> ap;
+        accum_to_a(ap, s[kk]);
+#pragma unroll
+        for (int nd = 0; nd < KC; ++nd) {
+          Frag<2> bv;
+#if FLASH_FWD_SPLIT_ONCE
+          const int at = (kk * 8 + 2 * t4) * LD + (n1 + nd) * 8 + g;
+          read_b(bv, Vt, Vsm, at, at + LD);
+#else
+          load_b_perm(bv, Vt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
+#endif
+          mma_3xtf32(part[nd], ap, bv);
+        }
+      }
+#pragma unroll
+      for (int nd = 0; nd < KC; ++nd)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[n1 + nd][e] *= corr[e >> 1];
+#pragma unroll
+      for (int nd = 0; nd < KC; ++nd) acc_add(acc[n1 + nd], part[nd]);
+    }
+    __syncthreads();  // every warp is done with this buffer before it is refilled
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float l = l_r[i];  // the quad's four parts of the row sum
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int t = q0 + r0 + g + 8 * i;
+    if (t < T) {
+      const float l_safe = fmaxf(l, 1e-30f);
+      float* row = o + base + (size_t)t * stride + 2 * t4;
+#pragma unroll
+      for (int nd = 0; nd < KD; ++nd)
+        *reinterpret_cast<float2*>(row + nd * 8) =
+            make_float2(acc[nd][2 * i] / l_safe, acc[nd][2 * i + 1] / l_safe);
+      if (t4 == 0) lse[(size_t)bh * T + t] = m_r[i] * kLn2 + logf(l_safe);
+    }
+  }
+}
+
 // dQ for one 64-row query tile: P = exp(S - lse), dS = P * (dO V^T + corr),
 // dQ = scale * dS K, looping over streamed key tiles.
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ corr,
                 float* __restrict__ dq, int T, int H, float scale) {
   constexpr int LD = tile_ld<D>(), BN = stream_rows<D, false>(), KD = D / 8, NJ = BN / 8,
                 KC = col_groups<D>();
-  extern __shared__ __align__(16) float bwd_smem[];
-  float* Qs = bwd_smem;
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;
   float* dOs = Qs + kOwn * LD;
   float* Ks = dOs + kOwn * LD;  // [2][BN][LD]
   float* Vs = Ks + 2 * BN * LD;
@@ -516,7 +606,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // scores held transposed (key rows x query cols), dV += P^T dO and
 // dK += scale * dS^T Q.
 template <int D, bool kCausal>
-__global__ void __launch_bounds__(kBwdThreads)
+__global__ void __launch_bounds__(kThreads)
 flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ corr,
@@ -524,8 +614,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  float scale) {
   constexpr int LD = tile_ld<D>(), BN = stream_rows<D, true>(), KD = D / 8, NJ = BN / 8,
                 KC = col_groups<D>();
-  extern __shared__ __align__(16) float bwd_smem[];
-  float* Ks = bwd_smem;
+  extern __shared__ __align__(16) float smem[];
+  float* Ks = smem;
   float* Vs = Ks + kOwn * LD;
   float* Qs = Vs + kOwn * LD;     // [2][BN][LD]
   float* dOs = Qs + 2 * BN * LD;  // [2][BN][LD]
@@ -660,37 +750,38 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-dim3 tile_grid(int B, int T, int H) { return dim3((T + kBlock - 1) / kBlock, B * H); }
+// The grid is (B*H, tiles): blocks issue x first, so the tiles that do the
+// most causal work go first for every head.
+dim3 tile_grid(int B, int T, int H) { return dim3(B * H, (T + kOwn - 1) / kOwn); }
+
+// kOwned owned tiles and two double-buffered streamed tiles.
+template <int D, int kOwned, int kStreamRows>
+constexpr size_t tiles_smem() {
+  return (kOwned * kOwn + 4 * kStreamRows) * tile_ld<D>() * sizeof(float);
+}
 
 template <int D, bool kCausal>
 cudaError_t run_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
                     int B, int T, int H, float scale, cudaStream_t st) {
-  const size_t smem = (3 * kBlock * (D + 1) + kBlock * kLdS) * sizeof(float);
+  constexpr int BN = stream_rows<D, false>();
+  // + the small parts of the current K and V tiles in the A/B variant
+  const size_t smem =
+      tiles_smem<D, 1, BN>() + (FLASH_FWD_SPLIT_ONCE ? 2 * BN * tile_ld<D>() * sizeof(float) : 0);
   cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(q, k, v, o, lse, T, H,
-                                                                           scale);
+  flash_fwd_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(q, k, v, o, lse, T,
+                                                                           H, scale);
   return cudaGetLastError();
-}
-
-// The backward grid is (B*H, tiles): blocks issue x first, so the tiles that
-// do the most causal work go first for every head.
-dim3 bwd_grid(int B, int T, int H) { return dim3(B * H, (T + kOwn - 1) / kOwn); }
-
-// Two owned tiles and two double-buffered streamed tiles.
-template <int D, int kStreamRows>
-constexpr size_t bwd_tiles_smem() {
-  return (2 * kOwn + 4 * kStreamRows) * tile_ld<D>() * sizeof(float);
 }
 
 template <int D, bool kCausal>
 cudaError_t run_dq(const float* q, const float* k, const float* v, const float* dout,
                    const float* lse, const float* corr, float* dq, int B, int T, int H,
                    float scale, cudaStream_t st) {
-  const size_t smem = bwd_tiles_smem<D, stream_rows<D, false>()>();
+  const size_t smem = tiles_smem<D, 2, stream_rows<D, false>()>();
   cudaError_t err = allow_smem(flash_dq_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<D, kCausal><<<bwd_grid(B, T, H), kBwdThreads, smem, st>>>(
+  flash_dq_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(
       q, k, v, dout, lse, corr, dq, T, H, scale);
   return cudaGetLastError();
 }
@@ -701,10 +792,10 @@ cudaError_t run_dkv(const float* q, const float* k, const float* v, const float*
                     int H, float scale, cudaStream_t st) {
   // + lse and corr, double-buffered
   constexpr int BN = stream_rows<D, true>();
-  const size_t smem = bwd_tiles_smem<D, BN>() + 4 * BN * sizeof(float);
+  const size_t smem = tiles_smem<D, 2, BN>() + 4 * BN * sizeof(float);
   cudaError_t err = allow_smem(flash_dkv_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<D, kCausal><<<bwd_grid(B, T, H), kBwdThreads, smem, st>>>(
+  flash_dkv_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(
       q, k, v, dout, lse, corr, dk, dv, T, H, scale);
   return cudaGetLastError();
 }

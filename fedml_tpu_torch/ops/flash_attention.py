@@ -132,9 +132,9 @@ def _check(name, *tensors):
 
 
 def _check_aligned(name, *tensors):
-    """The backward kernels copy [B,T,H,D] rows 16 bytes a thread
-    (cp.async) and store 8: a view off a 16-byte boundary must raise here,
-    not fault on the card."""
+    """The kernels copy [B,T,H,D] rows 16 bytes a thread (cp.async) and
+    store 8: a view off a 16-byte boundary must raise here, not fault on
+    the card."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: [B,T,H,D] tensors must start on a "
@@ -156,6 +156,7 @@ def _launch(name, fn, tensors, dims, causal):
 def flash_fwd(q, k, v, causal: bool):
     """Forward kernel: (o [B,T,H,D], lse [B,H,T]) for CUDA float32 q/k/v."""
     dims = _check("flash_fwd", q, k, v)
+    _check_aligned("flash_fwd", q, k, v)
     B, T, H, _ = dims
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)

@@ -7,12 +7,14 @@ tests/test_flash_attention.py:28, gradients (with a nonzero lse cotangent)
 at that of :52. The CUDA kernels themselves are held against the same plain
 version on the card by chip_smoke.py.
 
-The backward kernels run their products on the tensor cores as 3xTF32:
-test_3xtf32_products_keep_f32_accuracy emulates that split on the CPU and
-pins why it is needed.
+All three kernels run their products on the tensor cores as 3xTF32:
+test_3xtf32_products_keep_f32_accuracy (backward) and
+test_3xtf32_forward_keeps_f32_accuracy emulate that split on the CPU and
+pin why it is needed.
 """
 
 import functools
+import math
 
 import jax
 import jax.numpy as jnp
@@ -197,5 +199,60 @@ def test_3xtf32_products_keep_f32_accuracy(causal):
                   for x, r in zip(_emulated_bwd(*args, mode), exact)]
            for mode in ("f32", "3xtf32", "1xtf32")}
     for name, f32, tc3, tc1 in zip(("dq", "dk", "dv"), *err.values()):
+        assert tc3 <= 4 * f32, (name, tc3, f32)
+        assert tc1 > 100 * f32, (name, tc1, f32)
+
+
+def _emulated_fwd(q, k, v, causal, mode, block=64):
+    """o [BH, T, D] and lse [BH, T] by the forward kernel's arithmetic in
+    ``mode``: 64-row key tiles, an online softmax in log2 units, S and each
+    tile's P V as ``mode`` products, and each tile's P V added into O
+    (rescaled by exp(m - m_new)) in f32, or f64 for the exact yardstick."""
+    dt = torch.float64 if mode == "f64" else torch.float32
+    q, k, v = (x.to(dt) for x in (q, k, v))
+    T, D = q.shape[1], q.shape[2]
+    scale2 = torch.tensor(D ** -0.5, dtype=dt) * math.log2(math.e)
+    m = torch.full(q.shape[:2], -1e30, dtype=dt)
+    l = torch.zeros(q.shape[:2], dtype=dt)
+    o = torch.zeros_like(q)
+    for k0 in range(0, T, block):
+        kt, vt = k[:, k0:k0 + block], v[:, k0:k0 + block]
+        s = _matmul(q, kt.transpose(1, 2), mode) * scale2
+        if causal:
+            above = torch.arange(k0, k0 + kt.shape[1]) > torch.arange(T)[:, None]
+            s = s.masked_fill(above, -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + _matmul(p, vt, mode)
+        m = m_new
+    l = l.clamp_min(1e-30)
+    return o / l[..., None], m * math.log(2) + torch.log(l)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_forward_keeps_f32_accuracy(causal):
+    """Against float64, the forward kernel's arithmetic with 3xTF32 products
+    gives o and lse within 4x of the same arithmetic in plain float32 (1.0-
+    1.5x at this seed); single-pass TF32 is over 100x worse (600-2200x).
+    Like the backward test, each product here rounds its sums to nearest;
+    the tensor cores' truncating adds are held by chip_smoke.py's float64
+    check on the card."""
+    rs = np.random.RandomState(3)
+    BH, T, D = 2, 256, 32
+    q, k, v = (torch.tensor(rs.randn(BH, T, D).astype(np.float32))
+               for _ in range(3))
+    exact = _emulated_fwd(q, k, v, causal, "f64")
+    s = (q.double() @ k.double().transpose(1, 2)) * D ** -0.5
+    if causal:
+        s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(),
+                          float("-inf"))
+    torch.testing.assert_close(exact, (torch.softmax(s, -1) @ v.double(),
+                                       torch.logsumexp(s, -1)))
+    err = {mode: [float((x.double() - r).abs().max())
+                  for x, r in zip(_emulated_fwd(q, k, v, causal, mode), exact)]
+           for mode in ("f32", "3xtf32", "1xtf32")}
+    for name, f32, tc3, tc1 in zip(("o", "lse"), *err.values()):
         assert tc3 <= 4 * f32, (name, tc3, f32)
         assert tc1 > 100 * f32, (name, tc1, f32)
