@@ -58,9 +58,9 @@
 // - Operands are split per warp. Each warp splits the K and V fragments it
 //   loads, so the four warps of a block split every streamed element four
 //   times. Splitting each element once per tile into big and small tiles in
-//   shared memory (FLASH_FWD_SPLIT_ONCE=1, forward only) removes those
-//   repeats but doubles the bytes read from shared memory per fragment and
-//   adds a pass and a barrier per tile; it was slower on the card (PERF.md).
+//   shared memory removes those repeats but doubles the bytes read from
+//   shared memory per fragment and adds a pass and a barrier per tile; tried
+//   for the forward, it was slower on the card (PERF.md).
 // - Registers and shared memory. Streamed tiles are 64 rows; 32 for dK/dV
 //   from D = 64, whose two accumulators need the registers; 16 at D = 128,
 //   where the tiles would otherwise fill shared memory for one block per SM.
@@ -95,11 +95,6 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
-
-#ifndef FLASH_FWD_SPLIT_ONCE
-#define FLASH_FWD_SPLIT_ONCE 0
-#endif
-
 
 namespace {
 
@@ -257,28 +252,6 @@ __device__ __forceinline__ void accum_to_a(Frag<4>& f, const float (&c)[4]) {
   split_frag(f, x);
 }
 
-#if FLASH_FWD_SPLIT_ONCE
-// The A/B variant: a tile split once in place (big) beside its small parts
-// (a second tile of the same layout), so a fragment load is two reads.
-__device__ __forceinline__ void split_tile(float* big, float* small, int rows, int D, int ld) {
-  for (int i = threadIdx.x; i < rows * D; i += kThreads) {
-    const int at = (i / D) * ld + i % D;
-    uint32_t b, s;
-    split_tf32(big[at], b, s);
-    big[at] = __uint_as_float(b);
-    small[at] = __uint_as_float(s);
-  }
-}
-
-__device__ __forceinline__ void read_b(Frag<2>& f, const float* big, const float* small, int a0,
-                                       int a1) {
-  f.big[0] = __float_as_uint(big[a0]);
-  f.big[1] = __float_as_uint(big[a1]);
-  f.small[0] = __float_as_uint(small[a0]);
-  f.small[1] = __float_as_uint(small[a1]);
-}
-#endif
-
 // O and lse for one 64-row query tile, looping over streamed key tiles with
 // an online softmax (source note above).
 template <int D, bool kCausal>
@@ -293,10 +266,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* Qs = smem;
   float* Ks = Qs + kOwn * LD;  // [2][BN][LD]
   float* Vs = Ks + 2 * BN * LD;
-#if FLASH_FWD_SPLIT_ONCE
-  float* Ksm = Vs + 2 * BN * LD;  // [BN][LD]: small parts of the current tile
-  float* Vsm = Ksm + BN * LD;
-#endif
 
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;  // heaviest causal tiles first
@@ -342,14 +311,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       cp_async_wait<0>();
     }
     __syncthreads();
-    float* Kt = Ks + cur * BN * LD;
-    float* Vt = Vs + cur * BN * LD;
+    const float* Kt = Ks + cur * BN * LD;
+    const float* Vt = Vs + cur * BN * LD;
     const int k0 = kt * BN;
-#if FLASH_FWD_SPLIT_ONCE
-    split_tile(Kt, Ksm, BN, D, LD);
-    split_tile(Vt, Vsm, BN, D, LD);
-    __syncthreads();
-#endif
 
     // S = Q K^T, summed from zero in the tensor cores over each 32 columns
     // of D, the chunks added in f32: one chain of truncating adds over all
@@ -369,12 +333,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int j = 0; j < NJ; ++j) {
           Frag<2> bk;
-#if FLASH_FWD_SPLIT_ONCE
-          const int at = (j * 8 + g) * LD + kd * 8 + t4;
-          read_b(bk, Kt, Ksm, at, at + 4);
-#else
           load_b_trans(bk, Kt + j * 8 * LD + kd * 8, LD, g, t4);
-#endif
           mma_3xtf32(part[j], aq, bk);
         }
       }
@@ -441,12 +400,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int nd = 0; nd < KC; ++nd) {
           Frag<2> bv;
-#if FLASH_FWD_SPLIT_ONCE
-          const int at = (kk * 8 + 2 * t4) * LD + (n1 + nd) * 8 + g;
-          read_b(bv, Vt, Vsm, at, at + LD);
-#else
           load_b_perm(bv, Vt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
-#endif
           mma_3xtf32(part[nd], ap, bv);
         }
       }
@@ -763,10 +717,7 @@ constexpr size_t tiles_smem() {
 template <int D, bool kCausal>
 cudaError_t run_fwd(const float* q, const float* k, const float* v, float* o, float* lse,
                     int B, int T, int H, float scale, cudaStream_t st) {
-  constexpr int BN = stream_rows<D, false>();
-  // + the small parts of the current K and V tiles in the A/B variant
-  const size_t smem =
-      tiles_smem<D, 1, BN>() + (FLASH_FWD_SPLIT_ONCE ? 2 * BN * tile_ld<D>() * sizeof(float) : 0);
+  const size_t smem = tiles_smem<D, 1, stream_rows<D, false>()>();
   cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
   flash_fwd_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(q, k, v, o, lse, T,

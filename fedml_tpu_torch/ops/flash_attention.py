@@ -126,8 +126,9 @@ def _check(name, *tensors):
                              f"[B,T,H,D]={tuple(tensors[0].shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
-    if B * H > 65535:
-        raise ValueError(f"{name}: B*H={B * H} exceeds the grid's 65535")
+    if -(-T // 64) > 65535:  # the grid is (B*H, 64-row tiles); its y is ≤ 65535
+        raise ValueError(f"{name}: T={T} needs {-(-T // 64)} 64-row tiles, "
+                         "more than the grid's 65535")
     return B, T, H, D
 
 

@@ -40,30 +40,23 @@ def cuda_tool(name: str) -> str:
                        "or set CUDA_HOME")
 
 
-def _flags(defines) -> tuple[str, ...]:
-    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
-
-
-def library_path(source: str, defines: tuple[str, ...] = ()) -> Path:
-    """Where the library built from ``csrc/<source>`` (with ``-D`` of each
-    of ``defines``) lives."""
+def library_path(source: str) -> Path:
+    """Where the library built from ``csrc/<source>`` lives."""
     src = CSRC / source
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(_flags(defines)).encode()).hexdigest()[:16]
+        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 
-def build(source: str, defines: tuple[str, ...] = ()) -> Path:
+def build(source: str) -> Path:
     """Compile ``csrc/<source>`` unless its library exists; return the path.
-    ``defines`` (``NAME=VALUE``) select a source's compile-time variants.
     Raises with the compiler's message if nvcc fails."""
-    out = library_path(source, defines)
+    out = library_path(source)
     if out.exists():
         return out
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp")
-    cmd = [cuda_tool("nvcc"), *_flags(defines), "-o", str(tmp),
-           str(CSRC / source)]
+    cmd = [cuda_tool("nvcc"), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     out.with_suffix(".log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:

@@ -117,7 +117,7 @@ def test_kernel_wrapper_never_runs_the_plain_version():
 
 
 def test_backward_wrappers_refuse_views_off_16_byte_boundary():
-    """The backward kernels copy rows 16 bytes a thread: a contiguous view
+    """The kernels copy rows 16 bytes a thread: a contiguous view
     one float into its storage is refused before launch (chip_smoke.py
     drives the same refusal through the wrappers on the card)."""
     x = torch.zeros(1 + 64 * 32)
