@@ -11,19 +11,34 @@ Phases, in order:
            (HMMA) instructions in the built SASS, per instantiation; fails
            if an instantiation of any of the three kernels has none
   kernels  each kernel against its plain PyTorch version on the card, at the
-           long-context slice shape and at ragged shapes of every head dim
+           shape the slice's training steps give it (the cohort folded into
+           B), at its eval's shape and at ragged shapes of every head dim
            the kernels take, and run twice for bitwise equal outputs; the
-           forward (o and lse) against float64 at every one of those
-           shapes, the backward pair at the slice shape, each within
+           forward (o and lse) and the backward pair (dQ, dK, dV) against
+           float64 at every one of those shapes, each within
            F32_ERR_FACTOR x its plain float32 version's error; its time,
            the plain version's time and scaled_dot_product_attention's,
            whose CUDA kernels are named; a [B,T,H,D] view off a 16-byte
            boundary refused by all three wrappers before any launch
   slice    FedAvg over TransformerLM("transformer_flash", vocab 1024, dim
            256, depth 4, heads 8, T 2048): 2 rounds of 4 clients x 2 local
-           SGD steps, every attention call through the kernels (launch
-           counters); the same rounds from the same weights with plain
-           attention must agree; one more round under torch.profiler
+           SGD steps, the cohort batched (torch.func.vmap) and folded into
+           the kernels' B, so each attention call of a step launches once
+           for the cohort (launch counters); the same rounds from the same
+           weights with plain attention must agree; one more round under
+           torch.profiler
+  main     the system's main path, bench.py:206-232's workload: FedAvg of
+           CNNOriginalFedAvg (62 classes) on FEMNIST-shaped data (3,400
+           clients, uint8 pixels parked on the card by device_data), 10
+           clients a round, batch 20, SGD lr 0.1, 28 batches. One-step
+           rounds and its first two rounds, each from the same weights,
+           must agree with the port's CPU run of them (host-packed by the
+           C++ packer), client by client for the one-step updates, also
+           with the process's TF32 flags at PyTorch's defaults, while a
+           control with the engine's float32 policy off and TF32 allowed
+           must not; then timed rounds (wall time, samples/s), one round
+           under torch.profiler (busy share, top kernels, idle gaps), one
+           eval, peak device memory
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -32,6 +47,8 @@ no result line. Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import importlib
 import json
 import math
@@ -50,7 +67,7 @@ from fedml_tpu_torch.ops import loader
 # the package re-exports a function of the same name, so fetch the module
 fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
-PHASES = ("device", "build", "kernels", "slice")
+PHASES = ("device", "build", "kernels", "slice", "main")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -71,9 +88,23 @@ F32_ERR_FACTOR = 4
 # weights: history metrics (relative) and final params (absolute) are 4
 # layers x 4 SGD steps of float32 rounding apart
 TOL_SLICE = 1e-3
-SLICE_SHAPE = dict(B=4, T=2048, H=8, D=32, causal=True)
-# ragged T, and every other head dim the kernels are built for
-RAGGED_SHAPES = (dict(B=2, T=1000, H=4, D=64, causal=True),
+# the long-context slice: the widest TransformerLM the repository runs
+# (scripts/bench_longctx.py:111-114), 4 clients a round of batch 4
+SLICE_WIDTHS = dict(vocab_size=1024, dim=256, depth=4, num_heads=8,
+                    max_len=2048)
+SLICE_FED = dict(client_num_in_total=8, client_num_per_round=4, epochs=1,
+                 batch_size=4, max_batches=2, lr=0.1, frequency_of_the_test=1,
+                 eval_batch_size=4, seed=0)
+_T, _H = SLICE_WIDTHS["max_len"], SLICE_WIDTHS["num_heads"]
+_D = SLICE_WIDTHS["dim"] // _H
+# every training step launches each kernel once on the whole cohort, the
+# clients folded into B; the eval runs the forward on one batch
+SLICE_SHAPE = dict(B=SLICE_FED["client_num_per_round"] * SLICE_FED["batch_size"],
+                   T=_T, H=_H, D=_D, causal=True)
+# the eval's B, ragged T, and every other head dim the kernels are built for
+RAGGED_SHAPES = (dict(B=SLICE_FED["eval_batch_size"], T=_T, H=_H, D=_D,
+                      causal=True),
+                 dict(B=2, T=1000, H=4, D=64, causal=True),
                  dict(B=2, T=1000, H=4, D=64, causal=False),
                  dict(B=1, T=300, H=2, D=16, causal=True),
                  dict(B=1, T=300, H=2, D=128, causal=False))
@@ -304,9 +335,8 @@ def check_kernels(B, T, H, D, causal, timed):
                      f"{st['bound_f32_ms']:.4f} ms")
         print(line)
     _check_f64(runs, _f64_fwd(q, k, v, causal), where)
+    _check_f64(runs, _f64_bwd(q, k, v, do, lse_ref, corr, causal), where)
     if timed:
-        _check_f64(runs, _f64_bwd(q, k, v, do, lse_ref, corr, causal),
-                   where)
         sdpa = _time_sdpa(q, k, v, do, causal)
         stats["sdpa"] = sdpa
         pair = stats["flash_bwd_dq"]["ms"] + stats["flash_bwd_dkv"]["ms"]
@@ -410,17 +440,14 @@ def phase_slice(report):
     from fedml_tpu_torch.data.synthetic import synthetic_sequences
     from fedml_tpu_torch.models import create_model
 
-    widths = dict(vocab_size=1024, dim=256, depth=4, num_heads=8,
-                  max_len=2048)
-    T, rounds = 2048, 2
+    widths, T, rounds = SLICE_WIDTHS, _T, 2
     t0 = time.perf_counter()
-    data = synthetic_sequences(num_clients=8, seq_len=T, vocab_size=1024,
-                               samples_per_client=8, test_samples=16)
+    data = synthetic_sequences(
+        num_clients=SLICE_FED["client_num_in_total"], seq_len=T,
+        vocab_size=widths["vocab_size"], samples_per_client=8,
+        test_samples=16)
     print(f"slice: synthetic_sequences set-up {time.perf_counter() - t0:.1f} s")
-    cfg = FedAvgConfig(comm_round=rounds, client_num_in_total=8,
-                       client_num_per_round=4, epochs=1, batch_size=4,
-                       max_batches=2, lr=0.1, frequency_of_the_test=1,
-                       eval_batch_size=4, seed=0)
+    cfg = FedAvgConfig(comm_round=rounds, **SLICE_FED)
     api = FedAvgAPI(data, sequence_task(create_model("transformer_flash",
                                                      **widths)), cfg)
     start = {k: v.clone() for k, v in api.net.items()}
@@ -432,7 +459,9 @@ def phase_slice(report):
     launches = dict(fa.LAUNCHES)
     report["launches"] = launches
 
-    steps = cfg.client_num_per_round * api.num_batches * widths["depth"]
+    # the cohort is folded into B: one launch per layer and step serves
+    # every client of the round
+    steps = api.num_batches * widths["depth"]
     evals = widths["depth"] * math.ceil(len(data.test_x) / cfg.eval_batch_size)
     want = {"flash_fwd": rounds * (steps + evals),
             "flash_bwd_dq": rounds * steps, "flash_bwd_dkv": rounds * steps}
@@ -471,12 +500,17 @@ def phase_slice(report):
           f"{diff:.3e} (tol {TOL_SLICE})")
     if diff > TOL_SLICE:
         raise AssertionError(f"params differ by {diff} after {rounds} rounds")
-    profile_round(api, rounds, tokens)
+    profile_round(api, rounds, tokens, "train tokens",
+                  {"flash kernels": "flash_",
+                   "matmul": "gemm|cutlass|cublas"})
 
 
-def profile_round(api, round_idx, tokens):
+def profile_round(api, round_idx, units, unit_name, groups):
     """One more round under torch.profiler: device time by kernel group
-    and the device's busy share of the round's wall time."""
+    (``groups``: label -> regex on the kernel name, first match wins), the
+    device's busy share of the round's wall time, the top kernels and the
+    idle gaps between device kernels. Returns the busy share (None when the
+    profiler saw no device time)."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -486,30 +520,268 @@ def profile_round(api, round_idx, tokens):
         api.run_round(round_idx)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
+    cuda = torch.autograd.DeviceType.CUDA
+    kernels = [e for e in prof.key_averages() if e.device_type == cuda]
     us = {e.key: getattr(e, "self_device_time_total", 0) for e in kernels}
     busy = sum(us.values()) / 1e6
     print(f"profile: round {round_idx} (train only) wall {wall:.4f} s, "
-          f"{tokens / wall:.0f} train tokens/s")
+          f"{units / wall:.0f} {unit_name}/s under the profiler")
     if not busy:
         print("profile: device time not measured (profiler saw no kernels)")
-        return
-    groups = {"flash kernels": 0.0, "matmul": 0.0, "other": 0.0}
+        return None
+    by_group = dict.fromkeys([*groups, "other"], 0.0)
     for name, t in us.items():
-        low = name.lower()
-        g = ("flash kernels" if "flash_" in low else
-             "matmul" if any(s in low for s in ("gemm", "cutlass", "cublas"))
-             else "other")
-        groups[g] += t / 1e6
+        g = next((g for g, pat in groups.items()
+                  if re.search(pat, name, re.I)), "other")
+        by_group[g] += t / 1e6
     print(f"profile: device busy {busy:.4f} s = {busy / wall:.1%} of wall; "
           + ", ".join(f"{g} {t:.4f} s ({t / busy:.1%})"
-                      for g, t in groups.items()))
+                      for g, t in by_group.items()))
     top = sorted(us.items(), key=lambda kv: -kv[1])
     calls = {e.key: e.count for e in kernels}
-    for name, t in top[:6] + [kv for kv in top[6:] if "flash_" in kv[0]]:
-        print(f"profile:   {t / 1e3:9.3f} ms  {calls[name]:4d} launches  "
-              f"{name[:90]}")
+    for name, t in top[:8] + [kv for kv in top[8:] if "flash_" in kv[0]]:
+        print(f"profile:   {t / 1e3:9.3f} ms  {calls[name]:5d} launches  "
+              f"{name[:100]}")
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == cuda)
+    gaps, end = [], None
+    for a, b in spans:
+        if end is not None and a > end:
+            gaps.append(a - end)
+        end = b if end is None else max(end, b)
+    if gaps:
+        gaps.sort(reverse=True)
+        print(f"profile: {len(spans)} device kernels, span {(end - spans[0][0]) / 1e3:.3f} ms; "
+              f"idle between them {sum(gaps) / 1e3:.3f} ms in {len(gaps)} gaps "
+              f"(>=10 us: {sum(g >= 10 for g in gaps)}; largest "
+              + ", ".join(f"{g / 1e3:.3f}" for g in gaps[:5]) + " ms)")
+    return busy / wall
+
+
+# bench.py:206-232's workload: FEMNIST-shaped data at its full population,
+# CNNOriginalFedAvg (62 classes), 10 clients a round, batch 20, SGD lr 0.1,
+# one local epoch of at most 28 batches
+MAIN_CFG = dict(client_num_in_total=3400, client_num_per_round=10, epochs=1,
+                batch_size=20, lr=0.1, max_batches=28, seed=0)
+# The card's rounds against the port's CPU run of them, both float32,
+# summing in other orders (cuDNN / cuBLAS against oneDNN / MKL). The CNN's
+# gradient is not continuous: where two values of a max-pool window, or a
+# ReLU input and 0, lie within rounding of each other, the two sides may
+# route a sample's gradient differently. One client in ten or so meets
+# such a point in a step (the CPU's float32 against its float64 as well:
+# fedml_tpu_torch/step_gap.py, PERF.md), and over a round of 28 steps at
+# lr 0.1 the runs drift apart (the CPU against itself from weights nudged
+# by 1e-7: 2.75e-3 in the params after two rounds). So the comparison has
+# two parts:
+# - sharp: one step of each client of a round from the same weights, on
+#   the same batch (gathered on the card, packed on the CPU: bitwise
+#   equal). The median over the clients of the update's relative error
+#   (||card - CPU|| / ||CPU update||, float32 ~1e-6) within TOL_STEP, and
+#   each client's loss within TOL_LOSS, relative. TF32 (a 10-bit mantissa)
+#   puts every client 3e-3 to 2e-2 off: the control runs the step with the
+#   engine's float32 policy switched off and TF32 allowed, and must land
+#   outside;
+# - the first two rounds of bench.py's configuration, each from the same
+#   entering weights: history (losses relative, accuracies absolute) and
+#   params (absolute) within TOL_ROUND, set above that drift.
+TOL_STEP = 1e-5
+TOL_LOSS = 1e-5
+TOL_ROUND = 1e-2
+HIST_KEYS = ("train_loss", "train_acc", "test_loss", "test_acc")
+
+
+def _round_from(api, r, state):
+    """Round ``r`` from ``state`` through the engine (run_round, then the
+    eval record train() keeps): (history record, params on the CPU)."""
+    api.load_state(state)
+    rec = api.eval_record(r, api.run_round(r))
+    return rec, {k: v.detach().cpu().clone() for k, v in api.net.items()}
+
+
+def _gaps(a, b):
+    """(history, params) gaps of two (record, params) results."""
+    (ra, na), (rb, nb) = a, b
+    hist = max(abs(ra[k] - rb[k]) / max(1.0, abs(rb[k])) for k in HIST_KEYS)
+    par = max(float((na[k] - nb[k]).abs().max()) for k in nb)
+    return hist, par
+
+
+def _client_steps(api, r, state):
+    """One local step of each client of round ``r`` from ``state``, as
+    run_round takes it: (the round's batch, each client's update
+    [K, ...], each client's loss sum [K]), all on the CPU in float64."""
+    from fedml_tpu_torch.algorithms import fedavg
+
+    api.load_state(state)
+    x, y, mask, _ = api._round_batch(r, api._sampled_ids(r))
+    with fedavg.float32_compute():
+        nets, metrics = api.local_update(api.net, x, y, mask)
+    cpu = lambda t: t.detach().cpu().double()
+    return ([t.cpu() for t in (x, y, mask)],
+            {k: cpu(v - api.net[k]) for k, v in nets.items()},
+            cpu(metrics["loss_sum"]))
+
+
+def _step_gaps(a, b):
+    """(median client update error, largest client loss error, largest
+    client update error) of two _client_steps results on one batch."""
+    if not all(torch.equal(p, q) for p, q in zip(a[0], b[0])):
+        raise AssertionError("the card's and the CPU's batches differ")
+    (_, ua, la), (_, ub, lb) = a, b
+    sq = lambda u: sum((t.flatten(1) ** 2).sum(1) for t in u.values())
+    err = (sq({k: ua[k] - ub[k] for k in ub}) / sq(ub)).sqrt()
+    loss = float(((la - lb).abs() / lb.abs()).max())
+    return float(err.median()), loss, float(err.max())
+
+
+def _agree(name, got, tols):
+    print(f"main: {name}: " + ", ".join(
+        f"{what} {v:.3e} (tol {t:g})" for (what, t), v in zip(tols, got))
+        + "".join(f", {what} {v:.3e}" for what, v in zip(
+            ("largest client update rel. err",), got[len(tols):])))
+    if any(v > t for (_, t), v in zip(tols, got)):
+        raise AssertionError(f"{name}: {got} beyond {tols}")
+
+
+STEP_TOLS = (("median client update rel. err", TOL_STEP),
+             ("client loss rel. diff", TOL_LOSS))
+ROUND_TOLS = (("history max diff", TOL_ROUND), ("params max |diff|",
+                                                TOL_ROUND))
+
+
+def phase_main(report):
+    from unittest import mock
+
+    from fedml_tpu_torch import native
+    from fedml_tpu_torch.algorithms import fedavg
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.models import create_model
+
+    t0 = time.perf_counter()
+    data = load_dataset("femnist", seed=0, uint8_pixels=True)
+    print(f"main: femnist stand-in {data.num_clients} clients, "
+          f"{len(data.train_x)} train samples ({data.train_x.nbytes / 1e6:.1f}"
+          f" MB {data.train_x.dtype}), {len(data.test_x)} test; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = FedAvgConfig(comm_round=2, frequency_of_the_test=1, **MAIN_CFG)
+    step_cfg = dataclasses.replace(cfg, max_batches=1)
+    cnn = lambda device=None: classification_task(
+        create_model("cnn", output_dim=62, device=device))
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    api = FedAvgAPI(data, cnn(), cfg, device_data=True)
+    torch.cuda.synchronize()
+    print(f"main: engine on the card (train set parked by device_data) in "
+          f"{time.perf_counter() - t0:.2f} s; "
+          f"{sum(v.numel() for v in api.net.values())} params, "
+          f"{api.num_batches} batches a client")
+    start = {k: v.detach().cpu().clone() for k, v in api.net.items()}
+    fa.reset_launches()
+    api.train()
+    torch.cuda.synchronize()
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched by the CNN path: "
+                             f"{fa.LAUNCHES}")
+    for rec in api.history:
+        print(f"main: round {rec['round']}: train_loss {rec['train_loss']:.6f}"
+              f" train_acc {rec['train_acc']:.4f} test_loss "
+              f"{rec['test_loss']:.6f} test_acc {rec['test_acc']:.4f} "
+              f"({rec['round_time']:.3f} s, train + eval, first rounds)")
+        if not all(math.isfinite(float(v)) for v in rec.values()):
+            raise AssertionError(f"non-finite metrics {rec}")
+    if not all(bool(torch.isfinite(v).all()) for v in api.net.values()):
+        raise AssertionError("non-finite parameters after training")
+
+    # the same rounds by the port on the CPU, host-packed by the C++
+    # packer, each from the card's weights entering it
+    native.CALLS["pack_clients"] = 0
+    t0 = time.perf_counter()
+    cpu = FedAvgAPI(data, cnn("cpu"), cfg, device="cpu")
+    cpu_step = FedAvgAPI(data, cnn("cpu"), step_cfg, device="cpu")
+    step = FedAvgAPI(data, cnn(), step_cfg, device_data=True)
+    cpu_s0 = _client_steps(cpu_step, 0, start)
+    cpu0 = _round_from(cpu, 0, start)
+    card0 = _round_from(api, 0, start)
+    cpu_s1 = _client_steps(cpu_step, 1, card0[1])
+    cpu1 = _round_from(cpu, 1, card0[1])
+    print(f"main: CPU rounds in {time.perf_counter() - t0:.1f} s, "
+          f"{native.CALLS['pack_clients']} packs by the C++ packer")
+    if native.CALLS["pack_clients"] < 4:
+        raise AssertionError("the CPU rounds did not pack through the C++ "
+                             "packer")
+    _agree("one step of round 0's clients, card vs CPU",
+           _step_gaps(_client_steps(step, 0, start), cpu_s0), STEP_TOLS)
+    _agree("one step of round 1's clients from the card's round-0 weights, "
+           "card vs CPU", _step_gaps(_client_steps(step, 1, card0[1]),
+                                     cpu_s1), STEP_TOLS)
+    _agree("round 0, card vs CPU", _gaps(card0, cpu0), ROUND_TOLS)
+    card1 = _round_from(api, 1, card0[1])
+    _agree("round 1 from the card's round-0 weights, card vs CPU",
+           _gaps(card1, cpu1), ROUND_TOLS)
+    # again with the process's TF32 flags at PyTorch's defaults (cuDNN
+    # convolutions may take TF32): the engine's own float32 policy holds;
+    # the control switches the policy off, allows TF32 in the matmuls too,
+    # and must miss
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = cudnn.allow_tf32, matmul.allow_tf32
+    cudnn.allow_tf32, matmul.allow_tf32 = True, False
+    try:
+        _agree("TF32 flags at defaults: one step of round 0's clients, card "
+               "vs CPU", _step_gaps(_client_steps(step, 0, start), cpu_s0),
+               STEP_TOLS)
+        _agree("TF32 flags at defaults: round 0, card vs CPU",
+               _gaps(_round_from(api, 0, start), cpu0), ROUND_TOLS)
+        _agree("TF32 flags at defaults: round 1, card vs CPU",
+               _gaps(_round_from(api, 1, card0[1]), cpu1), ROUND_TOLS)
+        matmul.allow_tf32 = True
+        with mock.patch.object(fedavg, "float32_compute",
+                               contextlib.nullcontext):
+            control = _step_gaps(_client_steps(step, 0, start), cpu_s0)
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = flags
+    print(f"main: control, the engine's float32 policy off and TF32 allowed:"
+          f" one step of round 0's clients: median client update rel. err "
+          f"{control[0]:.3e}, client loss rel. diff {control[1]:.3e}, "
+          f"largest client update rel. err {control[2]:.3e}")
+    if not any(v > t for v, (_, t) in zip(control, STEP_TOLS)):
+        raise AssertionError("the one-step check does not see TF32")
+    del cpu, cpu_step, step
+    first_peak = torch.cuda.max_memory_allocated()
+
+    # timed rounds, then one round under the profiler and one eval
+    api.load_state(card1[1])
+    torch.cuda.reset_peak_memory_stats()
+    per_round = MAIN_CFG["client_num_per_round"] * api.num_batches * \
+        MAIN_CFG["batch_size"]
+    for r in range(2, 5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = api.run_round(r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        real = float(m["count"])
+        print(f"main: round {r}: {wall:.4f} s, {real / wall:.0f} train "
+              f"samples/s ({real:.0f} real of {per_round} slots, "
+              f"{per_round / wall:.0f} slots/s)")
+    busy = profile_round(api, 5, per_round, "sample slots", {
+        "convolution": "conv|cudnn|fprop|dgrad|wgrad|implicit|im2col",
+        "matmul": "gemm|cutlass|cublas|xmma"})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = api.evaluate()
+    print(f"main: eval on {int(ev['count'])} test samples in "
+          f"{time.perf_counter() - t0:.3f} s: loss {ev['loss']:.6f} acc "
+          f"{ev['acc']:.4f}")
+    if not (math.isfinite(ev["loss"]) and 0.0 <= ev["acc"] <= 1.0):
+        raise AssertionError(f"bad eval {ev}")
+    print(f"main: peak device memory {torch.cuda.max_memory_allocated() / 2**20:.1f}"
+          f" MiB over the timed rounds, the profiled round and the eval "
+          f"({first_peak / 2**20:.1f} MiB over the agreement runs); device "
+          f"busy share of the profiled round "
+          f"{'not measured' if busy is None else f'{busy:.1%}'}")
 
 
 def kernel_line(report):

@@ -3,32 +3,46 @@
 Reference behavior (fedml_api/standalone/fedavg/fedavg_api.py:40-115):
 per round, sample clients -> each client runs local SGD from the global
 weights -> the server takes the sample-weighted average of the returned
-weights -> periodic eval on the global test set.
+weights -> periodic eval (the global test set, or every client's own split).
 
-The JAX engine vmaps the cohort's local fits inside one jitted round
-program; here the fits run one client after another on the device, which is
-the same math. Mesh/SPMD drivers, round blocks, prefetch pipelines,
-telemetry, robust aggregation and the other engine options are queued in
-ROADMAP.md (queue A, items 5-8); passing one raises.
+As in the JAX engine, the cohort's local fits are ONE fit batched over the
+clients (core/local.py: ``torch.func.vmap`` of a pure per-client step).
+With ``device_data=True`` the train set is parked on the card once and a
+round ships only its shuffled index block (core/client_data.IndexBatch);
+the rows are gathered on the device, as the reference's block mode does.
+``precision="f32"`` holds on the card whatever the process's TF32 flags
+say: the engine switches TF32 off around its fits and evals
+(``float32_compute``). Mesh/SPMD round loops, prefetch pipelines, telemetry,
+robust aggregation and the other engine options are queued in ROADMAP.md
+(queue A, items 5-8); passing one raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-import functools
 import logging
 import time
 
 import numpy as np
 import torch
 
+from fedml_tpu_torch.core import optim
 from fedml_tpu_torch.core.client_data import (
     FederatedData,
     batch_global,
+    pack_client_indices,
     pack_clients,
     pad_batches,
+    pad_index_batches,
 )
-from fedml_tpu_torch.core.local import LocalSpec, Task, make_eval_fn, make_local_update
+from fedml_tpu_torch.core.local import (
+    LocalSpec,
+    Task,
+    make_cohort_eval_fn,
+    make_eval_fn,
+    make_local_update,
+)
 from fedml_tpu_torch.core.sampling import prepare_sampling, sample_for
 from fedml_tpu_torch.device import resolve_device
 from fedml_tpu_torch.utils.tree import tree_weighted_mean
@@ -42,6 +56,33 @@ def agg_weights(nsamp: torch.Tensor, uniform: bool) -> torch.Tensor:
     if not uniform:
         return nsamp
     return (nsamp > 0).to(nsamp.dtype)
+
+
+@contextlib.contextmanager
+def float32_compute():
+    """float32 on the card, whatever the process's flags: cuDNN convolutions
+    without TF32 (PyTorch's default lets them take TF32) and matmul
+    precision "highest"; the caller's settings come back on exit."""
+    cudnn = torch.backends.cudnn
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("highest")
+    try:
+        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic, allow_tf32=False):
+            yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _gather_rows(dev_x, dev_y, idx, mask):
+    """Row gather of the device-resident plane: padded slots carry index 0,
+    so their rows are zeroed to match the host packer's zero padding."""
+    flat = idx.reshape(-1)
+    x = dev_x.index_select(0, flat).reshape(idx.shape + dev_x.shape[1:])
+    y = dev_y.index_select(0, flat).reshape(idx.shape + dev_y.shape[1:])
+    keep = lambda a: (mask > 0).reshape(mask.shape + (1,) * (a.ndim - mask.ndim))
+    return (torch.where(keep(x), x, torch.zeros_like(x)),
+            torch.where(keep(y), y, torch.zeros_like(y)))
 
 
 def eval_subset(tx, ty, cfg: "FedAvgConfig", call_idx: int):
@@ -90,16 +131,14 @@ class FedAvgConfig:
     churn_trace: object | None = None
 
 
-def make_client_optimizer(cfg: FedAvgConfig):
-    """params -> optimizer: SGD(momentum, wd) or Adam(wd), as the reference
-    builds per client (MyModelTrainer.py:24-32) and optax.sgd / optax.adam
-    chained after add_decayed_weights compute in the JAX package."""
+def make_client_optimizer(cfg: FedAvgConfig) -> optim.ClientOptimizer:
+    """SGD(momentum) or Adam after add_decayed_weights(wd), as the reference
+    builds per client (MyModelTrainer.py:24-32) and the JAX package chains
+    in optax (fedml_tpu/algorithms/fedavg.py:296-307)."""
     if cfg.client_optimizer == "sgd":
-        return functools.partial(torch.optim.SGD, lr=cfg.lr,
-                                 momentum=cfg.momentum, weight_decay=cfg.wd)
+        return optim.sgd(cfg.lr, momentum=cfg.momentum, wd=cfg.wd)
     if cfg.client_optimizer == "adam":
-        return functools.partial(torch.optim.Adam, lr=cfg.lr,
-                                 weight_decay=cfg.wd)
+        return optim.adam(cfg.lr, wd=cfg.wd)
     raise ValueError(cfg.client_optimizer)
 
 
@@ -118,17 +157,21 @@ def resolve_local_spec(local_spec: LocalSpec | None,
     return LocalSpec(optimizer=make_client_optimizer(cfg), epochs=cfg.epochs)
 
 
+
+
 class FedAvgAPI:
     """Host-side round driver on one device (``device``: the CUDA device
     when None, see fedml_tpu_torch.device).
 
     State: ``net`` is the global model, a dict of parameter tensors on the
-    device; ``history`` holds one record per eval round."""
+    device; ``history`` holds one record per eval round. ``device_data``
+    parks the train set on the device once (see module docstring)."""
 
     def __init__(self, dataset: FederatedData, task: Task,
                  config: FedAvgConfig, device=None,
                  local_spec: LocalSpec | None = None,
-                 uniform_avg: bool = False, **unported):
+                 uniform_avg: bool = False, device_data: bool = False,
+                 **unported):
         if unported:
             raise NotImplementedError(
                 f"FedAvgAPI options {sorted(unported)} are not ported yet: "
@@ -140,12 +183,7 @@ class FedAvgAPI:
         self.task = task
         self.cfg = config
         self.device = resolve_device(device)
-        if self._eval_on_all_clients():
-            raise NotImplementedError(
-                "per-client eval (local_test_on_all_clients, "
-                "evaluate_per_client) is not ported yet: ROADMAP.md queue A, "
-                "item 5 — use a dataset without per-client test splits or "
-                "local_test_on_all_clients='off'")
+        self._eval_on_all_clients()  # validates local_test_on_all_clients
         # size_weighted sampling pairs with a uniform aggregate
         self.uniform_avg = uniform_avg or config.sampling == "size_weighted"
         self._client_sizes = prepare_sampling(config, dataset)
@@ -155,11 +193,18 @@ class FedAvgAPI:
         b_needed = int(np.ceil(max_count / config.batch_size))
         self.num_batches = min(config.max_batches or b_needed, b_needed)
 
+        self.device_data = device_data
+        if device_data:
+            self._dev_x = torch.from_numpy(dataset.train_x).to(self.device)
+            self._dev_y = torch.from_numpy(dataset.train_y).to(self.device)
+
         self.local_spec = resolve_local_spec(local_spec, config)
         self.local_update = make_local_update(task, self.local_spec)
         self.eval_fn = make_eval_fn(task)
+        self._cohort_eval = make_cohort_eval_fn(task)
 
-        init = task.init(torch.Generator().manual_seed(config.seed))
+        init = task.init(torch.Generator().manual_seed(config.seed),
+                         dataset.train_x[:config.batch_size])
         self.net = {k: v.to(self.device) for k, v in init.items()}
         self._test_cache = None
         self._eval_calls = 0
@@ -169,32 +214,54 @@ class FedAvgAPI:
     def _sampled_ids(self, round_idx: int):
         return sample_for(self.cfg, round_idx, self._client_sizes)
 
-    def _pack_round(self, round_idx: int, ids):
-        """The round's ClientBatch, padded to the static batch budget."""
+    def _put(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(a).to(self.device)
+
+    def _round_batch(self, round_idx: int, ids):
+        """The round's (x, y, mask, num_samples) on the device, padded to
+        the static batch budget: gathered on the device from an IndexBatch
+        (``device_data``), or packed on the host (the C++ packer when it
+        builds) and copied over."""
         cfg = self.cfg
-        cb = pack_clients(self.data, ids, cfg.batch_size,
-                          max_batches=self.num_batches, seed=cfg.seed,
-                          round_idx=round_idx)
-        return pad_batches(cb, self.num_batches)
+        kw = dict(max_batches=self.num_batches, seed=cfg.seed,
+                  round_idx=round_idx)
+        if self.device_data:
+            ib = pad_index_batches(
+                pack_client_indices(self.data, ids, cfg.batch_size, **kw),
+                self.num_batches)
+            mask = self._put(ib.mask)
+            x, y = _gather_rows(self._dev_x, self._dev_y,
+                                self._put(ib.idx).long(), mask)
+            return x, y, mask, self._put(ib.num_samples)
+        cb = pad_batches(pack_clients(self.data, ids, cfg.batch_size, **kw),
+                         self.num_batches)
+        return (self._put(cb.x), self._put(cb.y), self._put(cb.mask),
+                self._put(cb.num_samples))
 
     # ------------------------------------------------------------------ round
     def run_round(self, round_idx: int) -> dict:
-        """One round: sample, pack, local fits, sample-weighted mean (the
-        FedAvg server update is the identity on the mean). Returns the
-        round's summed training metrics as device tensors."""
+        """One round: sample, pack, the cohort's batched local fit,
+        sample-weighted mean (the FedAvg server update is the identity on
+        the mean). Returns the round's summed training metrics as device
+        tensors (no host read)."""
         ids = self._sampled_ids(round_idx)
-        cb = self._pack_round(round_idx, ids)
-        put = lambda a: torch.from_numpy(a).to(self.device)
-        x, y, mask, nsamp = put(cb.x), put(cb.y), put(cb.mask), put(cb.num_samples)
-        states, metrics = [], {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
-        for k in range(len(ids)):
-            state, m = self.local_update(self.net, x[k], y[k], mask[k])
-            states.append(state)
-            metrics = {n: metrics[n] + m[n] for n in metrics}
-        stacked = {n: torch.stack([s[n] for s in states]) for n in self.net}
-        self.net = tree_weighted_mean(stacked,
-                                      agg_weights(nsamp, self.uniform_avg))
-        return metrics
+        x, y, mask, nsamp = self._round_batch(round_idx, ids)
+        with float32_compute():
+            nets, metrics = self.local_update(self.net, x, y, mask)
+            self.net = tree_weighted_mean(nets,
+                                          agg_weights(nsamp, self.uniform_avg))
+        return {k: v.sum() for k, v in metrics.items()}
+
+    def run_rounds(self, start_round: int, num_rounds: int) -> dict:
+        """Rounds ``start_round`` .. ``start_round + num_rounds - 1`` back to
+        back, with no host read between them; per-round metrics stacked
+        along axis 0. Needs ``device_data=True``, as the reference's
+        one-program block does."""
+        if not self.device_data:
+            raise ValueError("run_rounds needs device_data=True")
+        ms = [self.run_round(r)
+              for r in range(start_round, start_round + num_rounds)]
+        return {k: torch.stack([m[k] for m in ms]) for k in ms[0]}
 
     def _eval_on_all_clients(self) -> bool:
         mode = self.cfg.local_test_on_all_clients
@@ -208,15 +275,22 @@ class FedAvgAPI:
 
     def eval_record(self, round_idx: int, metrics) -> dict:
         """One eval-round history record: the round's training metrics plus
-        the global test-set eval of the current model."""
+        either the per-client aggregate (reference _local_test_on_all_clients,
+        fedavg_api.py:117-180: the global model scored on every client's own
+        train and test split) or the global test-set eval."""
         n = max(float(metrics["count"]), 1.0)
-        ev = self.evaluate()
-        return {
-            "round": round_idx,
-            "train_loss": float(metrics["loss_sum"]) / n,
-            "train_acc": float(metrics["correct"]) / n,
-            "test_loss": ev["loss"], "test_acc": ev["acc"],
-        }
+        rec = {"round": round_idx,
+               "train_loss": float(metrics["loss_sum"]) / n,
+               "train_acc": float(metrics["correct"]) / n}
+        if self._eval_on_all_clients():
+            _, tr = self.evaluate_per_client("train")
+            _, te = self.evaluate_per_client("test")
+            rec.update(train_all_loss=tr["loss"], train_all_acc=tr["acc"],
+                       test_loss=te["loss"], test_acc=te["acc"])
+        else:
+            ev = self.evaluate()
+            rec.update(test_loss=ev["loss"], test_acc=ev["acc"])
+        return rec
 
     def train(self, num_rounds: int | None = None):
         cfg = self.cfg
@@ -256,6 +330,54 @@ class FedAvgAPI:
             if self.cfg.ci:
                 n = min(n, 512)  # --ci truncation (FedAVGAggregator.py:126-131)
             self._test_cache = tuple(
-                torch.from_numpy(a).to(self.device)
+                self._put(a)
                 for a in batch_global(tx[:n], ty[:n], self.cfg.eval_batch_size))
-        return self.eval_fn(self.net, *self._test_cache)
+        with float32_compute():
+            return self.eval_fn(self.net, *self._test_cache)
+
+    def evaluate_per_client(self, split: str = "test", chunk: int = 64):
+        """Every client's own split scored by the global model
+        (_local_test_on_all_clients, fedavg_api.py:117-180): clients are
+        packed in chunks of ``chunk`` and each chunk is evaluated batched
+        over its clients, one host read per chunk.
+
+        Returns (per-client list of {client, loss, acc, count}, aggregate
+        weighted by sample counts)."""
+        if split == "test" and self.data.test_idx_map is not None:
+            view = dataclasses.replace(self.data, train_x=self.data.test_x,
+                                       train_y=self.data.test_y,
+                                       train_idx_map=self.data.test_idx_map)
+        elif split == "test":
+            # no per-client test partition: every client shares the global
+            # test set (the cross-silo datasets' convention)
+            ev = self.evaluate()
+            return [], {k: ev[k] for k in ("loss", "acc", "count")}
+        else:
+            view = self.data
+
+        ids = np.arange(view.num_clients)
+        if self.cfg.ci:
+            ids = ids[:1]  # --ci truncation (FedAVGAggregator.py:126-131)
+        per_client: list[dict] = []
+        tot = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
+        for s in range(0, len(ids), chunk):
+            cids = ids[s:s + chunk]
+            cb = pack_clients(view, cids, self.cfg.eval_batch_size,
+                              seed=self.cfg.seed, round_idx=0)
+            with float32_compute():
+                m = self._cohort_eval(self.net, self._put(cb.x),
+                                      self._put(cb.y), self._put(cb.mask))
+            m = {k: v.cpu().numpy() for k, v in m.items()}
+            for i, cid in enumerate(cids):
+                n = float(max(m["count"][i], 1.0))
+                per_client.append({
+                    "client": int(cid),
+                    "loss": float(m["loss_sum"][i]) / n,
+                    "acc": float(m["correct"][i]) / n,
+                    "count": float(m["count"][i]),
+                })
+                for k in tot:
+                    tot[k] += float(m[k][i])
+        n = max(tot["count"], 1.0)
+        return per_client, {"loss": tot["loss_sum"] / n,
+                            "acc": tot["correct"] / n, "count": tot["count"]}

@@ -1,5 +1,6 @@
 """Core federated engine pieces, port of fedml_tpu/core: the data plane
-(client_data, sampling), the local fit (local) and task builders (tasks)."""
+(client_data, sampling, partition), the cohort-batched local fit (local,
+optim) and task builders (tasks)."""
 
 from fedml_tpu_torch.core.client_data import (
     ClientBatch,

@@ -1,16 +1,75 @@
-"""Task builders, port of fedml_tpu/core/tasks.py — ``sequence_task``.
+"""Task builders, port of fedml_tpu/core/tasks.py: ``classification_task``
+and ``sequence_task`` wrap a torch module into the (init, loss, predict,
+eval_batch) bundle that core.local consumes.
 
-``classification_task`` (uint8 pixels normalized on device, masked
-cross-entropy) comes with the CNN slice (ROADMAP.md queue A, item 3).
+Conventions: x [bs, ...]; y [bs] integer labels (classification) or [bs, T]
+tokens (sequence); mask [bs] sample validity. Each function computes one
+client's batch, so the local fit runs it under ``torch.func.vmap`` over the
+cohort; params are a dict name -> tensor, run through ``functional_call``.
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 from torch.func import functional_call
 
 from fedml_tpu_torch.core.local import Task
+
+
+def _as_float_image(x):
+    """Integer pixel blocks (the uint8 transfer path, see
+    fedml_tpu_torch/data/registry.py ``uint8_pixels``) become f32/255 on the
+    device; float inputs pass through unchanged."""
+    if torch.is_floating_point(x):
+        return x
+    return x.to(torch.float32) / 255.0
+
+
+def _init_params(module, generator, x_sample):
+    """Materialize a lazy module on ``x_sample`` (LogisticRegression takes
+    its input width from the first batch, as flax does), then redraw every
+    parameter from ``generator``."""
+    if any(nn.parameter.is_lazy(p) for p in module.parameters()):
+        if x_sample is None:
+            raise ValueError(f"{type(module).__name__} has lazy parameters: "
+                             "pass a sample batch to init")
+        dev = next(module.parameters()).device
+        with torch.no_grad():
+            module(_as_float_image(torch.as_tensor(x_sample[:1]).to(dev)))
+    module.reset_parameters(generator)
+    return {k: v.detach().clone() for k, v in module.named_parameters()}
+
+
+def classification_task(module) -> Task:
+    """Softmax cross-entropy over integer labels, masked per sample:
+    loss = sum(per_ex * mask) / max(sum(mask), 1); metrics 'loss_sum',
+    'correct' and 'count' over the unmasked samples."""
+
+    def init(generator: torch.Generator, x_sample=None):
+        return _init_params(module, generator, x_sample)
+
+    def _metrics(params, x, y, mask):
+        logits = functional_call(module, params, (_as_float_image(x),))
+        per_ex = F.cross_entropy(logits, y, reduction="none")
+        correct = ((logits.argmax(-1) == y) * mask).sum()
+        return (per_ex * mask).sum(), correct.detach(), mask.sum()
+
+    def loss(params, x, y, mask, train):
+        loss_sum, correct, count = _metrics(params, x, y, mask)
+        metrics = {"loss_sum": loss_sum.detach(), "correct": correct,
+                   "count": count}
+        return loss_sum / count.clamp_min(1.0), metrics
+
+    def predict(params, x):
+        return functional_call(module, params, (_as_float_image(x),))
+
+    def eval_batch(params, x, y, mask):
+        loss_sum, correct, count = _metrics(params, x, y, mask)
+        return {"loss_sum": loss_sum, "correct": correct, "count": count}
+
+    return Task(init, loss, predict, eval_batch)
 
 
 def sequence_task(module, pad_id: int = 0,
@@ -25,9 +84,8 @@ def sequence_task(module, pad_id: int = 0,
                                   "not ported yet: ROADMAP.md queue A, "
                                   "item 11")
 
-    def init(generator: torch.Generator):
-        module.reset_parameters(generator)
-        return {k: v.detach().clone() for k, v in module.named_parameters()}
+    def init(generator: torch.Generator, x_sample=None):
+        return _init_params(module, generator, x_sample)
 
     def _metrics(params, x, y, mask):
         logits = functional_call(module, params, (x,))

@@ -1,7 +1,7 @@
 """Model factory, port of fedml_tpu/models/factory.py.
 
-This slice ports the long-context models; every other reference name
-raises and names its ROADMAP.md queue.
+Ported: ``lr``, ``cnn`` and the long-context models; every other reference
+name raises and names its ROADMAP.md queue.
 """
 
 from __future__ import annotations
@@ -9,7 +9,7 @@ from __future__ import annotations
 from fedml_tpu_torch.device import resolve_device
 
 _QUEUED = {
-    "lr": "A, item 3", "cnn": "A, item 3", "cnn_dropout": "A, item 3",
+    "cnn_dropout": "A, item 3",
     "rnn": "A, item 10", "rnn_stackoverflow": "A, item 10",
     "resnet56": "A, item 10", "resnet110": "A, item 10",
     "resnet_wo_bn": "A, item 10", "resnet56_wo_bn": "A, item 10",
@@ -26,6 +26,16 @@ def create_model(model_name: str, output_dim: int = 10, device=None,
     """Return the torch module for a reference model name, on ``device``
     (the CUDA device when None; see fedml_tpu_torch.device)."""
     name = model_name.lower()
+    if name == "lr":
+        from fedml_tpu_torch.models.linear import LogisticRegression
+
+        return LogisticRegression(num_classes=output_dim).to(
+            resolve_device(device))
+    if name == "cnn":
+        from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
+
+        return CNNOriginalFedAvg(only_digits=(output_dim == 10)).to(
+            resolve_device(device))
     if name in ("transformer", "transformer_flash"):
         from fedml_tpu_torch.models.transformer import TransformerLM
 

@@ -24,11 +24,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fedml_tpu_torch.models.init import lecun_normal_
 from fedml_tpu_torch.ops.flash_attention import flash_attention
 from fedml_tpu_torch.parallel.ring_attention import full_attention
 
 LN_EPS = 1e-6  # flax.linen.LayerNorm's default
-_TRUNC_STD = 0.87962566103423978  # std of a unit normal truncated to [-2, 2]
 
 
 def _unported(option: str, item: str):
@@ -105,19 +105,13 @@ class TransformerLM(nn.Module):
         """Redraw every parameter on the CPU from ``generator`` (torch's
         default generator when None) and copy it into place."""
 
-        def draw(shape, std, truncated=False):
-            t = torch.empty(shape)
-            if truncated:
-                return nn.init.trunc_normal_(t, std=std, a=-2 * std,
-                                             b=2 * std, generator=generator)
-            return nn.init.normal_(t, std=std, generator=generator)
+        def draw(shape, std):
+            return nn.init.normal_(torch.empty(shape), std=std,
+                                   generator=generator)
 
         for m in self.modules():
             if isinstance(m, nn.Linear):  # flax lecun_normal kernel, zero bias
-                std = m.in_features ** -0.5 / _TRUNC_STD
-                m.weight.copy_(draw(m.weight.shape, std, truncated=True))
-                if m.bias is not None:
-                    m.bias.zero_()
+                lecun_normal_(m, generator)
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()

@@ -11,11 +11,13 @@ edge themselves, so no transpose or padding copy surrounds them. The JAX
 functions' ``block_q`` / ``block_k`` (TPU tile sizes) have no counterpart:
 the CUDA kernels' 64-row tiles are compile-time constants.
 
-Dispatch is by the tensor's device: a CPU tensor runs the plain PyTorch
-version below (``dense_fwd`` / ``dense_bwd_dq`` / ``dense_bwd_dkv``, the
-ports of the JAX package's jnp twins and the kernels' oracle); a CUDA tensor
-launches the kernel or raises. Every kernel wrapper counts its launches in
-``LAUNCHES``.
+The autograd functions run under ``torch.func`` (``grad``, ``vmap``): under
+vmap the cohort dimension is folded into B, so one launch serves the whole
+cohort. Dispatch is by the tensor's device: a CPU tensor runs the plain
+PyTorch version below (``dense_fwd`` / ``dense_bwd_dq`` / ``dense_bwd_dkv``,
+the ports of the JAX package's jnp twins and the kernels' oracle); a CUDA
+tensor launches the kernel or raises. Every kernel wrapper counts its
+launches in ``LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -196,34 +198,93 @@ def _on_cpu(t) -> bool:
 
 
 # ------------------------------------------------------------------ public
+def _fold(info, in_dims, tensors):
+    """The vmap rule's input side: move each tensor's vmapped dim to the
+    front (expanding an unbatched one) and fold it into B, so the kernels
+    see [K*B, T, H, D] / [K*B, H, T] plain contiguous tensors; JAX's
+    pallas_call batching rule adds a grid axis to the same effect."""
+    K = info.batch_size
+    out = []
+    for t, d in zip(tensors, in_dims):
+        t = t.expand(K, *t.shape) if d is None else t.movedim(d, 0)
+        out.append(t.reshape(K * t.shape[1], *t.shape[2:]).contiguous())
+    return out, K
+
+
+def _unfold(t, K):
+    return t.view(K, t.shape[0] // K, *t.shape[1:])
+
+
 class FlashAttention(torch.autograd.Function):
     """(out, lse) with a true cotangent for lse: the backward folds it into
-    dS = P * (dP + g_lse - delta), as the JAX package's custom_vjp does."""
+    dS = P * (dP + g_lse - delta), as the JAX package's custom_vjp does.
+
+    Written in the ``setup_context`` form with a ``vmap`` rule, so it runs
+    under ``torch.func`` (the local fit is ``vmap`` of ``grad``): under
+    vmap, the cohort dimension is folded into B and the kernels launch once
+    for the whole cohort. The backward goes through ``FlashAttentionBwd``,
+    which has its own vmap rule, so the kernels only ever see plain CUDA
+    tensors, never functorch's wrappers."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal):
+    def forward(q, k, v, causal):
         if _on_cpu(q):
-            o, lse = dense_fwd(q, k, v, causal)
-        else:
-            o, lse = flash_fwd(q, k, v, causal)
+            return dense_fwd(q, k, v, causal)
+        return flash_fwd(q, k, v, causal)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, causal = inputs
+        o, lse = output
         ctx.causal = causal
         ctx.save_for_backward(q, k, v, o, lse)
-        return o, lse
 
     @staticmethod
     def backward(ctx, g, g_lse):
         q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = FlashAttentionBwd.apply(q, k, v, o, lse, g, g_lse,
+                                             ctx.causal)
+        return dq, dk, dv, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, causal):
+        (q, k, v), K = _fold(info, in_dims[:3], (q, k, v))
+        o, lse = FlashAttention.apply(q, k, v, causal)
+        return (_unfold(o, K), _unfold(lse, K)), (0, 0)
+
+
+class FlashAttentionBwd(torch.autograd.Function):
+    """The backward kernels as a function of (q, k, v, o, lse, dO, g_lse):
+    (dQ, dK, dV). Not differentiable again; its vmap rule folds the cohort
+    into B as FlashAttention's does."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, g, g_lse, causal):
         g = g.contiguous()
         # delta_i = sum_d dO_i O_i, the rowwise correction of the softmax vjp
         delta = (g.float() * o.float()).sum(-1).transpose(1, 2)
         corr = (g_lse.float() - delta).contiguous()
         if _on_cpu(q):
-            dq = dense_bwd_dq(q, k, v, g, lse, corr, ctx.causal)
-            dk, dv = dense_bwd_dkv(q, k, v, g, lse, corr, ctx.causal)
+            dq = dense_bwd_dq(q, k, v, g, lse, corr, causal)
+            dk, dv = dense_bwd_dkv(q, k, v, g, lse, corr, causal)
         else:
-            dq = flash_bwd_dq(q, k, v, g, lse, corr, ctx.causal)
-            dk, dv = flash_bwd_dkv(q, k, v, g, lse, corr, ctx.causal)
-        return dq, dk, dv, None
+            dq = flash_bwd_dq(q, k, v, g, lse, corr, causal)
+            dk, dv = flash_bwd_dkv(q, k, v, g, lse, corr, causal)
+        return dq, dk, dv
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("flash attention has no second derivative")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, g, g_lse, causal):
+        folded, K = _fold(info, in_dims[:7], (q, k, v, o, lse, g, g_lse))
+        grads = FlashAttentionBwd.apply(*folded, causal)
+        return tuple(_unfold(t, K) for t in grads), (0, 0, 0)
 
 
 def flash_attention_with_lse(q, k, v, causal: bool = False):

@@ -31,6 +31,7 @@ from fedml_tpu_torch.algorithms.fedavg import (
     agg_weights,
     make_client_optimizer,
 )
+from fedml_tpu_torch.core import optim
 from fedml_tpu_torch.core.local import LocalSpec, Task, make_local_update
 from fedml_tpu_torch.core.tasks import sequence_task
 from fedml_tpu_torch.data.synthetic import synthetic_sequences
@@ -93,18 +94,19 @@ def _fit_inputs(seed=0):
 
 def test_padded_batches_are_noop():
     """A client whose data needs fewer than B batches trains identically
-    to the unpadded layout (port of test_fedavg.py's test of that name)."""
+    to the unpadded layout (port of test_fedavg.py's test of that name),
+    in a cohort of one through the batched fit."""
     task = sequence_task(create_model("transformer", device="cpu", **WIDTHS))
     net = task.init(torch.Generator().manual_seed(0))
-    fit = make_local_update(task, LocalSpec(
-        optimizer=lambda p: torch.optim.SGD(p, lr=0.1)))
-    x, y, mask = (torch.from_numpy(a) for a in _fit_inputs())
+    fit = make_local_update(task, LocalSpec(optimizer=optim.sgd(0.1)))
+    x, y, mask = (torch.from_numpy(a)[None] for a in _fit_inputs())
     out1, m1 = fit(net, x, y, mask)
-    pad = lambda a: torch.cat([a, torch.zeros((3,) + a.shape[1:], dtype=a.dtype)])
+    pad = lambda a: torch.cat(
+        [a, torch.zeros((1, 3) + a.shape[2:], dtype=a.dtype)], 1)
     out2, m2 = fit(net, pad(x), pad(y), pad(mask))
     for k in out1:
         assert torch.equal(out1[k], out2[k]), k
-    assert float(m1["count"]) == float(m2["count"]) == 2 * 3 * 16
+    assert float(m1["count"][0]) == float(m2["count"][0]) == 2 * 3 * 16
 
 
 def _softmax_regression_task():
@@ -130,9 +132,9 @@ def _softmax_regression_task():
 def test_local_update_matches_jax(opt):
     """epochs x batches of make_client_optimizer's steps plus the FedProx
     term mu/2 ||w - w_global||^2, with a padded batch, against the JAX
-    make_local_update on the same data and weights (a softmax regression
-    keeps the JAX compile short; the slice's plain SGD is held by
-    test_two_rounds_match_jax)."""
+    make_local_update on the same data and weights, in a cohort of one (a
+    softmax regression keeps the JAX compile short; the slice's plain SGD
+    is held by test_two_rounds_match_jax)."""
     rs = np.random.RandomState(1)
     x = rs.randn(3, 8, 6).astype(np.float32)
     y = rs.randint(0, 3, size=(3, 8))
@@ -151,12 +153,12 @@ def test_local_update_matches_jax(opt):
     fit = make_local_update(_softmax_regression_task(), LocalSpec(
         optimizer=make_client_optimizer(FedAvgConfig(**opt)), epochs=2,
         prox_mu=0.5))
-    out, m = fit(start, *(torch.from_numpy(a) for a in (x, y, mask)))
+    out, m = fit(start, *(torch.from_numpy(a)[None] for a in (x, y, mask)))
     for k, v in jout.params["Dense_0"].items():
-        np.testing.assert_allclose(out[k].numpy(), np.asarray(v), rtol=TOL,
-                                   atol=TOL, err_msg=k)
+        np.testing.assert_allclose(out[k][0].numpy(), np.asarray(v),
+                                   rtol=TOL, atol=TOL, err_msg=k)
     for k in ("loss_sum", "correct", "count"):
-        np.testing.assert_allclose(float(m[k]), float(jm[k]), rtol=TOL)
+        np.testing.assert_allclose(float(m[k][0]), float(jm[k]), rtol=TOL)
 
 
 @pytest.mark.parametrize("uniform", [False, True])
@@ -168,7 +170,9 @@ def test_agg_weights_match_jax(uniform):
 
 
 def test_port_imports_no_jax():
-    """Every port module imports without jax, flax, optax or fedml_tpu."""
+    """Every port module (29 of them: the main path's data plane, native
+    packer, models, task, optimizers and engine among them) imports without
+    jax, flax, optax or fedml_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import fedml_tpu_torch as pkg\n"
@@ -182,7 +186,7 @@ def test_port_imports_no_jax():
                          text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout) >= 20  # every module was imported
+    assert int(out.stdout) >= 29  # every module was imported
 
 
 def test_entry_points_need_a_device_without_cuda():

@@ -14,6 +14,7 @@ pin why it is needed.
 """
 
 import functools
+import importlib
 import math
 
 import jax
@@ -33,6 +34,8 @@ from fedml_tpu_torch.ops.flash_attention import (
 )
 from fedml_tpu_torch.parallel.ring_attention import full_attention
 
+# the package re-exports a function of the same name, so fetch the module
+fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 SHAPE = (2, 70, 2, 32)  # T=70: ragged against JAX's 32-blocks
 
 
@@ -98,6 +101,44 @@ def test_autograd_matches_dense_attention(causal):
     gr = torch.autograd.grad(ref, (rq, rk, rv), torch.tensor(g))
     for a, b in zip(gt, gr):
         torch.testing.assert_close(a, b, rtol=5e-4, atol=5e-4)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+def test_cohort_vmap_folds_into_b_and_unwraps(causal, monkeypatch):
+    """Under vmap(grad(...)) (the local fit), the cohort dim is folded into
+    B: the kernel entry points run once per call on plain [K*B, ...]
+    tensors, never functorch wrappers, and the gradients (an lse term
+    included) equal a loop over the clients."""
+    seen = []
+
+    def spy(fn):
+        def wrapped(*args):
+            seen.append((fn.__name__, tuple(args[0].shape), any(
+                torch._C._functorch.is_functorch_wrapped_tensor(a)
+                for a in args if torch.is_tensor(a))))
+            return fn(*args)
+        return wrapped
+
+    for name in ("dense_fwd", "dense_bwd_dq", "dense_bwd_dkv"):
+        monkeypatch.setattr(fa, name, spy(getattr(fa, name)))
+    rs = np.random.RandomState(5)
+    K, (B, T, H, D) = 3, (2, 20, 2, 16)
+    q, k, v = (torch.from_numpy(rs.randn(K, B, T, H, D).astype(np.float32))
+               for _ in range(3))
+    w = torch.from_numpy(rs.randn(B, H, T).astype(np.float32))
+
+    def loss(q, k, v):
+        out, lse = flash_attention_with_lse(q, k, v, causal)
+        return (out ** 2).sum() + (lse * w).sum()
+
+    grads = torch.func.vmap(torch.func.grad(loss, argnums=(0, 1, 2)))(q, k, v)
+    assert [(n, shape[0], wrapped) for n, shape, wrapped in seen] == [
+        ("dense_fwd", K * B, False), ("dense_bwd_dq", K * B, False),
+        ("dense_bwd_dkv", K * B, False)]
+    for c in range(K):
+        ref = torch.func.grad(loss, argnums=(0, 1, 2))(q[c], k[c], v[c])
+        for a, b in zip(grads, ref):
+            torch.testing.assert_close(a[c], b, rtol=1e-5, atol=1e-5)
 
 
 def test_flash_attention_returns_out_only():
