@@ -39,6 +39,19 @@ Phases, in order:
            must not; then timed rounds (wall time, samples/s), one round
            under torch.profiler (busy share, top kernels, idle gaps), one
            eval, peak device memory
+  distributed  the cross-process runtime (fedml_tpu_torch.distributed) at
+           main's configuration: (a) one step of each client of rounds 0
+           and 1 through ten DistributedTrainers on ten threads at once
+           against the engine's batched step on the same batch (bitwise),
+           with the engine's flags and with TF32 flags at PyTorch's
+           defaults; (b) rounds 0 (run_simulated) and 1 over loopback, one
+           server and ten client ranks as threads, each from the engine's
+           entering weights, against the engine's rounds, and over gRPC
+           where grpcio is installed; wire bytes by direction, one CNN
+           frame's encode and decode, rounds 2-4 timed beside the engine's;
+           (c) an elastic round with one client rank silent; (d) the
+           launcher as 1 server + 2 client processes over MQTT against the
+           in-process run of the same configuration, boot and round times
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -59,6 +72,7 @@ import sys
 import time
 import traceback
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -67,7 +81,7 @@ from fedml_tpu_torch.ops import loader
 # the package re-exports a function of the same name, so fetch the module
 fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
-PHASES = ("device", "build", "kernels", "slice", "main")
+PHASES = ("device", "build", "kernels", "slice", "main", "distributed")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -634,8 +648,8 @@ def _step_gaps(a, b):
     return float(err.median()), loss, float(err.max())
 
 
-def _agree(name, got, tols):
-    print(f"main: {name}: " + ", ".join(
+def _agree(name, got, tols, phase="main"):
+    print(f"{phase}: {name}: " + ", ".join(
         f"{what} {v:.3e} (tol {t:g})" for (what, t), v in zip(tols, got))
         + "".join(f", {what} {v:.3e}" for what, v in zip(
             ("largest client update rel. err",), got[len(tols):])))
@@ -782,6 +796,396 @@ def phase_main(report):
           f"({first_peak / 2**20:.1f} MiB over the agreement runs); device "
           f"busy share of the profiled round "
           f"{'not measured' if busy is None else f'{busy:.1%}'}")
+
+
+# The cross-process runtime at MAIN_CFG: one server rank and ten client
+# ranks as threads (run_simulated), each client fitting alone, and a job of
+# 1 server + 2 client processes over MQTT. Its checks reuse main's
+# tolerances and reasoning: one step of each client held sharply (the
+# trainer's fits run on ten threads at once, as the ranks do, so a thread
+# race in the float32 policy would put TF32 into some of them), full
+# rounds each from the same entering weights within TOL_ROUND.
+LAUNCH_TIMEOUT_S = 300
+LAUNCH_ROUNDS = 2
+
+
+def _state_on(state, device):
+    return {k: v.to(device) for k, v in state.items()}
+
+
+def _cpu_state(net):
+    return {k: v.detach().cpu().clone() for k, v in net.items()}
+
+
+def _trainer_steps(trainers, step_api, r, state):
+    """One local step of each client of round ``r`` from ``state``, each
+    through its own DistributedTrainer (rank k + 1 trains the round's k-th
+    client), the ten fits on ten threads at once: (the batches padded to
+    the engine's depth, each client's update [K, ...], loss sum [K]), on
+    the CPU in float64, _client_steps's format."""
+    import threading
+
+    from fedml_tpu_torch.core.client_data import pad_batches
+
+    ids = step_api._sampled_ids(r)
+    cbs = []
+    for tr, cid in zip(trainers, ids):
+        tr.update_dataset(int(cid))
+        tr.net = _state_on(state, tr.device)
+        cbs.append(pad_batches(tr.pack(r), step_api.num_batches))
+    errors = []
+
+    def fit(tr):
+        try:
+            tr.fit(r)
+        except BaseException as e:  # noqa: BLE001 — re-raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=fit, args=(tr,)) for tr in trainers]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    if errors:
+        raise errors[0]
+    cpu = lambda t: t.detach().cpu().double()
+    batch = [torch.from_numpy(np.concatenate([getattr(cb, f) for cb in cbs]))
+             for f in ("x", "y", "mask")]
+    upd = {k: torch.stack([cpu(tr.net[k]) - state[k].double()
+                           for tr in trainers]) for k in state}
+    loss = torch.stack([cpu(tr.metrics["loss_sum"][0]) for tr in trainers])
+    return batch, upd, loss
+
+
+def _standalone_round(api, r, state):
+    """Round ``r`` from ``state`` through the engine, scored as the
+    distributed server scores it (the global test set): (eval, params)."""
+    api.load_state(state)
+    api.run_round(r)
+    return api.evaluate(), _cpu_state(api.net)
+
+
+def _dist_gaps(dist, ref):
+    """(history, params) gaps of a distributed round (its server's eval
+    record, params) against the engine's (_standalone_round)."""
+    (rec, net), (ev, ref_net) = dist, ref
+    hist = max(abs(rec["test_loss"] - ev["loss"]) / max(1.0, abs(ev["loss"])),
+               abs(rec["test_acc"] - ev["acc"]))
+    return hist, max(float((net[k] - ref_net[k]).abs().max()) for k in ref_net)
+
+
+def _resumed_rounds(data, task, cfg, first, n, state, backend="LOOPBACK",
+                    **backend_kw):
+    """Rounds ``first`` .. ``first + n - 1`` over ``backend`` from ``state``
+    (the server resumes at round ``first``, as a restarted one would):
+    (the server's aggregator, the host time at the end of each round's
+    aggregate, the launch's start time)."""
+    from fedml_tpu_torch.distributed.fedavg import api as dist_api
+    from fedml_tpu_torch.distributed.utils import launch_simulated
+
+    cfg = dataclasses.replace(cfg, comm_round=first + n)
+    size = cfg.client_num_per_round + 1
+    server = dist_api.init_server(data, task, cfg, size, backend,
+                                  **backend_kw)
+    agg = server.aggregator
+    agg.net = _state_on(state, agg.device)
+    server.round_idx = first
+    clients = [dist_api.init_client(data, task, cfg, rank, size, backend,
+                                    **backend_kw) for rank in range(1, size)]
+    stamps, aggregate = [], agg.aggregate
+
+    def stamped():
+        out = aggregate()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return out
+
+    agg.aggregate = stamped
+    t0 = time.perf_counter()
+    launch_simulated(server, clients)
+    return agg, stamps, t0
+
+
+def _launch_job(argv, out_dir):
+    """1 server + 2 client processes of the launcher, all started together:
+    (rank 0's stdout, each rank's stderr, the launch's wall-clock start,
+    rank 0's exit time). Every process is killed at LAUNCH_TIMEOUT_S or on
+    any failure, and the phase fails."""
+    import os
+
+    env = {**os.environ, "PYTHONPATH": str(out_dir.parent)}
+    procs, files = [], []
+    t0 = time.time()
+    try:
+        for r in (0, 1, 2):
+            out = open(out_dir / f"rank{r}.out", "w")
+            err = open(out_dir / f"rank{r}.err", "w")
+            files += [out, err]
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "fedml_tpu_torch.experiments.distributed_launch",
+                 "--rank", str(r), *argv],
+                cwd=out_dir.parent, env=env, stdout=out, stderr=err))
+        deadline = time.monotonic() + LAUNCH_TIMEOUT_S
+        rcs = [p.wait(timeout=max(1.0, deadline - time.monotonic()))
+               for p in procs]
+        t_end = time.time()
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for f in files:
+            f.close()
+    errs = [(out_dir / f"rank{r}.err").read_text() for r in (0, 1, 2)]
+    if rcs != [0, 0, 0]:
+        raise AssertionError(f"launcher ranks exited {rcs}; rank 0's log "
+                             f"ends: {errs[0][-2000:]}")
+    return (out_dir / "rank0.out").read_text(), errs, t0, t_end
+
+
+def _log_time(log, text):
+    """Wall-clock time of the first logging line holding ``text``."""
+    import datetime
+
+    for line in log.splitlines():
+        if text in line:
+            stamp = datetime.datetime.strptime(line[:23],
+                                               "%Y-%m-%d %H:%M:%S,%f")
+            return stamp.timestamp()
+    raise AssertionError(f"no log line holds {text!r}")
+
+
+def phase_distributed(report):
+    import importlib.util
+    import socket
+    import tempfile
+    from pathlib import Path
+
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.comm.loopback import LoopbackCommManager
+    from fedml_tpu_torch.comm.message import Message, pack_pytree, unpack_pytree
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.distributed.fedavg import api as dist_api
+    from fedml_tpu_torch.distributed.fedavg import run_simulated
+    from fedml_tpu_torch.distributed.fedavg.trainer import DistributedTrainer
+    from fedml_tpu_torch.distributed.utils import launch_simulated
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.obs.comm_instrument import comm_counters
+
+    data = load_dataset("femnist", seed=0, uint8_pixels=True)
+    cfg = FedAvgConfig(comm_round=1, frequency_of_the_test=1, **MAIN_CFG)
+    step_cfg = dataclasses.replace(cfg, max_batches=1)
+    cnn = lambda: classification_task(create_model("cnn", output_dim=62))
+    K = MAIN_CFG["client_num_per_round"]
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launches()
+    api = FedAvgAPI(data, cnn(), cfg, device_data=True)
+    start = _cpu_state(api.net)
+
+    # (a) one step of each client of rounds 0 and 1, trainer vs engine
+    step = FedAvgAPI(data, cnn(), step_cfg, device_data=True)
+    shared = cnn()  # the ranks share one task, as run_simulated's do
+    trainers = [DistributedTrainer(rank, data, shared, step_cfg)
+                for rank in range(1, K + 1)]
+    if not all(torch.equal(trainers[0].net[k].cpu(), start[k]) for k in start):
+        raise AssertionError("the trainer's initial weights are not the "
+                             "engine's")
+    sa0 = _standalone_round(api, 0, start)
+    cudnn, matmul = torch.backends.cudnn, torch.backends.cuda.matmul
+    flags = cudnn.allow_tf32, matmul.allow_tf32
+    try:
+        for label in ("engine's flags", "TF32 flags at defaults"):
+            if label != "engine's flags":
+                cudnn.allow_tf32, matmul.allow_tf32 = True, False
+            for r, state in ((0, start), (1, sa0[1])):
+                _agree(f"{label}: one step of round {r}'s "
+                       "clients, DistributedTrainer on 10 threads vs the "
+                       "engine's batched step",
+                       _step_gaps(_trainer_steps(trainers, step, r, state),
+                                  _client_steps(step, r, state)), STEP_TOLS,
+                       phase="distributed")
+    finally:
+        cudnn.allow_tf32, matmul.allow_tf32 = flags
+    del step, trainers
+
+    # (b) rounds 0 and 1 over loopback, each from the engine's entering
+    # weights; the wire bytes of round 0 by direction
+    before = comm_counters()
+    t0 = time.perf_counter()
+    agg = run_simulated(data, cnn(), cfg, job_id="smoke-round0")
+    wall0 = time.perf_counter() - t0
+    after = comm_counters()
+    _agree("loopback round 0 (run_simulated) vs the engine",
+           _dist_gaps((agg.history[-1], _cpu_state(agg.net)), sa0),
+           ROUND_TOLS, phase="distributed")
+    up = after["bytes_uplink"] - before["bytes_uplink"]
+    down = after["bytes_downlink"] - before["bytes_downlink"]
+    print(f"distributed: round 0 over loopback {wall0:.3f} s (set-up and "
+          f"threads included); wire bytes: uplink {up:.0f}, downlink "
+          f"{down:.0f} ({after['messages_sent'] - before['messages_sent']:.0f}"
+          " frames, FINISH included)")
+    sa1 = _standalone_round(api, 1, sa0[1])
+    agg1, _, _ = _resumed_rounds(data, cnn(), cfg, 1, 1, sa0[1],
+                                 job_id="smoke-round1")
+    _agree("loopback round 1 from the engine's round-0 weights "
+           "vs the engine", _dist_gaps((agg1.history[-1],
+                                        _cpu_state(agg1.net)), sa1),
+           ROUND_TOLS, phase="distributed")
+    if importlib.util.find_spec("grpc") is None:
+        print("distributed: gRPC was not run: grpcio is absent on this "
+              "machine")
+    else:
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            base = min(s.getsockname()[1], 65535 - 2 * (K + 1))
+        agg_g = run_simulated(data, cnn(), cfg, backend="GRPC", base_port=base)
+        _agree("gRPC round 0 (run_simulated) vs the engine",
+               _dist_gaps((agg_g.history[-1], _cpu_state(agg_g.net)), sa0),
+               ROUND_TOLS, phase="distributed")
+        agg_g, _, _ = _resumed_rounds(data, cnn(), cfg, 1, 1, sa0[1],
+                                      backend="GRPC", base_port=base + K + 1)
+        _agree("gRPC round 1 from the engine's round-0 weights vs the "
+               "engine", _dist_gaps((agg_g.history[-1],
+                                     _cpu_state(agg_g.net)), sa1),
+               ROUND_TOLS, phase="distributed")
+
+    # one CNN frame's encode and decode, by step
+    leaves = pack_pytree(api.net)
+    times = {}
+
+    def timed(name, fn, reps=5):
+        out, ts = None, []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t1)
+        times[name] = statistics.median(ts) * 1e3
+        return out
+
+    def build():
+        msg = Message("c2s_send_model", 1, 0)
+        msg.add_params("model_params", leaves)
+        msg.add_params("num_samples", 560)
+        msg.add_params("round_idx", 0)
+        return msg
+
+    timed("pack_pytree (D2H + to_flax)", lambda: pack_pytree(api.net))
+    frame = timed("to_bytes (header + CRC32)", lambda: build().to_bytes())
+    back = timed("from_bytes (CRC32 + views)", lambda: Message.from_bytes(frame))
+    timed("unpack_pytree (from_flax + H2D)",
+          lambda: unpack_pytree(api.net, back.get("model_params")))
+    print(f"distributed: one CNN frame {len(frame)} bytes "
+          f"({sum(v.nbytes for v in leaves)} of leaves); median of 5, ms: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in times.items()))
+
+    # timed rounds 2-4 over loopback and through the engine
+    per_round = {}
+    for r in range(2, 5):
+        ids = api._sampled_ids(r)
+        per_round[r] = sum(min(len(data.train_idx_map[int(c)]),
+                               MAIN_CFG["max_batches"] * MAIN_CFG["batch_size"])
+                           for c in ids)
+    agg_t, stamps, t_start = _resumed_rounds(
+        data, cnn(), cfg, 2, 3, _cpu_state(agg1.net), job_id="smoke-timed")
+    prev = t_start
+    for r, t_end in zip(range(2, 5), stamps):
+        wall = t_end - prev
+        prev = t_end
+        print(f"distributed: loopback round {r}: {wall:.4f} s, "
+              f"{per_round[r] / wall:.0f} train samples/s "
+              f"({per_round[r]} real; round 2 includes the threads' start)")
+    api.load_state(_cpu_state(agg1.net))
+    for r in range(2, 5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = api.run_round(r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if int(m["count"]) != per_round[r]:
+            raise AssertionError(f"round {r}: engine counts {m['count']}, "
+                                 f"expected {per_round[r]}")
+        print(f"distributed: engine round {r}: {wall:.4f} s, "
+              f"{per_round[r] / wall:.0f} train samples/s")
+    del agg_t
+
+    # (c) elastic: rank K registered but silent; the deadline is set well
+    # above this card's loopback round so it only fires on the silence
+    timeout_s = max(5.0, 3 * wall0)
+    size, job = K + 1, "smoke-elastic"
+    agg_e = dist_api.FedAvgAggregator(data, cnn(), cfg, worker_num=K)
+    server = dist_api.FedAvgServerManager(agg_e, rank=0, size=size,
+                                          backend="LOOPBACK",
+                                          round_timeout_s=timeout_s,
+                                          job_id=job)
+    dead = LoopbackCommManager(job, K, size)
+    live = [dist_api.init_client(data, cnn(), cfg, rank, size, "LOOPBACK",
+                                 job_id=job) for rank in range(1, K)]
+    t0 = time.perf_counter()
+    try:
+        launch_simulated(server, live)
+    finally:
+        dead.stop_receive_message()
+    nbytes = sum(v.numel() * v.element_size() for v in agg_e.net.values())
+    if (len(agg_e.history) != 1 or agg_e.quarantine.entries()
+            or agg_e._last_flush["stack_bytes"] != (K - 1) * nbytes
+            or not all(bool(torch.isfinite(v).all())
+                       for v in agg_e.net.values())):
+        raise AssertionError(f"elastic round: history {agg_e.history}, "
+                             f"flush {agg_e._last_flush}")
+    print(f"distributed: elastic round over {K - 1} live ranks (rank {K} "
+          f"silent, round_timeout_s {timeout_s:.1f}) in "
+          f"{time.perf_counter() - t0:.2f} s: {agg_e.history[-1]}")
+
+    # (d) 1 server + 2 client processes over MQTT against the in-process
+    # loopback run of the same configuration (the launcher's float32 data)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    argv = ["--world_size", "3", "--backend", "mqtt", "--broker_port",
+            str(port), "--serve_broker", "1", "--dataset", "femnist",
+            "--model", "cnn", "--batch_size", str(MAIN_CFG["batch_size"]),
+            "--lr", str(MAIN_CFG["lr"]), "--comm_round", str(LAUNCH_ROUNDS),
+            "--client_num_in_total", str(MAIN_CFG["client_num_in_total"]),
+            "--frequency_of_the_test", "1", "--seed", "0"]
+    with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as d:
+        out, errs, t_launch, t_exit = _launch_job(argv, Path(d))
+    history = json.loads(out.strip().splitlines()[-1])
+    fdata = load_dataset("femnist", seed=0)
+    want = run_simulated(fdata, cnn(), FedAvgConfig(
+        comm_round=LAUNCH_ROUNDS, client_num_in_total=MAIN_CFG[
+            "client_num_in_total"], client_num_per_round=2,
+        batch_size=MAIN_CFG["batch_size"], lr=MAIN_CFG["lr"],
+        frequency_of_the_test=1, seed=0), job_id="smoke-launch-ref").history
+    if [h["round"] for h in history] != [h["round"] for h in want]:
+        raise AssertionError(f"process run history {history} vs {want}")
+    gap = max(max(abs(a["test_loss"] - b["test_loss"]) / max(1.0, abs(b["test_loss"])),
+                  abs(a["test_acc"] - b["test_acc"]))
+              for a, b in zip(history, want))
+    _agree("3 processes over MQTT vs the in-process loopback "
+           "run", (gap,), (("history max diff", TOL_ROUND),),
+           phase="distributed")
+    up = [_log_time(errs[0], "server up")] + [
+        _log_time(e, "bundled minimal client") for e in errs[1:]]
+    evals = [_log_time(errs[0], f"server eval {{'round': {r},")
+             for r in range(LAUNCH_ROUNDS)]
+    fits = [[float(m) for m in re.findall(r"packed in ([0-9.]+) s", e)]
+            for e in errs[1:]]
+    print(f"distributed: processes: server up {up[0] - t_launch:.2f} s, "
+          f"clients up {up[1] - t_launch:.2f} / {up[2] - t_launch:.2f} s "
+          f"after launch; round 0 ends {evals[0] - up[0]:.2f} s after the "
+          f"server's broadcast, round 1 takes {evals[1] - evals[0]:.2f} s; "
+          f"the clients' fit + pack by round, s: {fits}; rank 0 exits "
+          f"{t_exit - t_launch:.2f} s after launch")
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched by the distributed "
+                             f"CNN path: {fa.LAUNCHES}")
+    print(f"distributed: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (this "
+          "process; the launcher's processes not counted)")
 
 
 def kernel_line(report):

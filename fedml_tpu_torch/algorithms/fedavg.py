@@ -22,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import logging
+import threading
 import time
 
 import numpy as np
@@ -58,20 +59,50 @@ def agg_weights(nsamp: torch.Tensor, uniform: bool) -> torch.Tensor:
     return (nsamp > 0).to(nsamp.dtype)
 
 
-@contextlib.contextmanager
-def float32_compute():
-    """float32 on the card, whatever the process's flags: cuDNN convolutions
-    without TF32 (PyTorch's default lets them take TF32) and matmul
-    precision "highest"; the caller's settings come back on exit."""
-    cudnn = torch.backends.cudnn
-    prev = torch.get_float32_matmul_precision()
-    torch.set_float32_matmul_precision("highest")
-    try:
-        with cudnn.flags(enabled=cudnn.enabled, benchmark=cudnn.benchmark,
-                         deterministic=cudnn.deterministic, allow_tf32=False):
+class _Float32Policy:
+    """The process's float32 flags, held by reference count: the flags are
+    process-global, and fits and evals run on several threads at once (the
+    cross-process runtime's ranks as threads), so the first entrant saves
+    the caller's flags and switches TF32 off, and the last one out puts
+    them back. Per-entrant save/restore would let the first thread to
+    leave re-enable TF32 under the others, and a thread entering second
+    would save the first one's "off" state and restore it for good."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._users = 0
+        self._saved = None  # (matmul precision, entered cudnn.flags)
+
+    @contextlib.contextmanager
+    def __call__(self):
+        with self._lock:
+            if self._users == 0:
+                cudnn = torch.backends.cudnn
+                flags = cudnn.flags(enabled=cudnn.enabled,
+                                    benchmark=cudnn.benchmark,
+                                    deterministic=cudnn.deterministic,
+                                    allow_tf32=False)
+                self._saved = (torch.get_float32_matmul_precision(), flags)
+                flags.__enter__()
+                torch.set_float32_matmul_precision("highest")
+            self._users += 1
+        try:
             yield
-    finally:
-        torch.set_float32_matmul_precision(prev)
+        finally:
+            with self._lock:
+                self._users -= 1
+                if self._users == 0:
+                    precision, flags = self._saved
+                    self._saved = None
+                    torch.set_float32_matmul_precision(precision)
+                    flags.__exit__(None, None, None)
+
+
+#: float32 on the card, whatever the process's flags: cuDNN convolutions
+#: without TF32 (PyTorch's default lets them take TF32) and matmul
+#: precision "highest"; the caller's settings come back when the last
+#: thread inside leaves (see _Float32Policy).
+float32_compute = _Float32Policy()
 
 
 def _gather_rows(dev_x, dev_y, idx, mask):

@@ -6,9 +6,17 @@ Conventions: x [bs, ...]; y [bs] integer labels (classification) or [bs, T]
 tokens (sequence); mask [bs] sample validity. Each function computes one
 client's batch, so the local fit runs it under ``torch.func.vmap`` over the
 cohort; params are a dict name -> tensor, run through ``functional_call``.
+
+``functional_call`` swaps the params into the module's attributes for the
+forward and back after it, so two threads calling one module at once would
+each run with the other's weights. The cross-process runtime runs its
+ranks as threads over one task, so a task holds a lock around its module's
+calls (only the forward: the backward reads the autograd graph).
 """
 
 from __future__ import annotations
+
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -42,16 +50,30 @@ def _init_params(module, generator, x_sample):
     return {k: v.detach().clone() for k, v in module.named_parameters()}
 
 
+def _module_caller(module):
+    """``(init, call)`` on ``module`` under one lock (see the module
+    docstring): ``call(params, x)`` is ``functional_call``."""
+    lock = threading.Lock()
+
+    def init(generator: torch.Generator, x_sample=None):
+        with lock:
+            return _init_params(module, generator, x_sample)
+
+    def call(params, x):
+        with lock:
+            return functional_call(module, params, (x,))
+
+    return init, call
+
+
 def classification_task(module) -> Task:
     """Softmax cross-entropy over integer labels, masked per sample:
     loss = sum(per_ex * mask) / max(sum(mask), 1); metrics 'loss_sum',
     'correct' and 'count' over the unmasked samples."""
-
-    def init(generator: torch.Generator, x_sample=None):
-        return _init_params(module, generator, x_sample)
+    init, call = _module_caller(module)
 
     def _metrics(params, x, y, mask):
-        logits = functional_call(module, params, (_as_float_image(x),))
+        logits = call(params, _as_float_image(x))
         per_ex = F.cross_entropy(logits, y, reduction="none")
         correct = ((logits.argmax(-1) == y) * mask).sum()
         return (per_ex * mask).sum(), correct.detach(), mask.sum()
@@ -63,7 +85,7 @@ def classification_task(module) -> Task:
         return loss_sum / count.clamp_min(1.0), metrics
 
     def predict(params, x):
-        return functional_call(module, params, (_as_float_image(x),))
+        return call(params, _as_float_image(x))
 
     def eval_batch(params, x, y, mask):
         loss_sum, correct, count = _metrics(params, x, y, mask)
@@ -84,11 +106,10 @@ def sequence_task(module, pad_id: int = 0,
                                   "not ported yet: ROADMAP.md queue A, "
                                   "item 11")
 
-    def init(generator: torch.Generator, x_sample=None):
-        return _init_params(module, generator, x_sample)
+    init, call = _module_caller(module)
 
     def _metrics(params, x, y, mask):
-        logits = functional_call(module, params, (x,))
+        logits = call(params, x)
         per_tok = F.cross_entropy(logits.flatten(0, 1), y.flatten(),
                                   reduction="none").view_as(y)
         tm = (y != pad_id).to(per_tok.dtype) * mask[:, None]
@@ -102,7 +123,7 @@ def sequence_task(module, pad_id: int = 0,
         return loss_sum / count.clamp_min(1.0), metrics
 
     def predict(params, x):
-        return functional_call(module, params, (x,))
+        return call(params, x)
 
     def eval_batch(params, x, y, mask):
         loss_sum, correct, count = _metrics(params, x, y, mask)
