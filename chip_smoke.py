@@ -38,7 +38,10 @@ Phases, in order:
            control with the engine's float32 policy off and TF32 allowed
            must not; then timed rounds (wall time, samples/s), one round
            under torch.profiler (busy share, top kernels, idle gaps), one
-           eval, peak device memory
+           eval, peak device memory; for each timed round the engine's
+           host spans (obs/tracing RoundTracer): pack (sampling, packing,
+           the device gather) and round (dispatching the fit and the
+           aggregate), and the wait for the card after them
   distributed  the cross-process runtime (fedml_tpu_torch.distributed) at
            main's configuration: (a) one step of each client of rounds 0
            and 1 through ten DistributedTrainers on ten threads at once
@@ -51,7 +54,23 @@ Phases, in order:
            frame's encode and decode, rounds 2-4 timed beside the engine's;
            (c) an elastic round with one client rank silent; (d) the
            launcher as 1 server + 2 client processes over MQTT against the
-           in-process run of the same configuration, boot and round times
+           in-process run of the same configuration, boot and round times;
+           (e) a TransformerLM job at the slice's width (1 server and 4
+           client ranks over loopback, each client's steps through the
+           flash kernels: launch counts) against the engine's batched
+           rounds from the same weights
+  wire     the wire's tiers at main's configuration, 2 rounds each over
+           loopback from the same weights: dense, delta, delta-int8 and
+           delta-sign1 with error feedback, top-k (ratio 0.01) with error
+           feedback, delta-int8 with round-delta broadcasts: uplink and
+           downlink bytes, the reduction against dense (the reference's
+           floors: int8 at least 8x, sign1 at least 25x), one frame's
+           encode and decode on the host, round times; delta held to dense,
+           the lossy tiers finite with empty quarantines. A seeded fault
+           plan (drop, corrupt, duplicate, delay) twice on delta-int8: equal
+           fault and quarantine ledgers, no duplicate folded twice. One
+           traced dense run: each round's spans by rank, its history the
+           untraced run's, its frames grown only by the trace parameter
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -81,7 +100,8 @@ from fedml_tpu_torch.ops import loader
 # the package re-exports a function of the same name, so fetch the module
 fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
-PHASES = ("device", "build", "kernels", "slice", "main", "distributed")
+PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
+          "wire")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -771,15 +791,20 @@ def phase_main(report):
     per_round = MAIN_CFG["client_num_per_round"] * api.num_batches * \
         MAIN_CFG["batch_size"]
     for r in range(2, 5):
+        spans_before = dict(api.tracer.rounds[-1])
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m = api.run_round(r)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         real = float(m["count"])
+        sp = api._span_delta(spans_before)
         print(f"main: round {r}: {wall:.4f} s, {real / wall:.0f} train "
               f"samples/s ({real:.0f} real of {per_round} slots, "
-              f"{per_round / wall:.0f} slots/s)")
+              f"{per_round / wall:.0f} slots/s); host spans: pack "
+              f"{sp['pack'] * 1e3:.2f} ms, round (dispatch) "
+              f"{sp['round'] * 1e3:.2f} ms, then the wait for the card "
+              f"{(wall - sp['pack'] - sp['round']) * 1e3:.2f} ms")
     busy = profile_round(api, 5, per_round, "sample slots", {
         "convolution": "conv|cudnn|fprop|dgrad|wgrad|implicit|im2col",
         "matmul": "gemm|cutlass|cublas|xmma"})
@@ -1186,6 +1211,390 @@ def phase_distributed(report):
     print(f"distributed: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB (this "
           "process; the launcher's processes not counted)")
+    _transformer_job(report)
+
+
+def _transformer_job(report):
+    """(e) a TransformerLM crosses the wire: the slice's model and
+    federation (4 clients a round, 2 SGD steps, T 2048) as 1 server and 4
+    client ranks over loopback, each client fitting alone (B = its batch of
+    4), every frame 16.8 MB; its rounds against the engine's, the cohort
+    batched, from the same weights, within the slice's tolerance."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.core.tasks import sequence_task
+    from fedml_tpu_torch.data.synthetic import synthetic_sequences
+    from fedml_tpu_torch.distributed.fedavg import run_simulated
+    from fedml_tpu_torch.models import create_model
+
+    rounds = 2
+    data = synthetic_sequences(
+        num_clients=SLICE_FED["client_num_in_total"], seq_len=_T,
+        vocab_size=SLICE_WIDTHS["vocab_size"], samples_per_client=8,
+        test_samples=16)
+    cfg = FedAvgConfig(comm_round=rounds, **SLICE_FED)
+    lm = lambda: sequence_task(create_model("transformer_flash",
+                                            **SLICE_WIDTHS))
+    eng = FedAvgAPI(data, lm(), cfg)
+    start, ref = _cpu_state(eng.net), []
+    for r in range(rounds):
+        eng.run_round(r)
+        ref.append((eng.evaluate(), _cpu_state(eng.net)))
+    fa.reset_launches()
+    t0 = time.perf_counter()
+    agg = run_simulated(data, lm(), cfg, job_id="smoke-lm")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.LAUNCHES)
+    steps = eng.num_batches * SLICE_WIDTHS["depth"]
+    evals = SLICE_WIDTHS["depth"] * math.ceil(len(data.test_x)
+                                              / cfg.eval_batch_size)
+    K = cfg.client_num_per_round
+    want = {"flash_fwd": rounds * (K * steps + evals),
+            "flash_bwd_dq": rounds * K * steps,
+            "flash_bwd_dkv": rounds * K * steps}
+    report["launches_transformer_job"] = launches
+    print(f"distributed: TransformerLM job ({sum(v.numel() for v in start.values())}"
+          f" params, 1 server + {K} client ranks over loopback, {rounds} "
+          f"rounds) in {wall:.2f} s; flash launches {launches}, expected "
+          f"{want}")
+    if launches != want:
+        raise AssertionError(f"TransformerLM job launches {launches} != "
+                             f"{want}")
+    if [h["round"] for h in agg.history] != list(range(rounds)):
+        raise AssertionError(f"TransformerLM job history {agg.history}")
+    for rec, (ev, _) in zip(agg.history, ref):
+        gap = max(abs(rec["test_loss"] - ev["loss"]) / max(1.0, abs(ev["loss"])),
+                  abs(rec["test_acc"] - ev["acc"]))
+        print(f"distributed: TransformerLM round {rec['round']}: test_loss "
+              f"{rec['test_loss']:.7f} (engine {ev['loss']:.7f}), test_acc "
+              f"{rec['test_acc']:.6f} (engine {ev['acc']:.6f}); history "
+              f"max diff {gap:.3e} (tol {TOL_SLICE})")
+        if gap > TOL_SLICE:
+            raise AssertionError(f"TransformerLM round {rec['round']}: "
+                                 f"{rec} vs the engine's {ev}")
+    net = _cpu_state(agg.net)
+    diff = max(float((net[k] - ref[-1][1][k]).abs().max()) for k in net)
+    print(f"distributed: TransformerLM params after {rounds} rounds vs the "
+          f"engine's: max |diff| {diff:.3e} (tol {TOL_SLICE})")
+    if diff > TOL_SLICE:
+        raise AssertionError(f"TransformerLM params differ by {diff}")
+
+
+# The wire's tiers at MAIN_CFG: (label, client options, server options).
+# Every run is WIRE_ROUNDS rounds over loopback from the same weights (the
+# seed's init). Top-k ships 1 % of each leaf's entries.
+WIRE_TIERS = (
+    ("dense", {}, {}),
+    ("delta", {"update_codec": "delta"}, {}),
+    ("delta-int8 + EF", {"update_codec": "delta-int8"}, {}),
+    ("delta-sign1 + EF", {"update_codec": "delta-sign1"}, {}),
+    ("top-k 0.01 + EF", {"sparsify_ratio": 0.01}, {}),
+    ("delta-int8 + delta_broadcast", {"update_codec": "delta-int8"},
+     {"delta_broadcast": True}),
+)
+WIRE_ROUNDS = 2
+# the reference's floors on uplink bytes against dense
+# (tests/test_wire_codecs.py:516-544)
+WIRE_FLOORS = {"delta-int8 + EF": 8.0, "delta-sign1 + EF": 25.0}
+# test_wire_codecs.py:491-498's plan (rank 2's round-1 upload dropped,
+# rank 1's uploads corrupted on arrival with probability 0.5, rank 3's
+# uploads duplicated) plus a delayed downlink to rank 4
+WIRE_CHAOS = {"seed": 7, "rules": [
+    {"fault": "drop", "direction": "send", "src": [2], "dst": [0],
+     "rounds": [1, 2]},
+    {"fault": "corrupt", "direction": "recv", "src": [1], "dst": [0],
+     "prob": 0.5},
+    {"fault": "duplicate", "direction": "send", "src": [3], "dst": [0]},
+    {"fault": "delay", "direction": "send", "src": [0], "dst": [4],
+     "delay_s": 0.05}]}
+
+
+def _wire_run(data, cfg, job, client_kw=None, server_kw=None,
+              telemetry=None):
+    """One loopback job of 1 server and client_num_per_round client ranks
+    (threads) at ``cfg``, under whatever chaos plan is installed: the
+    server's aggregator, each round's wall time (from the launch or the
+    previous aggregate to the end of this one), what each aggregate
+    folded (worker indices, summed sample weight), and the wire bytes and
+    frames it moved."""
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.distributed.fedavg import api as dist_api
+    from fedml_tpu_torch.distributed.utils import launch_simulated
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.obs.comm_instrument import comm_counters
+
+    size = cfg.client_num_per_round + 1
+    task = classification_task(create_model("cnn", output_dim=62))
+    server = dist_api.init_server(data, task, cfg, size, "LOOPBACK",
+                                  job_id=job, telemetry=telemetry,
+                                  **(server_kw or {}))
+    clients = [dist_api.init_client(data, task, cfg, rank, size, "LOOPBACK",
+                                    job_id=job, **(client_kw or {}))
+               for rank in range(1, size)]
+    agg = server.aggregator
+    stamps, folds, aggregate = [], [], agg.aggregate
+
+    def stamped():
+        folds.append((sorted(agg.model_dict),
+                      float(sum(agg.sample_num_dict.values()))))
+        out = aggregate()
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        return out
+
+    agg.aggregate = stamped
+    before = comm_counters()
+    t0 = time.perf_counter()
+    launch_simulated(server, clients)
+    after = comm_counters()
+    delta = {k: after[k] - before[k] for k in
+             ("bytes_uplink", "bytes_downlink", "messages_sent")}
+    return dict(agg=agg, walls=[b - a for a, b in zip([t0] + stamps, stamps)],
+                folds=folds, up=delta["bytes_uplink"],
+                down=delta["bytes_downlink"], frames=delta["messages_sent"])
+
+
+def _frame_ms(label, client_kw, server_kw, local, glob):
+    """One upload of ``label``'s tier from a client holding the state
+    ``local`` after a fit from the broadcast ``glob`` (state dicts on the
+    card): (encode ms: pack_pytree, the tier's encode with its error
+    feedback, to_bytes; decode ms: from_bytes, the server's densify
+    against its stash, the copy to the card; frame bytes), medians of 5.
+    With delta_broadcast, the downlink's round-delta frame is timed
+    instead (server encode, client decode)."""
+    from fedml_tpu_torch.comm import delta as dl
+    from fedml_tpu_torch.comm import sparse
+    from fedml_tpu_torch.comm.ef import ErrorFeedback
+    from fedml_tpu_torch.comm.message import Message, pack_pytree, unpack_pytree
+    from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage as M
+
+    g = pack_pytree(glob)
+    codec, ratio = client_kw.get("update_codec"), client_kw.get("sparsify_ratio")
+    ef = ErrorFeedback() if codec in ("delta-int8", "delta-sign1") or ratio \
+        else None
+
+    def encode():
+        msg = Message(M.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, 1, 0)
+        w = pack_pytree(local)
+        if server_kw.get("delta_broadcast"):
+            d = dl.round_delta(w, g)
+            dl.apply_delta(g, d)  # the server's chain value
+            msg.add_params(M.MSG_ARG_KEY_DELTA_PARAMS, d)
+        elif ratio:
+            comp = ef.compensate(sparse.topk_delta(w, g))
+            idx, vals = sparse.topk_encode(comp, ratio)
+            ef.update_residual(sparse.topk_residual(comp, idx))
+            msg.add_params(M.MSG_ARG_KEY_SPARSE_IDX, idx)
+            msg.add_params(M.MSG_ARG_KEY_SPARSE_VAL, vals)
+        elif codec:
+            comp = dl.round_delta(w, g)
+            comp = ef.compensate(comp) if ef else comp
+            payload, scales = dl.encode_update(comp, codec)
+            if ef:
+                ef.update(comp, dl.decode_update(payload, scales, codec, w))
+            msg.add_params(M.MSG_ARG_KEY_UPDATE_CODEC, codec)
+            msg.add_params(M.MSG_ARG_KEY_UPDATE_PAYLOAD, payload)
+            msg.add_params(M.MSG_ARG_KEY_UPDATE_SCALE, scales)
+        else:
+            msg.add_params(M.MSG_ARG_KEY_MODEL_PARAMS, w)
+        msg.add_params(M.MSG_ARG_KEY_NUM_SAMPLES, 560)
+        msg.add_params(M.MSG_ARG_KEY_ROUND, 0)
+        return msg.to_bytes()
+
+    def decode(frame):
+        m = Message.from_bytes(frame)
+        if server_kw.get("delta_broadcast"):
+            leaves = dl.apply_delta(g, m.get(M.MSG_ARG_KEY_DELTA_PARAMS))
+        elif ratio:
+            leaves = sparse.topk_decode(g, m.get(M.MSG_ARG_KEY_SPARSE_IDX),
+                                        m.get(M.MSG_ARG_KEY_SPARSE_VAL))
+        elif codec:
+            leaves = dl.apply_delta(g, dl.decode_update(
+                m.get(M.MSG_ARG_KEY_UPDATE_PAYLOAD), m.get(M.MSG_ARG_KEY_UPDATE_SCALE), codec, g))
+        else:
+            leaves = m.get(M.MSG_ARG_KEY_MODEL_PARAMS)
+        out = unpack_pytree(glob, leaves)
+        torch.cuda.synchronize()
+        return out
+
+    enc, dec = [], []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        frame = encode()
+        t1 = time.perf_counter()
+        decode(frame)
+        dec.append(time.perf_counter() - t1)
+        enc.append(t1 - t0)
+    return (statistics.median(enc) * 1e3, statistics.median(dec) * 1e3,
+            len(frame))
+
+
+def _trace_rounds(tel, rounds):
+    """Each round's spans by rank from a traced run, ms: {round: {rank:
+    {span name: summed ms}}}."""
+    from fedml_tpu_torch.obs.tracing import make_trace_id
+
+    tids = {make_trace_id(tel.tracer.run_id, r): r for r in range(rounds)}
+    out = {r: {} for r in range(rounds)}
+    for s in tel.tracer.spans():
+        r = tids.get(s["tid"])
+        if r is None:
+            continue
+        by = out[r].setdefault(s["rank"], {})
+        by[s["name"]] = by.get(s["name"], 0.0) + (s["t1"] - s["t0"]) * 1e3
+    return out
+
+
+def phase_wire(report):
+    from fedml_tpu_torch import chaos
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.obs.telemetry import Telemetry
+
+    data = load_dataset("femnist", seed=0, uint8_pixels=True)
+    cfg = FedAvgConfig(comm_round=WIRE_ROUNDS, frequency_of_the_test=1,
+                       **MAIN_CFG)
+    K = cfg.client_num_per_round
+    fa.reset_launches()
+    runs = {}
+    for label, client_kw, server_kw in WIRE_TIERS:
+        runs[label] = run = _wire_run(data, cfg, f"smoke-wire-{len(runs)}",
+                                      client_kw, server_kw)
+        agg = run["agg"]
+        finite = all(bool(torch.isfinite(v).all()) for v in agg.net.values())
+        print(f"wire: {label}: uplink {run['up']:.0f} B, downlink "
+              f"{run['down']:.0f} B over {WIRE_ROUNDS} rounds "
+              f"({run['frames']:.0f} frames); round walls "
+              + ", ".join(f"{w:.3f}" for w in run["walls"])
+              + f" s; history {[(h['round'], round(h['test_loss'], 6), round(h['test_acc'], 4)) for h in agg.history]}")
+        if (not finite or agg.quarantine.entries()
+                or [h["round"] for h in agg.history] != list(range(WIRE_ROUNDS))
+                or not all(math.isfinite(h["test_loss"]) for h in agg.history)):
+            raise AssertionError(f"{label}: finite params {finite}, "
+                                 f"quarantine {agg.quarantine.entries()}, "
+                                 f"history {agg.history}")
+    dense = runs["dense"]
+    start = _cpu_state(_initial_state(data, cfg))
+    local = _state_on(_cpu_state(dense["agg"].net), "cuda")
+    glob = _state_on(start, "cuda")
+    report["wire"] = {}
+    for label, client_kw, server_kw in WIRE_TIERS:
+        run = runs[label]
+        enc, dec, nbytes = _frame_ms(label, client_kw, server_kw, local, glob)
+        report["wire"][label] = dict(up=run["up"], down=run["down"],
+                                     walls=run["walls"], encode_ms=enc,
+                                     decode_ms=dec, frame_bytes=nbytes)
+        what = "downlink delta frame" if server_kw else "upload frame"
+        print(f"wire: {label}: uplink {dense['up'] / run['up']:.2f}x below "
+              f"dense, downlink {dense['down'] / run['down']:.2f}x; one "
+              f"{what} {nbytes} B: encode {enc:.2f} ms, decode {dec:.2f} ms "
+              f"on the host (median of 5)")
+    for label, floor in WIRE_FLOORS.items():
+        if dense["up"] / runs[label]["up"] < floor:
+            raise AssertionError(f"{label}: uplink only "
+                                 f"{dense['up'] / runs[label]['up']:.2f}x "
+                                 f"below dense (floor {floor}x)")
+
+    def gaps(a, b):
+        ha, hb = a["agg"].history, b["agg"].history
+        hist = max(max(abs(x["test_loss"] - y["test_loss"])
+                       / max(1.0, abs(y["test_loss"])),
+                       abs(x["test_acc"] - y["test_acc"]))
+                   for x, y in zip(ha, hb))
+        na, nb = _cpu_state(a["agg"].net), _cpu_state(b["agg"].net)
+        return hist, max(float((na[k] - nb[k]).abs().max()) for k in nb)
+
+    _agree("lossless delta uplink vs dense, from the same weights",
+           gaps(runs["delta"], dense), ROUND_TOLS, phase="wire")
+
+    # a seeded fault plan, twice, on delta-int8
+    timeout_s = max(5.0, 4 * max(dense["walls"]))
+    chaos_runs = []
+    for i in range(2):
+        plan = chaos.FaultPlan.from_json(WIRE_CHAOS)
+        t0 = time.perf_counter()
+        with chaos.installed(plan):
+            run = _wire_run(data, cfg, f"smoke-wire-chaos-{i}",
+                            {"update_codec": "delta-int8"},
+                            {"round_timeout_s": timeout_s})
+        run["wall"] = time.perf_counter() - t0
+        run["ledger"] = plan.ledger.canonical()
+        chaos_runs.append(run)
+        agg = run["agg"]
+        print(f"wire: chaos run {i} (delta-int8, round_timeout_s "
+              f"{timeout_s:.1f}): {run['wall']:.2f} s; faults "
+              f"{plan.ledger.counts()}; folds "
+              f"{[(len(r), w) for r, w in run['folds']]}; quarantine "
+              f"{agg.quarantine.canonical()}; history "
+              f"{[(h['round'], round(h['test_loss'], 6)) for h in agg.history]}")
+        for r, (ranks, weight) in enumerate(run["folds"]):
+            ids = agg.client_sampling(r)
+            want = float(sum(min(len(data.train_idx_map[int(ids[i])]),
+                                 MAIN_CFG["max_batches"] * MAIN_CFG["batch_size"])
+                             for i in ranks))
+            if weight != want:
+                raise AssertionError(f"chaos run {i} round {r}: folded "
+                                     f"weight {weight}, the distinct "
+                                     f"uploads of ranks {ranks} hold {want}")
+        if not all(bool(torch.isfinite(v).all()) for v in agg.net.values()):
+            raise AssertionError(f"chaos run {i}: non-finite params")
+    a, b = chaos_runs
+    if a["ledger"] != b["ledger"] or not a["ledger"]:
+        raise AssertionError(f"fault ledgers differ: {a['ledger']} vs "
+                             f"{b['ledger']}")
+    if a["agg"].quarantine.canonical() != b["agg"].quarantine.canonical():
+        raise AssertionError("quarantine ledgers differ")
+    if {e[0] for e in a["ledger"]} != {"drop", "corrupt", "duplicate",
+                                        "delay"}:
+        raise AssertionError(f"not every fault fired: {a['ledger']}")
+    print(f"wire: chaos: the two fault ledgers are equal ({len(a['ledger'])} "
+          f"faults), so are the quarantine ledgers; every fold's sample "
+          f"weight is its distinct uploads'")
+    _agree("chaos run 1 vs run 0", gaps(b, a), ROUND_TOLS, phase="wire")
+
+    # one traced dense run
+    tel = Telemetry(trace=True)
+    traced = _wire_run(data, cfg, "smoke-wire-trace", telemetry=tel)
+    tel.close()
+    for r, ranks in _trace_rounds(tel, WIRE_ROUNDS).items():
+        srv = ranks.pop(0, {})
+        print(f"wire: trace round {r}: server " + ", ".join(
+            f"{n} {srv[n]:.2f}" for n in ("round", "broadcast", "decode",
+                                          "aggregate", "eval") if n in srv)
+              + " ms")
+        for rank in sorted(ranks):
+            sp = ranks[rank]
+            print(f"wire: trace round {r}: rank {rank} " + ", ".join(
+                f"{n} {sp[n]:.2f}" for n in ("downlink", "unpack",
+                                             "local_fit", "pack", "uplink")
+                if n in sp) + " ms")
+        if len(ranks) != K or not all({"unpack", "local_fit", "pack"}
+                                      <= set(v) for v in ranks.values()):
+            raise AssertionError(f"trace round {r}: ranks {ranks}")
+    _agree("traced dense run vs the untraced one", gaps(traced, dense),
+           ROUND_TOLS, phase="wire")
+    grown = (traced["up"] + traced["down"] - dense["up"] - dense["down"])
+    print(f"wire: tracing grew the run's {traced['frames']:.0f} frames by "
+          f"{grown:.0f} B in all ({grown / traced['frames']:.0f} B a frame)")
+    if traced["frames"] != dense["frames"] or not 0 < grown < \
+            4096 * traced["frames"]:
+        raise AssertionError(f"traced frames {traced['frames']} vs "
+                             f"{dense['frames']}, grown {grown} B")
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched by the wire phase: "
+                             f"{fa.LAUNCHES}")
+
+
+def _initial_state(data, cfg):
+    """The weights every rank of a job at ``cfg`` starts from (the
+    engine's and the aggregator's init from the seed)."""
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.models import create_model
+
+    task = classification_task(create_model("cnn", output_dim=62))
+    return task.init(torch.Generator().manual_seed(cfg.seed),
+                     data.train_x[:cfg.batch_size])
 
 
 def kernel_line(report):

@@ -12,9 +12,19 @@ round ships only its shuffled index block (core/client_data.IndexBatch);
 the rows are gathered on the device, as the reference's block mode does.
 ``precision="f32"`` holds on the card whatever the process's TF32 flags
 say: the engine switches TF32 off around its fits and evals
-(``float32_compute``). Mesh/SPMD round loops, prefetch pipelines, telemetry,
-robust aggregation and the other engine options are queued in ROADMAP.md
-(queue A, items 5-8); passing one raises.
+(``float32_compute``).
+
+Every round times its host phases on ``self.tracer`` (obs/tracing
+``RoundTracer``): ``pack`` (sampling, packing, the copy or the device
+gather), ``round`` (dispatching the fit and the aggregate; the card runs
+on after it), ``eval``. A ``telemetry`` bundle adds one record a round
+(clients, spans, the summed metrics and ``round_stats``, comm bytes) and
+feeds the spans to its tracer; with telemetry off nothing syncs and
+nothing is added to the round. The reference's goodput, privacy and pack
+blocks of that record need modules not ported yet and are left out.
+Mesh/SPMD round loops, prefetch pipelines, robust aggregation and the
+other engine options are queued in ROADMAP.md (queue A, items 5-8);
+passing one raises.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from fedml_tpu_torch.core.local import (
 )
 from fedml_tpu_torch.core.sampling import prepare_sampling, sample_for
 from fedml_tpu_torch.device import resolve_device
+from fedml_tpu_torch.obs.tracing import RoundTracer
 from fedml_tpu_torch.utils.tree import tree_weighted_mean
 
 log = logging.getLogger("fedml_tpu_torch.fedavg")
@@ -57,6 +68,39 @@ def agg_weights(nsamp: torch.Tensor, uniform: bool) -> torch.Tensor:
     if not uniform:
         return nsamp
     return (nsamp > 0).to(nsamp.dtype)
+
+
+def _sq_norm(tree: dict) -> torch.Tensor:
+    """Global squared L2 norm of a state dict (a device scalar)."""
+    return sum(((v * v).sum() for v in tree.values()),
+               torch.zeros((), device=next(iter(tree.values())).device))
+
+
+def _client_drift(nets: dict, avg: dict, nsamp: torch.Tensor):
+    """[K] per-client ||net_k - avg|| plus the real-client mask
+    (zero-sample padding excluded)."""
+    drift_sq = sum(((s - avg[k]) ** 2).flatten(1).sum(1)
+                   for k, s in nets.items())
+    return drift_sq.sqrt(), (nsamp > 0).to(drift_sq.dtype)
+
+
+def round_stats(old_net: dict, new_net: dict, nets: dict, avg: dict,
+                nsamp: torch.Tensor) -> dict:
+    """Telemetry round stats as device scalars (no host read here; they
+    ride out with the round's metrics):
+
+    - ``update_norm``: ||new - old|| over params — the aggregate step size
+      the server applied;
+    - ``client_drift_mean``/``client_drift_max``: per-client ||net_k - avg||
+      over the round's REAL clients (zero-sample padding excluded) — the
+      non-IID dispersion statistic FedProx/FedNova papers reason about.
+    """
+    out = {"update_norm": _sq_norm(
+        {k: new_net[k] - old_net[k] for k in new_net}).sqrt()}
+    drift, real = _client_drift(nets, avg, nsamp)
+    out["client_drift_mean"] = (drift * real).sum() / real.sum().clamp_min(1.0)
+    out["client_drift_max"] = (drift * real).max()
+    return out
 
 
 class _Float32Policy:
@@ -202,7 +246,7 @@ class FedAvgAPI:
                  config: FedAvgConfig, device=None,
                  local_spec: LocalSpec | None = None,
                  uniform_avg: bool = False, device_data: bool = False,
-                 **unported):
+                 telemetry=None, **unported):
         if unported:
             raise NotImplementedError(
                 f"FedAvgAPI options {sorted(unported)} are not ported yet: "
@@ -240,6 +284,13 @@ class FedAvgAPI:
         self._test_cache = None
         self._eval_calls = 0
         self.history: list[dict] = []
+        # telemetry: an obs.Telemetry bundle, or None (no extra work)
+        self.telemetry = telemetry
+        self._emit_stats = telemetry is not None and telemetry.round_stats
+        # pack/round/eval host spans; with a tracing-enabled Telemetry
+        # bundle the same spans also feed its single-rank timeline
+        self.tracer = RoundTracer(
+            sink=telemetry.tracer if telemetry is not None else None)
 
     # ------------------------------------------------------------------ data
     def _sampled_ids(self, round_idx: int):
@@ -274,14 +325,44 @@ class FedAvgAPI:
         """One round: sample, pack, the cohort's batched local fit,
         sample-weighted mean (the FedAvg server update is the identity on
         the mean). Returns the round's summed training metrics as device
-        tensors (no host read)."""
-        ids = self._sampled_ids(round_idx)
-        x, y, mask, nsamp = self._round_batch(round_idx, ids)
-        with float32_compute():
+        tensors (no host read unless a telemetry bundle asks for its
+        record)."""
+        if self.telemetry is not None:
+            spans_before = dict(self.tracer.rounds[-1])
+            if self.telemetry.tracer is not None:
+                self.telemetry.tracer.begin_round(round_idx)
+        with self.tracer.span("pack"):
+            ids = self._sampled_ids(round_idx)
+            x, y, mask, nsamp = self._round_batch(round_idx, ids)
+        with self.tracer.span("round"), float32_compute():
             nets, metrics = self.local_update(self.net, x, y, mask)
-            self.net = tree_weighted_mean(nets,
-                                          agg_weights(nsamp, self.uniform_avg))
-        return {k: v.sum() for k, v in metrics.items()}
+            avg = tree_weighted_mean(nets, agg_weights(nsamp, self.uniform_avg))
+            metrics = {k: v.sum() for k, v in metrics.items()}
+            if self._emit_stats:
+                metrics.update(round_stats(self.net, avg, nets, avg, nsamp))
+            self.net = avg
+        if self.telemetry is not None:
+            # floating the metrics syncs on the round's outputs — a cost the
+            # caller opted into by passing telemetry; the off path returns
+            # the device tensors untouched
+            self.telemetry.emit_round(
+                round_idx, clients=np.asarray(ids).tolist(),
+                spans=self._span_delta(spans_before),
+                metrics={k: float(v) for k, v in metrics.items()})
+            if self.telemetry.tracer is not None:
+                # close the trace envelope HERE: left open it would absorb
+                # inter-round idle and misreport per-round wall-clock
+                self.telemetry.tracer.finish_round()
+        return metrics
+
+    def _span_delta(self, before: dict) -> dict:
+        """This call's span seconds: current tracer round minus a snapshot
+        taken at entry (run_round may be driven without train()'s
+        next_round() between calls, so the tracer's round dict
+        accumulates)."""
+        cur = self.tracer.rounds[-1]
+        return {k: v - before.get(k, 0.0) for k, v in cur.items()
+                if v - before.get(k, 0.0) > 0.0}
 
     def run_rounds(self, start_round: int, num_rounds: int) -> dict:
         """Rounds ``start_round`` .. ``start_round + num_rounds - 1`` back to
@@ -313,19 +394,27 @@ class FedAvgAPI:
         rec = {"round": round_idx,
                "train_loss": float(metrics["loss_sum"]) / n,
                "train_acc": float(metrics["correct"]) / n}
-        if self._eval_on_all_clients():
-            _, tr = self.evaluate_per_client("train")
-            _, te = self.evaluate_per_client("test")
-            rec.update(train_all_loss=tr["loss"], train_all_acc=tr["acc"],
-                       test_loss=te["loss"], test_acc=te["acc"])
-        else:
-            ev = self.evaluate()
-            rec.update(test_loss=ev["loss"], test_acc=ev["acc"])
+        with self.tracer.span("eval"):
+            if self._eval_on_all_clients():
+                _, tr = self.evaluate_per_client("train")
+                _, te = self.evaluate_per_client("test")
+                rec.update(train_all_loss=tr["loss"], train_all_acc=tr["acc"],
+                           test_loss=te["loss"], test_acc=te["acc"])
+            else:
+                ev = self.evaluate()
+                rec.update(test_loss=ev["loss"], test_acc=ev["acc"])
         return rec
 
     def train(self, num_rounds: int | None = None):
         cfg = self.cfg
         rounds = num_rounds or cfg.comm_round
+        if self.telemetry is not None:
+            from fedml_tpu_torch.data import dataset_source
+
+            self.telemetry.run_header(dataclasses.asdict(cfg),
+                                      engine="standalone",
+                                      dataset_source=dataset_source(
+                                          self.data))
         for r in range(rounds):
             t0 = time.perf_counter()
             metrics = self.run_round(r)
@@ -334,6 +423,9 @@ class FedAvgAPI:
                 rec["round_time"] = time.perf_counter() - t0
                 self.history.append(rec)
                 log.info("round %d: %s", r, rec)
+                if self.telemetry is not None:
+                    self.telemetry.emit_eval(r, rec)
+            self.tracer.next_round()
         return self.net
 
     # ------------------------------------------------------------------ state

@@ -8,7 +8,9 @@ the bundled MQTT 3.1.1 client and broker when paho is absent). Frames are
 byte-identical to the JAX package's: the FMT2 frame with its CRC32, the
 FMZ1 deflate wrapper and the f16 / q8 / json codecs are copies, and
 ``pack_pytree`` ships a model's params in flax layout and order, so a
-torch rank and a JAX rank share one job.
+torch rank and a JAX rank share one job. The update tiers — ``delta``
+(round deltas, int8 and 1-bit), ``sparse`` (top-k) and ``ef`` (the
+shared error-feedback residual) — are copies too, numpy on the host.
 """
 
 from fedml_tpu_torch.comm.base import BaseCommManager

@@ -1,6 +1,4 @@
 """Client/Server manager base classes — handler registry + dispatch loop.
-Port of fedml_tpu/comm/managers.py without its chaos wrap (ROADMAP.md
-queue A, item 8).
 
 Mirror of fedml_core/distributed/client/client_manager.py:13-73 and
 .../server/server_manager.py:13-68: a manager owns a comm backend, registers
@@ -32,10 +30,13 @@ log = logging.getLogger("fedml_tpu_torch.comm.managers")
 
 
 def make_comm_manager(backend: str, rank: int, size: int, **kw) -> BaseCommManager:
-    """Backend switch (parity with client_manager.py:20-32). The reference
-    package wraps the manager in its chaos fault injector when a FaultPlan
-    is installed; the port has no chaos plans yet (ROADMAP.md queue A,
-    item 8), so the manager comes back as built."""
+    """Backend switch (parity with client_manager.py:20-32).
+
+    When a chaos FaultPlan is installed (fedml_tpu_torch/chaos — seeded
+    deterministic fault injection for robustness tests and soak runs), the
+    manager comes back wrapped in a ChaosCommManager executing that plan;
+    with no plan installed the manager is returned as-is and the hot path
+    is untouched."""
     backend = backend.upper()
     if backend == "LOOPBACK":
         from fedml_tpu_torch.comm.loopback import LoopbackCommManager
@@ -59,7 +60,9 @@ def make_comm_manager(backend: str, rank: int, size: int, **kw) -> BaseCommManag
         )
     else:
         raise ValueError(f"unknown backend {backend!r} (LOOPBACK|GRPC|MQTT)")
-    return mgr
+    from fedml_tpu_torch import chaos
+
+    return chaos.maybe_wrap(mgr, rank)
 
 
 class DistributedManager(Observer):
@@ -129,8 +132,19 @@ class DistributedManager(Observer):
                 else:
                     idle = None
             if idle is not None:  # callback outside the lock: a handler
-                self.on_timeout(idle)  # calling receive_message must
-                # not deadlock against its own watchdog
+                try:
+                    self.on_timeout(idle)  # calling receive_message must
+                    # not deadlock against its own watchdog
+                except BaseException as e:
+                    # a simulated server crash (detected by name so this
+                    # layer needs no distributed import, like
+                    # _is_transport_error's RpcError) legitimately kills
+                    # the watchdog: the manager's run() re-raises it to
+                    # the supervision driver — exit quietly instead of
+                    # spraying a thread traceback
+                    if type(e).__name__ == "SimulatedServerCrash":
+                        return
+                    raise
 
     def send_message(self, message: Message) -> None:
         self.com_manager.send_message(message)

@@ -483,29 +483,30 @@ def codec_roundtrip(leaves, codec: str | None = None) -> list:
     return out
 
 
-def pack_pytree(state) -> list[np.ndarray]:
+def pack_pytree(state, num_heads: int | None = None) -> list[np.ndarray]:
     """Flatten a port state dict into the wire leaves the JAX package sends
     for the same model (sender side): its flax params (``convert.to_flax``:
     HWIO convolution kernels, ``[in, out]`` dense kernels, the first dense
-    layer's rows in NHWC order) flattened in sorted-key order, as
+    layer's rows in NHWC order, a TransformerLM's attention kernels split
+    by its ``num_heads``) flattened in sorted-key order, as
     ``jax.tree.leaves`` flattens them. So a JAX peer decodes a port frame,
     and the other way round, with no layout knowledge on the wire."""
     from fedml_tpu_torch.convert import to_flax
 
-    return [leaf for _, leaf in _flat_items(to_flax(state))]
+    return [leaf for _, leaf in _flat_items(to_flax(state, num_heads))]
 
 
-def unpack_pytree(template, leaves) -> dict:
+def unpack_pytree(template, leaves, num_heads: int | None = None) -> dict:
     """Rebuild a state dict from wire leaves using the receiver's own
-    ``template`` state (both sides construct the same model, so no treedef
-    crosses the wire); the result lands on the template's device. Raises
-    ValueError when the leaves' count, shapes or dtypes do not fit the
-    template."""
+    ``template`` state and head count (both sides construct the same
+    model, so no treedef crosses the wire); the result lands on the
+    template's device. Raises ValueError when the leaves' count, shapes or
+    dtypes do not fit the template."""
     from fedml_tpu_torch.convert import from_flax
 
     params: dict = {}
-    for (path, shape, dtype), leaf in zip(check_wire_leaves(template, leaves),
-                                          leaves):
+    for (path, shape, dtype), leaf in zip(
+            check_wire_leaves(template, leaves, num_heads), leaves):
         node = params
         for key in path[:-1]:
             node = node.setdefault(key, {})
@@ -514,11 +515,12 @@ def unpack_pytree(template, leaves) -> dict:
     return {k: state[k].to(v.device, v.dtype) for k, v in template.items()}
 
 
-def check_wire_leaves(template, leaves) -> tuple:
-    """The template's wire layout, ``(path, shape, dtype)`` per leaf; raises
+def check_wire_leaves(template, leaves, num_heads: int | None = None) -> tuple:
+    """The wire layout of the template's model (``num_heads``: a
+    TransformerLM's head count), ``(path, shape, dtype)`` per leaf; raises
     ValueError when ``leaves`` (a decoded upload) does not match it."""
     spec = _wire_spec(tuple((k, tuple(v.shape)) for k, v in
-                            sorted(template.items())))
+                            sorted(template.items())), num_heads)
     if len(leaves) != len(spec):
         raise ValueError(f"{len(leaves)} wire leaves, the model has "
                          f"{len(spec)}")
@@ -531,17 +533,17 @@ def check_wire_leaves(template, leaves) -> tuple:
 
 
 @functools.lru_cache(maxsize=8)
-def _wire_spec(shapes: tuple) -> tuple:
+def _wire_spec(shapes: tuple, num_heads: int | None) -> tuple:
     """(path, shape, dtype) of each wire leaf of a state with these
-    ``(key, shape)`` entries, from ``to_flax`` of zeros (models' float32
-    params only)."""
+    ``(key, shape)`` entries and head count, from ``to_flax`` of zeros
+    (models' float32 params only)."""
     import torch
 
     from fedml_tpu_torch.convert import to_flax
 
     zeros = {k: torch.zeros(shape) for k, shape in shapes}
     return tuple((path, leaf.shape, leaf.dtype)
-                 for path, leaf in _flat_items(to_flax(zeros)))
+                 for path, leaf in _flat_items(to_flax(zeros, num_heads)))
 
 
 def _flat_items(tree, prefix=()):

@@ -113,6 +113,13 @@ def from_flax(params: dict) -> dict:
     return sd
 
 
+def num_heads_of(module) -> int | None:
+    """The head count ``to_flax`` needs for ``module``'s state: a
+    TransformerLM's, None for the models that have no attention."""
+    blocks = getattr(module, "blocks", None)
+    return int(blocks[0].attn.num_heads) if blocks else None
+
+
 def to_flax(state: dict, num_heads: int | None = None) -> dict:
     """The port's state dict -> flax params (numpy arrays); a TransformerLM
     needs its ``num_heads``."""
@@ -122,6 +129,9 @@ def to_flax(state: dict, num_heads: int | None = None) -> dict:
     if "linear.weight" in a:
         return {"Dense_0": {"kernel": np.ascontiguousarray(a["linear.weight"].T),
                             "bias": a["linear.bias"]}}
+    if num_heads is None:
+        raise TypeError("to_flax of a TransformerLM needs its num_heads "
+                        "(see num_heads_of)")
     C = a["pos_emb"].shape[1]
     D = C // num_heads
     ln = lambda pre: {"scale": a[pre + ".weight"], "bias": a[pre + ".bias"]}

@@ -49,6 +49,9 @@ class Task(NamedTuple):
     predict: Callable
     # (params, x, y, mask) -> metrics dict with 'loss_sum','correct','count'
     eval_batch: Callable
+    # the nn.Module the functions call (the wire layout reads a
+    # TransformerLM's head count from it: convert.num_heads_of)
+    module: object = None
 
 
 @dataclasses.dataclass(frozen=True)

@@ -151,3 +151,13 @@ class QuarantineLedger:
     def entries(self) -> list[dict]:
         with self._lock:
             return [dict(e) for e in self._entries]
+
+    def canonical(self) -> list[tuple]:
+        with self._lock:
+            return sorted((e["round"], e["rank"], e["reason"], e["client"])
+                          for e in self._entries)
+
+    def for_round(self, round_idx: int) -> list[dict]:
+        with self._lock:
+            return [dict(e) for e in self._entries
+                    if e["round"] == round_idx]

@@ -91,7 +91,7 @@ def classification_task(module) -> Task:
         loss_sum, correct, count = _metrics(params, x, y, mask)
         return {"loss_sum": loss_sum, "correct": correct, "count": count}
 
-    return Task(init, loss, predict, eval_batch)
+    return Task(init, loss, predict, eval_batch, module)
 
 
 def sequence_task(module, pad_id: int = 0,
@@ -129,4 +129,4 @@ def sequence_task(module, pad_id: int = 0,
         loss_sum, correct, count = _metrics(params, x, y, mask)
         return {"loss_sum": loss_sum, "correct": correct, "count": count}
 
-    return Task(init, loss, predict, eval_batch)
+    return Task(init, loss, predict, eval_batch, module)

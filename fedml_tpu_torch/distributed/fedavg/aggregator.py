@@ -28,6 +28,7 @@ import torch
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig, float32_compute
 from fedml_tpu_torch.comm.message import pack_pytree, unpack_pytree
+from fedml_tpu_torch.convert import num_heads_of
 from fedml_tpu_torch.core.client_data import FederatedData, batch_global
 from fedml_tpu_torch.core.local import Task, make_eval_fn
 from fedml_tpu_torch.core.robust_agg import (
@@ -93,6 +94,8 @@ class FedAvgAggregator:
         init = task.init(torch.Generator().manual_seed(cfg.seed),
                          dataset.train_x[:cfg.batch_size])
         self.net = {k: v.to(self.device) for k, v in init.items()}
+        # the wire layout's head count (a TransformerLM's; None otherwise)
+        self.num_heads = num_heads_of(task.module)
         self._model_nbytes = sum(v.numel() * v.element_size()
                                  for v in self.net.values())
         self.eval_fn = make_eval_fn(task)
@@ -102,14 +105,14 @@ class FedAvgAggregator:
         self._last_flush: dict | None = None
 
     def get_global_model_params(self):
-        return pack_pytree(self.net)
+        return pack_pytree(self.net, self.num_heads)
 
     # ------------------------------------------------------------- receive
     def _stage_upload(self, wire_leaves) -> dict:
         """The upload as a state dict on the server's device, copied there
         as it arrives (a synchronous copy: the stack at the barrier reads
         it from the server's own thread)."""
-        return unpack_pytree(self.net, wire_leaves)
+        return unpack_pytree(self.net, wire_leaves, self.num_heads)
 
     def begin_round(self, round_idx: int) -> None:
         """Stamp the round uploads are now accepted for (called by the
@@ -159,7 +162,16 @@ class FedAvgAggregator:
     # ----------------------------------------------------------- aggregate
     def aggregate(self):
         self._aggregate_core()
-        return pack_pytree(self.net)
+        return pack_pytree(self.net, self.num_heads)
+
+    def agg_record(self) -> dict:
+        """The ``agg`` block the server manager rides on telemetry round
+        records: server-state placement (one device: replicated) and the
+        last flush's mode/latency/staging bytes."""
+        rec = {"mode": "replicated"}
+        if self._last_flush is not None:
+            rec.update(self._last_flush)
+        return rec
 
     def _aggregate_core(self):
         """Gate + weighted mean + ledger, updating ``self.net``: the

@@ -104,42 +104,73 @@ def run_simulated(
     """All ranks as threads on one host — the mpirun-on-localhost analogue:
     1 server rank + ``cfg.client_num_per_round`` client ranks, every frame
     through the real wire path of ``backend``. Returns the server's
-    aggregator (``.net``, ``.history``, ``.quarantine``). Each option the
-    port does not run yet raises in the constructor it is passed to."""
-    refuse_unported("run_simulated", {
-        "chaos_plan": (chaos_plan is not None, 8),
-        "edges": (bool(edges), 7)})
+    aggregator (``.net``, ``.history``, ``.quarantine``).
+
+    ``chaos_plan``: a ``fedml_tpu_torch.chaos.FaultPlan`` installed for the
+    duration of the run — every rank's comm manager is wrapped in the
+    deterministic fault injector (drops/dups/corruption/partitions per the
+    plan's seeded schedule). Pair with ``round_timeout_s`` so dropped
+    uplinks degrade to elastic partial aggregation instead of a hang. A
+    crash rule naming rank 0 (a server restart) needs the checkpoint and
+    WAL recovery path, which is not ported yet.
+
+    ``update_codec``: delta/quantized uplink tier ('delta' | 'delta-int8'
+    | 'delta-sign1', comm/delta.py) with client-side error feedback
+    (``error_feedback=False`` is the convergence-ablation knob only);
+    ``sparsify_ratio``: top-k uplinks (comm/sparse.py). ``delta_broadcast``:
+    round-delta downlinks to warm clients with a dense fallback for the
+    others. ``telemetry``: an ``obs.Telemetry`` bundle the server emits its
+    round records (and, when it traces, the stitched cross-rank timeline)
+    into.
+
+    Each option the port does not run yet raises in the constructor it is
+    passed to."""
+    refuse_unported("run_simulated", {"edges": (bool(edges), 7)})
+    from fedml_tpu_torch import chaos as _chaos
+
     size = cfg.client_num_per_round + 1
     kw = backend_kwargs(backend, job_id, base_port, broker_host, broker_port)
-    agg = FedAvgAggregator(dataset, task, cfg, worker_num=size - 1,
-                           aggregator=aggregator,
-                           aggregator_params=aggregator_params,
-                           sanitize=sanitize,
-                           shard_server_state=shard_server_state,
-                           partition_rules=partition_rules,
-                           sum_assoc=sum_assoc, fused_agg=fused_agg,
-                           device=device)
-    server = FedAvgServerManager(agg, rank=0, size=size, backend=backend,
-                                 ckpt_dir=ckpt_dir,
-                                 round_timeout_s=round_timeout_s,
-                                 telemetry=telemetry,
-                                 async_buffer_k=async_buffer_k,
-                                 staleness=staleness,
-                                 staleness_bound=staleness_bound,
-                                 buffer_deadline_s=buffer_deadline_s,
-                                 buffer_capacity=buffer_capacity,
-                                 heartbeat_max_age_s=heartbeat_max_age_s,
-                                 delta_broadcast=delta_broadcast,
-                                 churn_trace=churn_trace, **kw)
-    clients = [
-        init_client(dataset, task, cfg, rank, size, backend, device=device,
-                    sparsify_ratio=sparsify_ratio,
-                    update_codec=update_codec,
-                    error_feedback=error_feedback,
-                    adversary_plan=adversary_plan, **kw)
-        for rank in range(1, size)
-    ]
-    if warmup and clients:
-        clients[0].warmup()
-    launch_simulated(server, clients)
+    if chaos_plan is not None:  # None must not clobber an installed plan
+        _chaos.install_plan(chaos_plan)
+    try:
+        active = _chaos.active_plan()
+        if active is not None and active.server_crash_points():
+            raise NotImplementedError(
+                "a chaos crash rule naming rank 0 (a server restart) needs "
+                "checkpoint + WAL recovery, not ported yet: ROADMAP.md "
+                "queue A, item 8")
+        agg = FedAvgAggregator(dataset, task, cfg, worker_num=size - 1,
+                               aggregator=aggregator,
+                               aggregator_params=aggregator_params,
+                               sanitize=sanitize,
+                               shard_server_state=shard_server_state,
+                               partition_rules=partition_rules,
+                               sum_assoc=sum_assoc, fused_agg=fused_agg,
+                               device=device)
+        server = FedAvgServerManager(agg, rank=0, size=size, backend=backend,
+                                     ckpt_dir=ckpt_dir,
+                                     round_timeout_s=round_timeout_s,
+                                     telemetry=telemetry,
+                                     async_buffer_k=async_buffer_k,
+                                     staleness=staleness,
+                                     staleness_bound=staleness_bound,
+                                     buffer_deadline_s=buffer_deadline_s,
+                                     buffer_capacity=buffer_capacity,
+                                     heartbeat_max_age_s=heartbeat_max_age_s,
+                                     delta_broadcast=delta_broadcast,
+                                     churn_trace=churn_trace, **kw)
+        clients = [
+            init_client(dataset, task, cfg, rank, size, backend,
+                        device=device, sparsify_ratio=sparsify_ratio,
+                        update_codec=update_codec,
+                        error_feedback=error_feedback,
+                        adversary_plan=adversary_plan, **kw)
+            for rank in range(1, size)
+        ]
+        if warmup and clients:
+            clients[0].warmup()
+        launch_simulated(server, clients)
+    finally:
+        if chaos_plan is not None:
+            _chaos.install_plan(None)
     return agg

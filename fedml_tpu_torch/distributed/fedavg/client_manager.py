@@ -1,33 +1,49 @@
 """FedAvg client manager, port of fedml_tpu/distributed/fedavg/client_manager.py
-(the dense synchronous protocol): on INIT/SYNC, take the broadcast model and
-the assigned client index, run the local fit, upload to rank 0.
+(the synchronous protocol): on INIT/SYNC, take the broadcast model (dense,
+or a round delta against the held base) and the assigned client index, run
+the local fit, upload to rank 0 (dense, top-k or a delta tier).
 
 Mirror of fedml_api/distributed/fedavg/FedAvgClientManager.py (:66-75).
 The upload is encoded and sent on a FIFO sender thread
 (core/pipeline.AsyncSender), so the dispatch loop stays free to receive
-the next broadcast. The reference's encoded uplinks (top-k, delta and
-quantized tiers), adversary plans, edge tiers, round-delta downlinks,
-async dispatch waves and crash-recovery epochs are queued in ROADMAP.md
-(queue A, items 7-8): a rank asked for one raises.
+the next broadcast.
+
+Tracing: when an inbound broadcast carries ``__trace`` context (the server
+has tracing on), the handler times its unpack / local_fit / pack phases as
+spans parented to the server's broadcast span and piggybacks the finished
+buffer (plus the clock stamps) on the upload frame — so clients trace
+exactly when the server does, with zero client-side configuration. With no
+context present the upload is byte-identical. Where the reference's
+local_fit also packs the fit's result to the host, the port's ends when
+the fit's kernels have (a device sync), and pack carries ``pack_pytree``
+(the copy to the host, the flax layout) and the uplink tier's encode.
+
+The reference's adversary plans, edge tiers, fleet digests, async
+dispatch waves and crash-recovery epochs are queued in ROADMAP.md (queue
+A, items 7-8): a rank asked for one raises.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
+
+import torch
 
 from fedml_tpu_torch.comm.managers import ClientManager
 from fedml_tpu_torch.comm.message import Message
 from fedml_tpu_torch.distributed.fedavg.aggregator import refuse_unported
 from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage
 from fedml_tpu_torch.distributed.fedavg.trainer import DistributedTrainer
+from fedml_tpu_torch.obs.tracing import TRACE_KEY, ClientSpanBuffer
 
 log = logging.getLogger("fedml_tpu_torch.distributed.fedavg")
 
 # downlink keys of protocols this slice does not run -> their ROADMAP item
-_UNPORTED_DOWNLINK = {MyMessage.MSG_ARG_KEY_DELTA_PARAMS: 7,
-                      MyMessage.MSG_ARG_KEY_DISPATCH_WAVE: 8,
-                      MyMessage.MSG_ARG_KEY_RESTART_EPOCH: 8}
+_UNPORTED_DOWNLINK = {MyMessage.MSG_ARG_KEY_DISPATCH_WAVE: 8,
+                      MyMessage.MSG_ARG_KEY_RESTART_EPOCH: 8,
+                      MyMessage.MSG_ARG_KEY_TELEMETRY: 8}
 
 
 class FedAvgClientManager(ClientManager):
@@ -37,10 +53,7 @@ class FedAvgClientManager(ClientManager):
                  error_feedback: bool = True, server_rank: int = 0,
                  adversary_rank: int | None = None, **kw):
         refuse_unported("FedAvgClientManager", {
-            "sparsify_ratio": (sparsify_ratio is not None, 7),
             "adversary_plan": (adversary_plan is not None, 7),
-            "update_codec": (update_codec not in (None, "dense", ""), 7),
-            "error_feedback": (not error_feedback, 7),
             "server_rank": (server_rank != 0, 7),
             "adversary_rank": (adversary_rank is not None, 7)})
         self.trainer = trainer
@@ -50,6 +63,45 @@ class FedAvgClientManager(ClientManager):
         # loop's thread; a send failure still kills the manager visibly
         # (re-raised from the next submit / finish)
         self._sender = None
+        # top-k sparsified uplinks (comm/sparse.py); None = dense protocol.
+        # Validated HERE so a bad ratio fails at launch, not inside the
+        # receive-loop handler after a full local fit
+        if sparsify_ratio is not None and not 0.0 < sparsify_ratio <= 1.0:
+            raise ValueError(
+                f"sparsify_ratio must be in (0, 1], got {sparsify_ratio}")
+        self.sparsify_ratio = sparsify_ratio
+        # delta/quantized uplink tier (comm/delta.py): 'delta' |
+        # 'delta-int8' | 'delta-sign1'; None/'dense' = the full-model
+        # protocol. Mutually exclusive with top-k: both replace
+        # MODEL_PARAMS on the wire.
+        if update_codec in ("dense", ""):
+            update_codec = None
+        if update_codec is not None:
+            from fedml_tpu_torch.comm.delta import UPDATE_CODECS
+
+            if update_codec not in UPDATE_CODECS:
+                raise ValueError(f"unknown update_codec {update_codec!r} "
+                                 f"(one of {UPDATE_CODECS} or 'dense')")
+            if sparsify_ratio:
+                raise ValueError(
+                    "update_codec and sparsify_ratio are mutually "
+                    "exclusive uplink tiers — pick one")
+        self.update_codec = update_codec
+        # one shared error-feedback residual (comm/ef.py) owned by ALL
+        # lossy tiers (top-k AND the quantized delta tiers);
+        # error_feedback=False is the convergence-ablation knob only
+        self._ef = None
+        if error_feedback and (sparsify_ratio or
+                               update_codec in ("delta-int8", "delta-sign1")):
+            from fedml_tpu_torch.comm.ef import ErrorFeedback
+
+            self._ef = ErrorFeedback()
+        # the decoded broadcast currently held + its version tag — the
+        # base every delta tier encodes against, and what a round-delta
+        # broadcast (MSG_ARG_KEY_DELTA_PARAMS) reconstructs from
+        self._held = None
+        self._held_version: int | None = None
+        self._trace_buf: ClientSpanBuffer | None = None  # lazy: see module doc
         super().__init__(rank, size, backend, **kw)
 
     def register_message_receive_handlers(self):
@@ -71,6 +123,63 @@ class FedAvgClientManager(ClientManager):
         self.round_idx += 1  # fallback when the server omits the round tag
         self._sync_and_train(msg_params)
 
+    def _global_leaves(self, msg_params):
+        """The broadcast's global model as wire leaves: the dense params,
+        or global@r = held@base + delta for a round-delta broadcast. The
+        server only sends deltas to ranks whose last UPLOAD proved they
+        hold the base version, so a mismatch is a protocol violation
+        (e.g. a restarted client the server still believes warm) — fail
+        loudly rather than train against a wrong base."""
+        if MyMessage.MSG_ARG_KEY_DELTA_PARAMS not in msg_params:
+            return msg_params[MyMessage.MSG_ARG_KEY_MODEL_PARAMS]
+        from fedml_tpu_torch.comm.delta import apply_delta
+
+        base_v = int(msg_params[MyMessage.MSG_ARG_KEY_BASE_VERSION])
+        if self._held is None or self._held_version != base_v:
+            raise RuntimeError(
+                f"rank {self.rank}: delta broadcast against version "
+                f"{base_v} but this client holds "
+                f"{self._held_version} — the server's warm-rank "
+                "tracking and this client disagree (restarted client?)")
+        return apply_delta(self._held,
+                           msg_params[MyMessage.MSG_ARG_KEY_DELTA_PARAMS])
+
+    def _encode_upload(self, msg, wire_leaves, global_leaves) -> None:
+        """Put the fit's result on ``msg`` in this rank's uplink tier:
+        top-k of the round delta, an encoded round delta, or the dense
+        leaves. The lossy tiers fold the shared error-feedback residual
+        in before encoding and keep what the server will not see."""
+        if self.sparsify_ratio:
+            from fedml_tpu_torch.comm.sparse import (topk_delta, topk_encode,
+                                                     topk_residual)
+
+            delta = topk_delta(wire_leaves, global_leaves)
+            comp = self._ef.compensate(delta) if self._ef else delta
+            idx, vals = topk_encode(comp, self.sparsify_ratio)
+            if self._ef:
+                # topk_residual IS comp - shipped: install it directly
+                self._ef.update_residual(topk_residual(comp, idx))
+            msg.add_params(MyMessage.MSG_ARG_KEY_SPARSE_IDX, idx)
+            msg.add_params(MyMessage.MSG_ARG_KEY_SPARSE_VAL, vals)
+        elif self.update_codec:
+            from fedml_tpu_torch.comm.delta import (decode_update,
+                                                    encode_update, round_delta)
+
+            delta = round_delta(wire_leaves, global_leaves)
+            comp = self._ef.compensate(delta) if self._ef else delta
+            payload, scales = encode_update(comp, self.update_codec)
+            if self._ef:
+                # residual tracks the SERVER's view: comp minus the
+                # decoded form of what actually went on the wire
+                self._ef.update(comp, decode_update(
+                    payload, scales, self.update_codec, wire_leaves))
+            msg.add_params(MyMessage.MSG_ARG_KEY_UPDATE_CODEC,
+                           self.update_codec)
+            msg.add_params(MyMessage.MSG_ARG_KEY_UPDATE_PAYLOAD, payload)
+            msg.add_params(MyMessage.MSG_ARG_KEY_UPDATE_SCALE, scales)
+        else:
+            msg.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, wire_leaves)
+
     def _sync_and_train(self, msg_params):
         for key, item in _UNPORTED_DOWNLINK.items():
             if key in msg_params:
@@ -80,19 +189,42 @@ class FedAvgClientManager(ClientManager):
         # trust the server's round counter (keeps stragglers aligned after an
         # elastic partial aggregation skipped them)
         self.round_idx = int(msg_params.get(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx))
-        self.trainer.update_model(msg_params[MyMessage.MSG_ARG_KEY_MODEL_PARAMS])
-        self.trainer.update_dataset(int(msg_params[MyMessage.MSG_ARG_KEY_CLIENT_INDEX]))
+        buf = None
+        blob = msg_params.get(TRACE_KEY)
+        if isinstance(blob, dict) and blob.get("tid"):  # server is tracing
+            if self._trace_buf is None:
+                self._trace_buf = ClientSpanBuffer(self.rank)
+            buf = self._trace_buf
+            buf.on_broadcast(blob)
+        span = buf.span if buf is not None else \
+            (lambda _name: contextlib.nullcontext())
+        global_leaves = self._global_leaves(msg_params)
+        # the held base: what every delta tier encodes against, and the
+        # next round-delta broadcast reconstructs from
+        self._held = global_leaves
+        self._held_version = self.round_idx
+        with span("unpack"):
+            self.trainer.update_model(global_leaves)
+            self.trainer.update_dataset(int(msg_params[MyMessage.MSG_ARG_KEY_CLIENT_INDEX]))
         t0 = time.perf_counter()
-        wire_leaves, local_sample_num = self.trainer.train(self.round_idx)
+        with span("local_fit"):
+            local_sample_num = self.trainer.fit(self.round_idx)
+            if self.trainer.device.type == "cuda":
+                # the fit's kernels end inside its span, not in pack's D2H
+                torch.cuda.synchronize(self.trainer.device)
+        msg = Message(MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.rank,
+                      self.server_rank)
+        with span("pack"):
+            wire_leaves = self.trainer.wire_leaves()
+            self._encode_upload(msg, wire_leaves, global_leaves)
+            msg.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, local_sample_num)
+            msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx)
         log.info("rank %d round %d: client %d fit on %d samples and packed "
                  "in %.3f s", self.rank, self.round_idx,
                  self.trainer.client_index, local_sample_num,
                  time.perf_counter() - t0)
-        msg = Message(MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER, self.rank,
-                      self.server_rank)
-        msg.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, wire_leaves)
-        msg.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, local_sample_num)
-        msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx)
+        if buf is not None:  # span buffer + clock stamps ride the uplink
+            msg.add_params(TRACE_KEY, buf.upload_blob())
         self._send_upload(msg)
 
     def _send_upload(self, msg):

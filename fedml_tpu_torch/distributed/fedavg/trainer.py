@@ -20,6 +20,7 @@ from fedml_tpu_torch.algorithms.fedavg import (
     resolve_local_spec,
 )
 from fedml_tpu_torch.comm.message import pack_pytree, unpack_pytree
+from fedml_tpu_torch.convert import num_heads_of
 from fedml_tpu_torch.core.client_data import FederatedData, pack_clients
 from fedml_tpu_torch.core.local import LocalSpec, Task, make_local_update
 from fedml_tpu_torch.device import resolve_device
@@ -52,6 +53,8 @@ class DistributedTrainer:
         init = task.init(torch.Generator().manual_seed(cfg.seed),
                          dataset.train_x[:cfg.batch_size])
         self.net = {k: v.to(self.device) for k, v in init.items()}
+        # the wire layout's head count (a TransformerLM's; None otherwise)
+        self.num_heads = num_heads_of(task.module)
         self.metrics = None  # the last fit's summed metrics, on the device
 
     def warmup(self) -> dict:
@@ -61,7 +64,7 @@ class DistributedTrainer:
         return {}
 
     def update_model(self, wire_leaves) -> None:
-        self.net = unpack_pytree(self.net, wire_leaves)
+        self.net = unpack_pytree(self.net, wire_leaves, self.num_heads)
 
     def update_dataset(self, client_index: int) -> None:
         self.client_index = int(client_index)
@@ -84,7 +87,6 @@ class DistributedTrainer:
         self.net = {k: v[0] for k, v in nets.items()}
         return int(cb.num_samples[0])
 
-    def train(self, round_idx: int):
-        """Returns (wire_leaves, local_sample_number)."""
-        n = self.fit(round_idx)
-        return pack_pytree(self.net), n
+    def wire_leaves(self) -> list:
+        """The rank's model as wire leaves (to the host, flax layout)."""
+        return pack_pytree(self.net, self.num_heads)

@@ -58,16 +58,9 @@ _UNPORTED_FLAGS = {
     "shard_server_state": ("--shard_server_state", int, 0, 12),
     "partition_rules": ("--partition_rules", str, None, 12),
     "adversary_plan": ("--adversary_plan", str, None, 7),
-    "chaos_plan": ("--chaos_plan", str, None, 8),
-    "telemetry_dir": ("--telemetry_dir", str, None, 8),
     "metrics_port": ("--metrics_port", int, None, 8),
     "fleet": ("--fleet", int, 0, 8),
     "fleet_job": ("--fleet_job", str, "", 8),
-    "trace_dir": ("--trace_dir", str, None, 8),
-    "sparsify_ratio": ("--sparsify_ratio", float, None, 7),
-    "update_codec": ("--update_codec", str, None, 7),
-    "delta_broadcast": ("--delta_broadcast", int, 0, 7),
-    "error_feedback": ("--error_feedback", int, 1, 7),
     "fused_agg": ("--fused_agg", int, 0, 7),
 }
 
@@ -139,6 +132,58 @@ def add_args(p: argparse.ArgumentParser):
                         "quarters them (int8), zlib deflates losslessly; "
                         "json emits the reference's nested-list format; "
                         "receivers auto-detect, so ranks may mix settings")
+    p.add_argument("--chaos-plan", "--chaos_plan", dest="chaos_plan",
+                   type=str, default=None,
+                   help="seeded fault-injection plan (fedml_tpu_torch/chaos):"
+                        " a JSON file path or inline JSON with {seed, rules}"
+                        " — frame drop/delay/duplicate/reorder/corrupt/"
+                        "partition + rank crash/straggle schedules, "
+                        "deterministic per seed. Pass the SAME plan to every "
+                        "rank; pair with --round_timeout_s so injected "
+                        "losses degrade elastically")
+    p.add_argument("--telemetry-dir", "--telemetry_dir", dest="telemetry_dir",
+                   type=str, default=None,
+                   help="rank 0: write the structured run telemetry here — "
+                        "events.jsonl (run header + per-round records: "
+                        "sampled ids, span timings, update norm, comm "
+                        "byte/message counters) and a Prometheus text dump "
+                        "at exit")
+    p.add_argument("--trace-dir", "--trace_dir", dest="trace_dir",
+                   type=str, default=None,
+                   help="rank 0: enable cross-rank distributed tracing "
+                        "(obs/tracing.py) and write the stitched per-round "
+                        "timeline here as Chrome trace-event JSON "
+                        "(trace.json). Implies telemetry; clients need no "
+                        "flag — trace context propagates in the message "
+                        "headers")
+    p.add_argument("--sparsify_ratio", "--sparsify-ratio",
+                   dest="sparsify_ratio", type=float, default=None,
+                   help="top-k sparsified uplinks with error feedback "
+                        "(comm/sparse.py): ship only this fraction of the "
+                        "model delta per upload; 1.0 = exact dense "
+                        "equivalence, unset = dense protocol")
+    p.add_argument("--update_codec", "--update-codec", dest="update_codec",
+                   type=str, default=None,
+                   choices=["dense", "delta", "delta-int8", "delta-sign1"],
+                   help="delta/quantized uplink tier (comm/delta.py): "
+                        "clients upload local - global@version; "
+                        "'delta-int8' quantizes it to deadzoned int8 "
+                        "(+deflate), 'delta-sign1' to 1-bit scaled sign, "
+                        "both with client-side error feedback. Mutually "
+                        "exclusive with --sparsify_ratio")
+    p.add_argument("--delta_broadcast", "--delta-broadcast",
+                   dest="delta_broadcast", type=int, default=0,
+                   help="rank 0: broadcast global@r - global@r-1 to warm "
+                        "clients (ranks whose last upload proved they "
+                        "hold r-1) with a dense fallback for the others; "
+                        "delta payloads ride the frame lossless, so pair "
+                        "with --compression zlib, not f16/q8")
+    p.add_argument("--error_feedback", "--error-feedback",
+                   dest="error_feedback", type=int, default=1,
+                   help="client-side error-feedback residual for the "
+                        "lossy uplink tiers (comm/ef.py); 0 is the "
+                        "convergence-ablation knob, never the production "
+                        "setting")
     for dest, (flag, kind, default, item) in _UNPORTED_FLAGS.items():
         # the reference takes most of these in both spellings
         names = [flag] + ([flag.replace("_", "-")] if "_" in flag else [])
@@ -191,6 +236,15 @@ def main(argv=None):
     from fedml_tpu_torch.comm.message import set_wire_codec
 
     set_wire_codec(args.compression)
+
+    if args.chaos_plan:
+        from fedml_tpu_torch import chaos
+
+        plan = chaos.FaultPlan.from_spec(args.chaos_plan)
+        chaos.install_plan(plan)
+        logging.getLogger("fedml_tpu_torch.launch").warning(
+            "CHAOS plan installed (seed=%d, %d rules) — faults will be "
+            "injected on purpose", plan.seed, len(plan.rules))
 
     from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
     from fedml_tpu_torch.core.tasks import classification_task, sequence_task
@@ -251,20 +305,43 @@ def main(argv=None):
         backend_kw.update(job_id="launch")
 
     backend = args.backend.upper()
+    telemetry = None
     if args.rank == 0:
+        if args.telemetry_dir or args.trace_dir:
+            from fedml_tpu_torch.obs.telemetry import Telemetry
+
+            # --trace-dir alone implies telemetry: the event log (with the
+            # critical-path round records) lands next to trace.json
+            telemetry = Telemetry(log_dir=args.telemetry_dir or args.trace_dir,
+                                  trace_dir=args.trace_dir)
         mgr = init_server(data, task, cfg, args.world_size, backend,
                           device=device, round_timeout_s=args.round_timeout_s,
-                          **backend_kw)
+                          delta_broadcast=bool(args.delta_broadcast),
+                          telemetry=telemetry, **backend_kw)
     else:
         mgr = init_client(data, task, cfg, args.rank, args.world_size,
-                          backend, device=device, **backend_kw)
+                          backend, device=device,
+                          sparsify_ratio=args.sparsify_ratio or None,
+                          update_codec=args.update_codec,
+                          error_feedback=bool(args.error_feedback),
+                          **backend_kw)
     try:
         mgr.run()
         if broker is not None:
             _drain_broker(broker)
     finally:
+        if telemetry is not None:
+            telemetry.close()
         if broker is not None:
             broker.close()
+    if args.chaos_plan:
+        from fedml_tpu_torch import chaos
+
+        plan = chaos.active_plan()
+        if plan is not None:
+            logging.getLogger("fedml_tpu_torch.launch").info(
+                "chaos: %d faults injected %s", len(plan.ledger),
+                plan.ledger.counts())
     if args.rank == 0:
         # stdout IS this CLI's interface: the launching script parses the
         # final eval-history JSON from it

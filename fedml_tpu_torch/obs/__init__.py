@@ -1,7 +1,10 @@
-"""Observability, port of fedml_tpu/obs. This slice carries the
-framework-free wire accounting the comm layer reports through: ``metrics``
-(the process-wide ``REGISTRY`` of counters, gauges and histograms) and
-``comm_instrument`` (messages, bytes by codec and direction, dispatch
-latency, corrupt frames, stale uploads), both copies of the reference's.
-Telemetry, tracing, health and memory gauges are queued in ROADMAP.md
-(queue A, item 8)."""
+"""Observability, port of fedml_tpu/obs: ``metrics`` (the process-wide
+``REGISTRY`` of counters, gauges and histograms), ``comm_instrument``
+(messages, bytes by codec and direction, dispatch latency, corrupt
+frames, stale uploads), ``events`` (the JSONL event log), ``clock`` (the
+clock-offset estimator), ``tracing`` (``RoundTracer`` host spans, the
+client span buffer and the cross-rank ``DistributedTracer``) and
+``trace_export`` (Chrome trace JSON) are copies of the reference's;
+``telemetry`` is its ``Telemetry`` bundle without the live health layer.
+Health, memory gauges, the fleet plane, goodput and the profiler bridge
+are queued in ROADMAP.md (queue A, item 8)."""

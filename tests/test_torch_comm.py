@@ -20,12 +20,15 @@ import torch
 
 from fedml_tpu.comm import message as jax_message
 from fedml_tpu.core.tasks import classification_task as jax_classification_task
+from fedml_tpu.core.tasks import sequence_task as jax_sequence_task
 from fedml_tpu.models.cnn import CNNOriginalFedAvg as JaxCNN
 from fedml_tpu.models.linear import LogisticRegression as JaxLR
+from fedml_tpu.models.transformer import TransformerLM as JaxTransformerLM
 from fedml_tpu_torch import convert
 from fedml_tpu_torch.comm.loopback import LoopbackCommManager
 from fedml_tpu_torch.comm.managers import ClientManager, ServerManager
 from fedml_tpu_torch.comm.message import Message, pack_pytree, unpack_pytree
+from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.obs.metrics import REGISTRY
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -88,7 +91,15 @@ def test_frames_byte_identical_and_cross_decodable(codec):
         np.testing.assert_array_equal(got.get("arr"), want.get("arr"))
 
 
+# the TransformerLM case: C1's width (ROADMAP.md queue C)
+LM_WIDTHS = dict(vocab_size=90, dim=32, depth=1, num_heads=2, max_len=80)
+
+
 def _jax_net(model: str):
+    if model == "transformer":
+        task = jax_sequence_task(JaxTransformerLM(**LM_WIDTHS))
+        return jax.jit(task.init)(jax.random.PRNGKey(3),
+                                  jnp.zeros((1, 80), jnp.int32))
     module = JaxCNN(only_digits=False) if model == "cnn" \
         else JaxLR(num_classes=10)
     task = jax_classification_task(module)
@@ -96,25 +107,90 @@ def _jax_net(model: str):
                               jnp.zeros((1, 28, 28, 1), jnp.uint8))
 
 
-@pytest.mark.parametrize("model", ["cnn", "lr"])
+def _model_frame(cls, leaves) -> bytes:
+    m = cls("s2c_sync_model", 0, 1)
+    m.add_params("model_params", leaves)
+    m.add_params("round_idx", 1)
+    return m.to_bytes()
+
+
+@pytest.mark.parametrize("model", ["cnn", "lr", "transformer"])
 def test_pack_pytree_gives_the_reference_leaves_bitwise(model):
     """The port's wire leaves of a state converted from flax weights are
     the JAX package's pack_pytree(NetState) leaves: order, shape, dtype,
-    bytes; unpack_pytree inverts them bitwise."""
+    bytes; a frame of them is byte-equal to the JAX package's frame and
+    each side decodes the other's; unpack_pytree inverts them bitwise. A
+    TransformerLM needs its head count (convert.num_heads_of)."""
     net = _jax_net(model)
     state = convert.from_flax(jax.tree.map(np.asarray, net.params))
+    heads = LM_WIDTHS["num_heads"] if model == "transformer" else None
     want = jax_message.pack_pytree(net)
-    got = pack_pytree(state)
+    got = pack_pytree(state, heads)
     assert len(got) == len(want)
     for a, b in zip(got, want):
         assert a.shape == b.shape and a.dtype == b.dtype
         assert np.ascontiguousarray(a).tobytes() == b.tobytes()
+    frame = _model_frame(Message, got)
+    assert frame == _model_frame(jax_message.Message, want)
+    for a, b in zip(jax_message.Message.from_bytes(frame).get("model_params"),
+                    Message.from_bytes(frame).get("model_params")):
+        np.testing.assert_array_equal(a, b)
     template = {k: torch.zeros_like(v) for k, v in state.items()}
-    back = unpack_pytree(template, want)
+    back = unpack_pytree(template, want, heads)
     for k in state:
         assert torch.equal(back[k], state[k]), k
     with pytest.raises(ValueError, match="wire leaves"):
-        unpack_pytree(template, want[:-1])
+        unpack_pytree(template, want[:-1], heads)
+    if model == "transformer":
+        module = create_model("transformer", device="cpu", **LM_WIDTHS)
+        assert convert.num_heads_of(module) == heads
+        with pytest.raises(TypeError, match="num_heads"):
+            pack_pytree(state)
+
+
+def test_sequence_run_simulated_matches_jax():
+    """C1: a TransformerLM job crosses the wire. The port's loopback
+    run_simulated on the shakespeare stand-in's sequence_task (4 clients,
+    2 a round, 2 rounds) equals the JAX package's from the same weights,
+    params and history within 1e-5 (float32 on the CPU on both sides, one
+    summation order apart; before the repair the port raised TypeError at
+    its first broadcast)."""
+    from fedml_tpu.algorithms.fedavg import FedAvgConfig as JaxConfig
+    from fedml_tpu.data import load_dataset as jax_load_dataset
+    from fedml_tpu.distributed.fedavg import api as jax_api
+    from fedml_tpu_torch.algorithms import FedAvgConfig
+    from fedml_tpu_torch.core.tasks import sequence_task
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.distributed.fedavg import run_simulated
+
+    cfg = dict(comm_round=2, client_num_in_total=4, client_num_per_round=2,
+               batch_size=10, max_batches=2, lr=0.1, frequency_of_the_test=1,
+               eval_batch_size=40, seed=0)
+    jdata = jax_load_dataset("shakespeare", client_num=4)
+    jtask = jax_sequence_task(JaxTransformerLM(**LM_WIDTHS))
+    jtask = jtask._replace(init=jax.jit(jtask.init))
+    ref = jax_api.run_simulated(jdata, jtask, JaxConfig(**cfg),
+                                job_id="t-jax-lm-wire")
+    _, key = jax.random.split(jax.random.PRNGKey(cfg["seed"]))
+    start = convert.from_flax(jax.tree.map(np.asarray, jtask.init(
+        key, jnp.asarray(jdata.train_x[:cfg["batch_size"]])).params))
+    task = sequence_task(create_model("transformer", device="cpu",
+                                      **LM_WIDTHS))
+    task = task._replace(init=lambda g, x=None: {k: v.clone()
+                                                 for k, v in start.items()})
+    agg = run_simulated(load_dataset("shakespeare", client_num=4), task,
+                        FedAvgConfig(**cfg), job_id="t-torch-lm-wire",
+                        device="cpu")
+    got = pack_pytree(agg.net, LM_WIDTHS["num_heads"])
+    want = jax_message.pack_pytree(ref.net)
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-5, atol=1e-5)
+    assert [r["round"] for r in agg.history] == [0, 1]
+    for a, b in zip(agg.history, ref.history):
+        for k in ("test_loss", "test_acc"):
+            assert abs(a[k] - b[k]) <= 1e-5 * max(1.0, abs(b[k])), (k, a, b)
 
 
 def test_crc_corrupted_frame_dropped_and_counted():

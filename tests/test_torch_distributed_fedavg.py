@@ -40,6 +40,7 @@ from fedml_tpu.models.linear import LogisticRegression as JaxLR
 from fedml_tpu_torch import convert
 from fedml_tpu_torch.algorithms import FedAvgAPI, FedAvgConfig
 from fedml_tpu_torch.algorithms import fedavg as port_fedavg
+from fedml_tpu_torch.chaos import FaultPlan
 from fedml_tpu_torch.comm.loopback import LoopbackCommManager
 from fedml_tpu_torch.comm.message import pack_pytree, set_wire_codec
 from fedml_tpu_torch.core.tasks import classification_task
@@ -315,14 +316,14 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-def test_launcher_runs_three_processes_over_mqtt(tmp_path):
+def _launch_three(tmp_path, extra=()):
     """``distributed_launch`` as three real CPU processes over MQTT (rank 0
-    hosts the bundled broker): rank 0 exits 0 and prints the eval history,
-    which equals the in-process loopback run of the same configuration."""
+    hosts the bundled broker) on mnist / lr, 2 rounds of 2 clients: rank
+    0's eval history, after every rank exited 0."""
     argv = ["--world_size", "3", "--backend", "mqtt", "--broker_port",
             str(_free_port()), "--serve_broker", "1", "--dataset", "mnist",
             "--model", "lr", "--comm_round", "2", "--client_num_in_total", "6",
-            "--frequency_of_the_test", "1", "--device", "cpu"]
+            "--frequency_of_the_test", "1", "--device", "cpu", *extra]
     env = {**os.environ, "PYTHONPATH": str(ROOT)}
     procs = []
     try:
@@ -339,26 +340,61 @@ def test_launcher_runs_three_processes_over_mqtt(tmp_path):
         for p in procs:
             p.kill()
     assert rcs == [0, 0, 0], (tmp_path / "r0.err").read_text()[-3000:]
-    history = json.loads((tmp_path / "r0.out").read_text().splitlines()[-1])
+    return json.loads((tmp_path / "r0.out").read_text().splitlines()[-1])
 
+
+def _launch_reference(job, **kw):
+    """The in-process loopback run of _launch_three's configuration."""
     from fedml_tpu_torch.data import load_dataset
 
     data = load_dataset("mnist", client_num=6)
-    want = run_simulated(
+    return run_simulated(
         data, classification_task(create_model("lr", output_dim=10,
                                                device="cpu")),
         FedAvgConfig(comm_round=2, client_num_in_total=6,
                      client_num_per_round=2, batch_size=32, lr=0.03,
                      frequency_of_the_test=1),
-        job_id="t-torch-launch-ref", device="cpu").history
+        job_id=job, device="cpu", **kw).history
+
+
+def test_launcher_runs_three_processes_over_mqtt(tmp_path):
+    """``distributed_launch`` as three real CPU processes over MQTT (rank 0
+    hosts the bundled broker): rank 0 exits 0 and prints the eval history,
+    which equals the in-process loopback run of the same configuration."""
+    _assert_history_close(_launch_three(tmp_path),
+                          _launch_reference("t-torch-launch-ref"))
+
+
+def test_launcher_runs_the_wire_flags(tmp_path):
+    """The launcher's codec, chaos and trace flags: delta-int8 uplinks with
+    error feedback, round-delta downlinks and a duplicate-every-upload
+    plan on every rank, rank 0 tracing into --trace_dir. Its history
+    equals the in-process run of the same options; trace.json, the event
+    log and the metrics dump land in the directory."""
+    plan = {"seed": 1, "rules": [{"fault": "duplicate", "direction": "send",
+                                  "src": [1], "dst": [0]}]}
+    history = _launch_three(tmp_path, [
+        "--update_codec", "delta-int8", "--delta_broadcast", "1",
+        "--chaos_plan", json.dumps(plan), "--trace_dir", str(tmp_path)])
+    want = _launch_reference(
+        "t-torch-launch-wire", update_codec="delta-int8",
+        delta_broadcast=True, chaos_plan=FaultPlan.from_json(plan))
     _assert_history_close(history, want)
+    doc = json.loads((tmp_path / "trace.json").read_text())
+    assert any(e.get("name") == "local_fit" for e in doc["traceEvents"])
+    kinds = [json.loads(line)["kind"] for line in
+             (tmp_path / "events.jsonl").read_text().splitlines()]
+    assert kinds[0] == "run" and kinds.count("round") == 2
+    assert (tmp_path / "metrics.prom").exists()
 
 
 @pytest.mark.parametrize("option", [
-    dict(ckpt_dir="/nonexistent"), dict(sparsify_ratio=0.1),
-    dict(update_codec="delta"), dict(error_feedback=False),
-    dict(delta_broadcast=True), dict(telemetry=object()),
-    dict(chaos_plan=object()), dict(aggregator="median"),
+    dict(ckpt_dir="/nonexistent"),
+    # a server restart (a crash rule naming rank 0) needs checkpoint + WAL
+    dict(chaos_plan=FaultPlan.from_json(
+        {"seed": 0, "rules": [{"fault": "crash", "ranks": [0],
+                               "rounds": [1, 2]}]})),
+    dict(aggregator="median"),
     dict(aggregator_params={"f": 1}), dict(sanitize=True),
     dict(adversary_plan=object()), dict(shard_server_state=True),
     dict(partition_rules=[]), dict(async_buffer_k=2),
@@ -376,9 +412,7 @@ def test_unported_run_simulated_options_raise(setup, option):
 @pytest.mark.parametrize("flag", [
     ["--algo", "fedopt"], ["--edges", "2"], ["--ckpt_dir", "/tmp/x"],
     ["--async_buffer_k", "2"], ["--aggregator", "median"],
-    ["--chaos-plan", "{}"], ["--telemetry-dir", "/tmp/x"],
-    ["--sparsify_ratio", "0.1"], ["--update-codec", "delta"],
-    ["--fused_agg", "1"], ["--shard_server_state", "1"], ["--supervise", "1"],
+    ["--adversary-plan", "{}"], ["--fused_agg", "1"], ["--shard_server_state", "1"], ["--supervise", "1"],
 ], ids=lambda f: f[0])
 def test_unported_launcher_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A, item"):
