@@ -71,6 +71,30 @@ Phases, in order:
            fault and quarantine ledgers, no duplicate folded twice. One
            traced dense run: each round's spans by rank, its history the
            untraced run's, its frames grown only by the trace parameter
+  robust   Byzantine-robust aggregation at main's configuration, not cut:
+           (a) every estimator behind the gate (median, trimmed mean, krum,
+           multi-krum, geometric median), the pairwise mean, the evidence
+           and the two-phase flush with the krum and medoid verdicts, over
+           one stacked [10, ...] CNN update (two slots x10, one NaN): times
+           beside the plain weighted mean's, reason codes equal to the
+           port's CPU run of the same inputs, selections bitwise, the rest
+           within 1e-5 relative; (b) FedAvgAPI under a seeded plan (ranks
+           2 and 5 sign-flip x100, rank 7 NaN in round 1), 3 rounds for the
+           gate alone and each estimator beside the plain build and the
+           undefended engine: round walls and round spans, every round
+           held to the port's CPU run (the gate and estimator over the
+           card's own stack: reasons equal, selections bitwise, the rest
+           within 1e-5; the round from the same weights: the attackers'
+           verdicts equal, its params gap printed), the attackers named
+           every round; then
+           krum, median, the plain build and the undefended engine on to
+           40 rounds on the card: median's eval loss below the initial
+           one, the undefended engine's not, krum's pick one honest
+           client's model every round; (c) run_simulated over
+           loopback under the same plan on the clients, with krum and with
+           the two-phase median (sum_assoc='pairwise'): ledgers equal to
+           the engine's, each round within 1e-2 of the engine's fit with
+           the same composition from the wire's entering weights
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -101,7 +125,7 @@ from fedml_tpu_torch.ops import loader
 fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
 PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
-          "wire")
+          "wire", "robust")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -1583,6 +1607,479 @@ def phase_wire(report):
                              f"{dense['frames']}, grown {grown} B")
     if any(fa.LAUNCHES.values()):
         raise AssertionError(f"flash kernels launched by the wire phase: "
+                             f"{fa.LAUNCHES}")
+
+
+# Byzantine-robust aggregation at MAIN_CFG (core/robust_agg.py,
+# chaos/adversary.py). The plan: ranks 2 and 5 sign-flip their update
+# x100 in every round, rank 7 uploads NaN in round 1. The factor puts the
+# flippers past the gate's 4x median norm whatever their client: a client
+# of 24 samples fits 2 batches where others fit 28, and x10 of its small
+# update stayed inside 4x the median (round 1's rank 2 on the H100, and
+# on the CPU from the same weights).
+ROBUST_PLAN = {"seed": 5, "rules": [
+    {"attack": "sign_flip", "ranks": [2, 5], "factor": 100.0},
+    {"attack": "nan", "ranks": [7], "rounds": [1, 2]}]}
+ROBUST_ROUNDS = 3
+# Each of these rounds is held to the port's CPU run sharply over the
+# card's own stack (the gate and estimator on both sides over the same
+# fitted nets: reason codes equal, selections bitwise, the rest within
+# TOL_ROBUST_REL) and, for the round as a whole from the same entering
+# weights, on the attackers' verdicts. The whole round's params gap is
+# printed beside main's TOL_ROUND and not held to it: the fits' rounding
+# chaos (one client in ten meets a max-pool or ReLU tie a step) put one
+# round of the gate-only mean 1.51e-2 off the CPU's on the H100, the same
+# round 7.5e-4 off in another run; and an honest client's chaotic fit can
+# move krum's suspected set, which rests on honest clients' margins.
+
+# the defended legs' convergence is read after this many rounds (the
+# first ROBUST_ROUNDS held to the CPU, the rest on the card alone): the
+# CNN's eval loss on the stand-in barely leaves ln 62 in 3 rounds, even
+# unattacked, so a verdict on a defense's loss needs the model to learn
+ROBUST_CONV_ROUNDS = 40
+ROBUST_CONVERGE = ("plain build", "no defense", "krum", "median")
+ROBUST_ESTIMATORS = ("median", "trimmed_mean", "krum", "multi_krum",
+                     "geometric_median")
+# the estimators alone, card vs the port's CPU run of the same inputs:
+# reason codes equal, selections (median, krum, the krum and medoid
+# verdicts) bitwise, the arithmetic ones within this (max |diff| over max
+# |value|; each sums at most 10 terms a coordinate, or 1.69 M a distance)
+TOL_ROBUST_REL = 1e-5
+ROBUST_BITWISE = ("median", "krum", "verdict_flush krum",
+                  "verdict_flush median")
+
+
+def _robust_stack(state, seed=0):
+    """A [10, ...] stacked update of ``state`` (the seed's weights): client
+    k's model is state + (1 + 0.1 k) x a seeded Gaussian update of 1e-2 x
+    each entry's mean magnitude (scales apart, so no distance ties); slots
+    2 and 5 carry their update x10, slot 7 is NaN. Sample weights drawn
+    from 50..560 (a FEMNIST client's range at MAIN_CFG's 28 x 20 cap)."""
+    rs = np.random.RandomState(seed)
+    K = MAIN_CFG["client_num_per_round"]
+    scale = (1.0 + 0.1 * np.arange(K, dtype=np.float32))
+    scale[[2, 5]] *= 10.0
+    stacked = {}
+    for key, v in state.items():
+        g = v.numpy()
+        u = rs.standard_normal((K,) + g.shape).astype(np.float32)
+        u *= np.float32(1e-2 * float(np.abs(g).mean()))
+        s = g[None] + u * scale.reshape((K,) + (1,) * g.ndim)
+        s[7] = np.nan
+        stacked[key] = torch.from_numpy(s.astype(np.float32))
+    w = torch.from_numpy(rs.randint(50, 561, K).astype(np.float32))
+    return stacked, w
+
+
+def _robust_calls(stacked, glob, w):
+    """name -> fn() of each timed composition over the stack, the plain
+    weighted mean first; each fn returns (avg, reasons)."""
+    from fedml_tpu_torch.core import robust_agg as ra
+    from fedml_tpu_torch.utils.tree import tree_weighted_mean
+
+    K = MAIN_CFG["client_num_per_round"]
+    mult = ra.DEFAULT_NORM_MULT
+    calls = {"plain weighted mean":
+             lambda: (tree_weighted_mean(stacked, w), None),
+             "gate + weighted mean": lambda: ra.gated_aggregate(
+                 stacked, glob, w, norm_mult=mult)[::2]}
+    for name in ROBUST_ESTIMATORS:
+        fn = ra.make_robust_aggregator(name, n=K)
+        calls[name] = (lambda fn=fn: ra.gated_aggregate(
+            stacked, glob, w, robust_fn=fn, norm_mult=mult)[::2])
+    calls["pairwise mean"] = lambda: ra.gated_aggregate(
+        stacked, glob, w, pairwise=True, norm_mult=mult)[::2]
+    ev = ra.update_evidence(stacked, glob, w)
+    calls["update_evidence"] = lambda: (ra.update_evidence(stacked, glob, w),
+                                        None)
+    for name in ("krum", "median"):
+        vf = ra.make_verdict_estimator(name, n=K)
+        calls[f"verdict_flush {name}"] = (lambda vf=vf: ra.verdict_flush(
+            stacked, glob, ev, vf, norm_mult=mult)[::2])
+    return calls
+
+
+def _robust_estimators(start):
+    """(a): every composition on the card, timed, against the port's CPU
+    run of the same inputs."""
+    from fedml_tpu_torch.algorithms.fedavg import float32_compute
+
+    stacked, w = _robust_stack(start)
+    glob = start
+    card = _robust_calls(_state_on(stacked, "cuda"), _state_on(glob, "cuda"),
+                         w.cuda())
+    cpu = _robust_calls(stacked, glob, w)
+    rows = {}
+    with float32_compute():
+        for name, fn in card.items():
+            ms = _time_ms(fn)
+            got, reasons = fn()
+            if name == "plain weighted mean":
+                # the baseline the attack poisons: slot 7's NaN reaches it
+                rows[name] = dict(ms=ms)
+                finite = all(bool(torch.isfinite(v).all())
+                             for v in got.values())
+                print(f"robust: {name}: {ms:.3f} ms (CUDA events, median of"
+                      f" 7 x 5 calls); finite {finite}")
+                if finite:
+                    raise AssertionError("the NaN slot did not reach the "
+                                         "plain weighted mean")
+                continue
+            want, want_reasons = cpu[name]()
+            if name == "update_evidence":
+                got, want = ({"sketch": got["sketch"], "norm": got["norm"]},
+                             {"sketch": want["sketch"], "norm": want["norm"]})
+            got = _cpu_state(got)
+            err = max(float((got[k] - want[k]).abs().max()) for k in want)
+            rel = err / max(float(v.abs().max()) for v in want.values())
+            codes = None if reasons is None else reasons.cpu().tolist()
+            rows[name] = dict(ms=ms, rel_err=rel, codes=codes)
+            print(f"robust: {name}: {ms:.3f} ms (CUDA events, median of 7 x"
+                  f" 5 calls); reasons {codes}; vs the CPU run: max |diff|"
+                  f" {err:.3e}, relative {rel:.3e}")
+            if (reasons is None) != (want_reasons is None) or (
+                    codes is not None and codes != want_reasons.tolist()):
+                raise AssertionError(f"{name}: reasons {codes} on the card, "
+                                     f"{want_reasons} on the CPU")
+            if name in ROBUST_BITWISE and err != 0.0:
+                raise AssertionError(f"{name}: a selection, {err} off the "
+                                     "CPU's")
+            if name not in ROBUST_BITWISE and rel > TOL_ROBUST_REL:
+                raise AssertionError(f"{name}: {rel} relative off the CPU's "
+                                     f"(tol {TOL_ROBUST_REL})")
+            if name != "update_evidence" and not all(
+                    bool(torch.isfinite(v).all()) for v in got.values()):
+                raise AssertionError(f"{name}: non-finite result")
+    mean_ms = rows["plain weighted mean"]["ms"]
+    print("robust: cost over the plain weighted mean: " + ", ".join(
+        f"{n} {r['ms'] / mean_ms:.1f}x" for n, r in rows.items()
+        if n != "plain weighted mean"))
+
+
+def _named_every_round(ledger, rounds):
+    """The plan's attackers in a round's ledger entries: ranks 2 and 5 as
+    norm outliers or suspected in every round, rank 7 nonfinite in round
+    1 (and nowhere else)."""
+    for r in range(rounds):
+        ent = {(e["rank"], e["reason"]) for e in ledger if e["round"] == r}
+        for rank in (2, 5):
+            if not ent & {(rank, "norm_outlier"), (rank, "suspected")}:
+                raise AssertionError(f"round {r}: rank {rank} not named in "
+                                     f"{sorted(ent)}")
+        if ((7, "nonfinite") in ent) != (r == 1):
+            raise AssertionError(f"round {r}: rank 7's nonfinite entry "
+                                 f"{sorted(ent)}")
+
+
+def _robust_wire_run(data, task, cfg, plan, agg_kw):
+    """run_simulated over loopback under ``plan`` (the clients perturb their
+    wire leaves) with the server's ``agg_kw``: the aggregator, each
+    round's wall (from the launch or the previous aggregate to the end of
+    this one) and each round's new global model on the CPU (copied after
+    the round's time is taken)."""
+    from unittest import mock
+
+    from fedml_tpu_torch.distributed.fedavg import run_simulated
+    from fedml_tpu_torch.distributed.fedavg.aggregator import FedAvgAggregator
+
+    stamps, nets, aggregate = [], [], FedAvgAggregator.aggregate
+
+    def stamped(self):
+        out = aggregate(self)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        nets.append(_cpu_state(self.net))
+        return out
+
+    with mock.patch.object(FedAvgAggregator, "aggregate", stamped):
+        t0 = time.perf_counter()
+        agg = run_simulated(data, task, cfg,
+                            job_id=f"smoke-robust-{agg_kw['aggregator']}",
+                            adversary_plan=plan, **agg_kw)
+    return dict(agg=agg, nets=nets,
+                walls=[b - a for a, b in zip([t0] + stamps, stamps)])
+
+
+def _card_stack(api, r, state):
+    """Round ``r``'s client nets from ``state`` as the engine stacks them
+    for its aggregate (the batched fit, then the in-graph adversary), with
+    the global model and the weights, on the card."""
+    from fedml_tpu_torch.algorithms import fedavg
+
+    api.load_state(state)
+    x, y, mask, nsamp = api._round_batch(r, api._sampled_ids(r))
+    with fedavg.float32_compute():
+        nets, _ = api.local_update(api.net, x, y, mask)
+        nets = api._adversary(nets, api.net, r)
+    return nets, api.net, fedavg.agg_weights(nsamp, False)
+
+
+def _composed_round(api, r, state, compose):
+    """Round ``r`` of the engine from ``state`` with the aggregate composed
+    by ``compose(nets, global, weights) -> (avg, _, reasons)``: (new
+    params on the CPU, reason codes)."""
+    from fedml_tpu_torch.algorithms import fedavg
+
+    nets, glob, w = _card_stack(api, r, state)
+    with fedavg.float32_compute():
+        avg, _, reasons = compose(nets, glob, w)
+    return _cpu_state(avg), reasons.cpu().tolist()
+
+
+def _same_stack_gap(api, cpu, r, state):
+    """The engine's gate + estimator over its own round-``r`` stack on the
+    card against the CPU engine's over the same stack copied: (reason
+    codes on the card, on the CPU, max |diff| over max |value|)."""
+    from fedml_tpu_torch.algorithms import fedavg
+    from fedml_tpu_torch.core import robust_agg as ra
+
+    nets, glob, w = _card_stack(api, r, state)
+    with fedavg.float32_compute():
+        got, _, codes = ra.gated_aggregate(
+            nets, glob, w, robust_fn=api._robust_agg,
+            norm_mult=api._sanitize_mult)
+    want, _, want_codes = ra.gated_aggregate(
+        _cpu_state(nets), _cpu_state(glob), w.cpu(),
+        robust_fn=cpu._robust_agg, norm_mult=cpu._sanitize_mult)
+    got = _cpu_state(got)
+    err = max(float((got[k] - want[k]).abs().max()) for k in want)
+    return (codes.cpu().tolist(), want_codes.tolist(),
+            err / max(float(v.abs().max()) for v in want.values()))
+
+
+def _robust_engine(data, cfg, start):
+    """(b): the engine under ROBUST_PLAN, one leg a defense beside the plain
+    build and the undefended engine, ROBUST_ROUNDS rounds each held to the
+    port's CPU run (see ROBUST_ROUNDS' note). Returns ({leg: (engine, its
+    ledger, its params) after ROBUST_ROUNDS} for the legs of
+    ROBUST_CONVERGE, the eval loss from the seed's weights)."""
+    from fedml_tpu_torch import chaos
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.models import create_model
+
+    cnn = lambda device=None: classification_task(
+        create_model("cnn", output_dim=62, device=device))
+    legs = [("plain build", {}), ("no defense", {"adversary_plan": True}),
+            ("mean (gate only)", {"adversary_plan": True, "sanitize": True})]
+    legs += [(n, {"adversary_plan": True, "aggregator": n})
+             for n in ROBUST_ESTIMATORS]
+    armed = lambda kw: {k: (chaos.AdversaryPlan.from_json(ROBUST_PLAN)
+                            if k == "adversary_plan" else v)
+                        for k, v in kw.items()}
+    engines, losses = {}, {}
+    for label, kw in legs:
+        matched = []
+        api = FedAvgAPI(data, cnn(), cfg, device_data=True, **armed(kw))
+        defended = "sanitize" in kw or "aggregator" in kw
+        cpu = (FedAvgAPI(data, cnn("cpu"), cfg, device="cpu", **armed(kw))
+               if defended else None)
+        if label == "plain build":
+            losses["initial"] = api.evaluate()["loss"]
+        walls, spans, rest, gaps, same = [], [], [], [], []
+        for r in range(ROBUST_ROUNDS):
+            entering = _cpu_state(api.net)
+            if cpu is not None:
+                codes, want, rel = _same_stack_gap(api, cpu, r, entering)
+                same.append(rel)
+                if codes != want or rel > (0.0 if label in ROBUST_BITWISE
+                                           else TOL_ROBUST_REL):
+                    raise AssertionError(
+                        f"{label} round {r}: over the card's own stack, "
+                        f"reasons {codes} and the CPU's {want}, relative "
+                        f"gap {rel}")
+            before = dict(api.tracer.rounds[-1])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.run_round(r)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            sp = api._span_delta(before)
+            spans.append(sp["round"])
+            # after the spans: an armed round's ledger read (its wait for
+            # the card) and the final sync
+            rest.append(walls[-1] - sp["round"] - sp.get("pack", 0.0))
+            if cpu is None:
+                continue
+            cpu.load_state(entering)
+            cpu.run_round(r)
+            card_r, cpu_r = _cpu_state(api.net), _cpu_state(cpu.net)
+            gaps.append(max(float((card_r[k] - cpu_r[k]).abs().max())
+                            for k in cpu_r))
+            attackers = lambda q: [e for e in q.for_round(r)
+                                   if e["rank"] in (2, 5, 7)]
+            if attackers(api.quarantine) != attackers(cpu.quarantine):
+                raise AssertionError(
+                    f"{label} round {r}: ledger {api.quarantine.for_round(r)} "
+                    f"on the card, {cpu.quarantine.for_round(r)} on the CPU "
+                    "from the same weights")
+            matched.append(api.quarantine.for_round(r)
+                           == cpu.quarantine.for_round(r))
+        del cpu
+        ev = api.evaluate()
+        losses[label] = ev["loss"]
+        print(f"robust: engine, {label}: round walls "
+              + ", ".join(f"{w:.4f}" for w in walls) + " s, round spans "
+              + ", ".join(f"{s * 1e3:.2f}" for s in spans) + " ms, after "
+              "the spans (ledger read, the wait for the card) "
+              + ", ".join(f"{s * 1e3:.2f}" for s in rest) + " ms; eval loss "
+              f"{ev['loss']:.6f} acc {ev['acc']:.4f}"
+              + ("" if not gaps else "; over the card's own stack vs the "
+                 "CPU, relative gap by round " + ", ".join(
+                     f"{g:.3e}" for g in same) + ", reasons equal; the round "
+                 "vs the CPU's from the same weights, params by round "
+                 + ", ".join(f"{g:.3e}" for g in gaps) + f" (main's "
+                 f"{TOL_ROUND:g}, not held: see ROBUST_ROUNDS' note), "
+                 f"attackers' verdicts equal, whole ledgers equal {matched}"))
+        if defended:
+            print(f"robust: engine, {label}: ledger "
+                  f"{[(e['round'], e['rank'], e['reason']) for e in api.quarantine.entries()]}")
+            _named_every_round(api.quarantine.entries(), ROBUST_ROUNDS)
+        if label in ROBUST_CONVERGE:
+            engines[label] = (api, api.quarantine.entries(),
+                              _cpu_state(api.net))
+    l0 = losses["initial"]
+    print(f"robust: eval loss from the seed's weights {l0:.6f}; after "
+          f"{ROBUST_ROUNDS} rounds: " + ", ".join(
+              f"{k} {v:.6f}" for k, v in losses.items() if k != "initial"))
+    return engines, l0
+
+
+def _krum_picks(api):
+    """Wrap the engine's krum so that each round records the slots of the
+    gated stack its pick equals bitwise, with the stack's weights."""
+    picks, krum = [], api._robust_agg
+
+    def recorded(stacked, w):
+        agg, info = krum(stacked, w)
+        picks.append(([i for i in range(w.shape[0]) if all(
+            torch.equal(v[i], agg[k]) for k, v in stacked.items())],
+            w.cpu()))
+        return agg, info
+
+    api._robust_agg = recorded
+    return picks
+
+
+def _robust_converge(engines, l0):
+    """(b), the defense's verdict: the ROBUST_CONVERGE legs go on from
+    their ROBUST_ROUNDS-round weights to ROBUST_CONV_ROUNDS rounds on the
+    card, read where the unattacked model has learned (at ROBUST_ROUNDS
+    rounds the CNN's eval loss has barely left ln 62, the plain build's
+    included): median's eval loss below the initial one, the undefended
+    engine's not; krum's pick every round one gate-passed honest client's
+    model, bitwise, and its eval loss finite. Krum takes one label-skewed
+    client's model a round, so its loss is reported, not held below the
+    initial one: it hovers around it (4.10-4.50 against 4.16 over 40
+    rounds on the H100) while the plain build's falls to 0.02."""
+    curves, picks = {}, None
+    for label, (api, _, state) in engines.items():
+        api.load_state(state)
+        if label == "krum":
+            picks = _krum_picks(api)
+        curves[label] = []
+        for r in range(ROBUST_ROUNDS, ROBUST_CONV_ROUNDS):
+            api.run_round(r)
+            if (r + 1) % 10 == 0:
+                curves[label].append(api.evaluate()["loss"])
+        print(f"robust: engine, {label}: eval loss after rounds "
+              + ", ".join(f"{r}: {v:.6f}" for r, v in zip(
+                  range(10, ROBUST_CONV_ROUNDS + 1, 10), curves[label])))
+        if label in ("krum", "median"):
+            _named_every_round(api.quarantine.entries(), ROBUST_CONV_ROUNDS)
+    for r, (slots, w) in enumerate(picks, start=ROBUST_ROUNDS):
+        if len(slots) != 1 or w[slots[0]] <= 0 or slots[0] + 1 in (2, 5):
+            raise AssertionError(f"krum round {r}: its pick equals slots "
+                                 f"{slots} (weights {w.tolist()})")
+    print(f"robust: krum's pick, rounds {ROBUST_ROUNDS}-"
+          f"{ROBUST_CONV_ROUNDS - 1}: one gate-passed honest client's model "
+          f"each round, bitwise (ranks "
+          f"{[slots[0] + 1 for slots, _ in picks]})")
+    if not all(math.isfinite(v) for v in curves["krum"]):
+        raise AssertionError(f"krum: eval losses {curves['krum']}")
+    final = {k: v[-1] for k, v in curves.items()}
+    if not final["median"] < l0:
+        raise AssertionError(f"median: eval loss {final['median']} after "
+                             f"{ROBUST_CONV_ROUNDS} rounds not below the "
+                             f"initial {l0}")
+    if final["no defense"] < l0:
+        raise AssertionError(f"the undefended engine's loss "
+                             f"{final['no defense']} fell below {l0}")
+
+
+def _robust_wire(data, cfg, start, engines):
+    """(c): run_simulated over loopback under ROBUST_PLAN on the clients,
+    with krum and with the two-phase median: ledgers equal to the engine's
+    legs', each round within TOL_ROUND of the engine's fit with the same
+    composition from the wire's entering weights."""
+    from fedml_tpu_torch import chaos
+    from fedml_tpu_torch.core import robust_agg as ra
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.models import create_model
+
+    K = cfg.client_num_per_round
+    wire_legs = (("krum", {"aggregator": "krum"}, "krum"),
+                 ("median, sum_assoc='pairwise' (two-phase)",
+                  {"aggregator": "median", "sum_assoc": "pairwise"},
+                  "median"))
+    for label, agg_kw, engine_leg in wire_legs:
+        run = _robust_wire_run(
+            data, classification_task(create_model("cnn", output_dim=62)),
+            cfg, chaos.AdversaryPlan.from_json(ROBUST_PLAN), agg_kw)
+        agg, (api, ledger, _) = run["agg"], engines[engine_leg]
+        if agg.quarantine.entries() != ledger:
+            raise AssertionError(f"wire {label}: ledger "
+                                 f"{agg.quarantine.entries()}, the engine's "
+                                 f"{ledger}")
+        if agg_kw.get("sum_assoc") == "pairwise":
+            vf = ra.make_verdict_estimator(agg_kw["aggregator"], n=K)
+            compose = lambda n, g, w: ra.gated_aggregate(
+                n, g, w, verdict_fn=vf, norm_mult=ra.DEFAULT_NORM_MULT)
+        else:
+            compose = lambda n, g, w: ra.gated_aggregate(
+                n, g, w, robust_fn=api._robust_agg,
+                norm_mult=api._sanitize_mult)
+        gaps = []
+        for r, (entering, got) in enumerate(zip([start] + run["nets"][:-1],
+                                                run["nets"])):
+            want, codes = _composed_round(api, r, entering, compose)
+            gaps.append(max(float((got[k] - want[k]).abs().max())
+                            for k in want))
+            want_led = [(r, i + 1, ra.REASONS[c]) for i, c in
+                        enumerate(codes) if c]
+            got_led = [(e["round"], e["rank"], e["reason"])
+                       for e in agg.quarantine.for_round(r)]
+            if got_led != want_led:
+                raise AssertionError(f"wire {label} round {r}: ledger "
+                                     f"{got_led}, the engine's fit with "
+                                     f"the same composition {want_led}")
+        print(f"robust: wire, {label}: round walls "
+              + ", ".join(f"{w:.3f}" for w in run["walls"]) + " s; ledger "
+              f"equal to the engine's ({len(agg.quarantine)} entries); "
+              "params vs the engine's fit + the same composition from the "
+              "wire's entering weights, by round "
+              + ", ".join(f"{g:.3e}" for g in gaps) + f" (tol {TOL_ROUND:g});"
+              f" history {[(h['round'], round(h['test_loss'], 6)) for h in agg.history]}")
+        if max(gaps) > TOL_ROUND:
+            raise AssertionError(f"wire {label}: params {gaps} beyond "
+                                 f"{TOL_ROUND}")
+
+
+def phase_robust(report):
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
+    from fedml_tpu_torch.data import load_dataset
+
+    fa.reset_launches()
+    data = load_dataset("femnist", seed=0, uint8_pixels=True)
+    cfg = FedAvgConfig(comm_round=ROBUST_ROUNDS, frequency_of_the_test=1,
+                       **MAIN_CFG)
+    start = _cpu_state(_initial_state(data, cfg))
+    _robust_estimators(start)
+    engines, l0 = _robust_engine(data, cfg, start)
+    _robust_wire(data, cfg, start, engines)
+    _robust_converge(engines, l0)
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched by the robust phase: "
                              f"{fa.LAUNCHES}")
 
 

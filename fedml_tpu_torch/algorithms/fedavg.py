@@ -22,9 +22,16 @@ on after it), ``eval``. A ``telemetry`` bundle adds one record a round
 feeds the spans to its tracer; with telemetry off nothing syncs and
 nothing is added to the round. The reference's goodput, privacy and pack
 blocks of that record need modules not ported yet and are left out.
-Mesh/SPMD round loops, prefetch pipelines, robust aggregation and the
-other engine options are queued in ROADMAP.md (queue A, items 5-8);
-passing one raises.
+
+Byzantine robustness (core/robust_agg.py, chaos/adversary.py):
+``aggregator`` swaps the weighted mean for a robust estimator behind the
+sanitation gate (``sanitize``), and ``adversary_plan`` perturbs the
+stacked client nets right after the batched fit, slot ``i`` playing worker
+rank ``i + 1``. An armed round reads its ``[K]`` reason codes back into
+``self.quarantine`` (one sync a round); with all four options at their
+defaults the round runs the ops it ran before they existed.
+Mesh/SPMD round loops, prefetch pipelines and the other engine options
+are queued in ROADMAP.md (queue A, items 5-8); passing one raises.
 """
 
 from __future__ import annotations
@@ -46,6 +53,12 @@ from fedml_tpu_torch.core.client_data import (
     pack_clients,
     pad_batches,
     pad_index_batches,
+)
+from fedml_tpu_torch.core.robust_agg import (
+    DEFAULT_NORM_MULT,
+    QuarantineLedger,
+    gated_aggregate,
+    make_robust_aggregator,
 )
 from fedml_tpu_torch.core.local import (
     LocalSpec,
@@ -246,7 +259,10 @@ class FedAvgAPI:
                  config: FedAvgConfig, device=None,
                  local_spec: LocalSpec | None = None,
                  uniform_avg: bool = False, device_data: bool = False,
-                 telemetry=None, **unported):
+                 telemetry=None, aggregator=None,
+                 aggregator_params: dict | None = None,
+                 sanitize: bool | float | None = None,
+                 adversary_plan=None, **unported):
         if unported:
             raise NotImplementedError(
                 f"FedAvgAPI options {sorted(unported)} are not ported yet: "
@@ -291,6 +307,38 @@ class FedAvgAPI:
         # bundle the same spans also feed its single-rank timeline
         self.tracer = RoundTracer(
             sink=telemetry.tracer if telemetry is not None else None)
+        # Byzantine-robust aggregation: ``aggregator`` is a name of
+        # robust_agg.AGGREGATORS or a callable ``(stacked, weights) ->
+        # (state, info)``; ``sanitize`` fronts it with the gate (True = the
+        # default norm multiple, a float = that multiple, False = off,
+        # None = on iff an aggregator is set)
+        if aggregator is None:
+            self._robust_agg = None
+        elif callable(aggregator):
+            self._robust_agg = aggregator
+        else:
+            self._robust_agg = make_robust_aggregator(
+                aggregator, n=config.client_num_per_round,
+                **(aggregator_params or {}))
+        if sanitize is None:
+            sanitize = self._robust_agg is not None
+        self._sanitize_mult = (
+            None if sanitize is False
+            else DEFAULT_NORM_MULT if sanitize is True else float(sanitize))
+        self._needs_stacked = (self._robust_agg is not None
+                               or self._sanitize_mult is not None)
+        # per-round verdicts; rank = stacked slot + 1, the loopback
+        # runtime's worker rank, so the two ledgers compare entry for entry
+        self.quarantine = QuarantineLedger()
+        # model-space adversaries perturb the stacked nets after the fit,
+        # before any server-side defense sees them
+        self._adversary = None
+        self.adversary_plan = adversary_plan
+        if adversary_plan is not None:
+            from fedml_tpu_torch.chaos.adversary import make_in_graph_injector
+
+            self._adversary = make_in_graph_injector(
+                adversary_plan, config.client_num_per_round)
 
     # ------------------------------------------------------------------ data
     def _sampled_ids(self, round_idx: int):
@@ -336,11 +384,24 @@ class FedAvgAPI:
             x, y, mask, nsamp = self._round_batch(round_idx, ids)
         with self.tracer.span("round"), float32_compute():
             nets, metrics = self.local_update(self.net, x, y, mask)
-            avg = tree_weighted_mean(nets, agg_weights(nsamp, self.uniform_avg))
+            if self._adversary is not None:
+                nets = self._adversary(nets, self.net, round_idx)
+            weights = agg_weights(nsamp, self.uniform_avg)
+            reasons = None
+            if self._needs_stacked:
+                avg, _, reasons = gated_aggregate(
+                    nets, self.net, weights, robust_fn=self._robust_agg,
+                    norm_mult=self._sanitize_mult)
+            else:
+                avg = tree_weighted_mean(nets, weights)
             metrics = {k: v.sum() for k, v in metrics.items()}
             if self._emit_stats:
                 metrics.update(round_stats(self.net, avg, nets, avg, nsamp))
             self.net = avg
+        if reasons is not None:
+            # the round's one host read: its [K] codes into the ledger
+            self.quarantine.record_codes(round_idx, reasons.cpu().numpy(),
+                                         clients=np.asarray(ids).tolist())
         if self.telemetry is not None:
             # floating the metrics syncs on the round's outputs — a cost the
             # caller opted into by passing telemetry; the off path returns
@@ -348,7 +409,8 @@ class FedAvgAPI:
             self.telemetry.emit_round(
                 round_idx, clients=np.asarray(ids).tolist(),
                 spans=self._span_delta(spans_before),
-                metrics={k: float(v) for k, v in metrics.items()})
+                metrics={k: float(v) for k, v in metrics.items()},
+                **self._quarantine_extra(round_idx))
             if self.telemetry.tracer is not None:
                 # close the trace envelope HERE: left open it would absorb
                 # inter-round idle and misreport per-round wall-clock
@@ -364,11 +426,18 @@ class FedAvgAPI:
         return {k: v - before.get(k, 0.0) for k, v in cur.items()
                 if v - before.get(k, 0.0) > 0.0}
 
+    def _quarantine_extra(self, round_idx: int) -> dict:
+        """The round record's ``quarantine`` block: the round's ledger
+        entries, absent on clean rounds."""
+        entries = self.quarantine.for_round(round_idx)
+        return {"quarantine": entries} if entries else {}
+
     def run_rounds(self, start_round: int, num_rounds: int) -> dict:
         """Rounds ``start_round`` .. ``start_round + num_rounds - 1`` back to
-        back, with no host read between them; per-round metrics stacked
-        along axis 0. Needs ``device_data=True``, as the reference's
-        one-program block does."""
+        back, with no host read between them but an armed round's reason
+        codes (each round's verdicts land in the ledger as run_round's
+        do); per-round metrics stacked along axis 0. Needs
+        ``device_data=True``, as the reference's one-program block does."""
         if not self.device_data:
             raise ValueError("run_rounds needs device_data=True")
         ms = [self.run_round(r)

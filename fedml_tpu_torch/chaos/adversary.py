@@ -182,8 +182,70 @@ def perturb_leaves(plan: AdversaryPlan, leaves, global_leaves, rank: int,
 
 # --------------------------------------------------------------- in-graph
 def make_in_graph_injector(plan: AdversaryPlan, num_slots: int):
-    """The reference compiles ``plan`` into its jitted round program
-    (fedml_tpu/chaos/adversary.py:184-251). The port's engine takes no
-    adversary yet, so there is nothing to compile it into."""
-    raise NotImplementedError("the engine's in-graph adversary is not "
-                              "ported yet: ROADMAP.md queue A, item 7")
+    """Compile ``plan`` into ``fn(stacked, global_state, round_idx) ->
+    stacked`` for the engine's round, over stacked state dicts (slot ``i``
+    plays worker rank ``i + 1``). The rules are static; ``round_idx`` is a
+    plain int, so a rule outside its window adds no work. Perturbed values
+    replace honest ones via ``torch.where`` (never arithmetic blending:
+    ``s + m*(nan - s)`` would leak NaN through a zero mask); only floating
+    entries are attacked, as ``perturb_leaves`` does; the slot mask is
+    sliced to the stack's leading dim (a smaller cohort keeps slot i
+    meaning cohort position i).
+
+    ``gaussian`` draws ``N(0, 1)`` from an explicit ``torch.Generator`` on
+    the stack's device, seeded per (plan seed, rule index, round) by
+    ``_attack_seed``'s sha256 construction, entries in dict order: a
+    seeded run replays bitwise. The JAX package draws from
+    ``jax.random.fold_in`` chains instead, which torch cannot reproduce;
+    the schedule (which slots, which rounds) is what the two agree on."""
+    import torch
+
+    rules = list(plan.rules)
+    slot_masks = []
+    for rule in rules:
+        m = np.zeros((num_slots,), bool)
+        for r in rule.ranks:
+            if 1 <= r <= num_slots:
+                m[r - 1] = True
+        slot_masks.append(m)
+
+    def injector(stacked, global_state, round_idx: int):
+        out = dict(stacked)
+        for rule_idx, (rule, slots) in enumerate(zip(rules, slot_masks)):
+            if not rule.in_window(int(round_idx)) or not slots.any():
+                continue
+            gen = None
+            if rule.attack == "gaussian":
+                # one draw for the whole stack a round (rank field 0); a
+                # slot the rule does not name discards its share
+                dev = next(iter(out.values())).device
+                gen = torch.Generator(device=dev).manual_seed(_attack_seed(
+                    plan.seed, rule_idx, 0, int(round_idx)))
+
+            def attack(s, g):
+                if rule.attack == "sign_flip":
+                    return g[None] - rule.factor * (s - g[None])
+                if rule.attack == "scale":
+                    return g[None] + rule.factor * (s - g[None])
+                if rule.attack == "gaussian":
+                    return s + rule.sigma * torch.randn(
+                        s.shape, generator=gen, dtype=s.dtype,
+                        device=s.device)
+                if rule.attack == "nan":
+                    return torch.full_like(s, float("nan"))
+                # shift: per-client, per-entry std (ddof 0) of its update
+                u = s - g[None]
+                return s - rule.z * torch.std(
+                    u.reshape(u.shape[0], -1), dim=1, correction=0).reshape(
+                        (-1,) + (1,) * (s.ndim - 1)).to(s.dtype)
+
+            for key, s in out.items():
+                if not s.is_floating_point():
+                    continue
+                mask = torch.as_tensor(slots[:s.shape[0]], device=s.device)
+                out[key] = torch.where(
+                    mask.reshape((s.shape[0],) + (1,) * (s.ndim - 1)),
+                    attack(s, global_state[key]).to(s.dtype), s)
+        return out
+
+    return injector

@@ -12,10 +12,17 @@ dropped, counted and quarantined, never averaged.
 
 Uploads arrive as wire leaves (flax layout) and are staged on the server's
 device in the port's layout as they arrive (``_stage_upload``), the
-counterpart of the reference's ``jax.device_put``. Robust estimators, an
-armed norm gate, sharded server state, pairwise summation and fused
-ingest are queued in ROADMAP.md (queue A, items 7 and 12); passing one
-raises.
+counterpart of the reference's ``jax.device_put``.
+
+Byzantine-robust aggregation (core/robust_agg.py): ``aggregator=`` swaps
+the weighted mean for a robust estimator, ``sanitize=`` arms the
+norm-outlier rule, and ``sum_assoc='pairwise'`` folds with the canonical
+pairwise association — with an aggregator, through the two-phase
+evidence/verdict composition (``make_verdict_estimator``). The server runs
+the same ``gated_aggregate`` as the engine over the same stacked state
+layout, so the two runtimes' quarantine ledgers agree entry for entry.
+Sharded server state (item 12) and fused ingest (item 7) are queued in
+ROADMAP.md, queue A; passing one raises.
 """
 
 from __future__ import annotations
@@ -32,9 +39,12 @@ from fedml_tpu_torch.convert import num_heads_of
 from fedml_tpu_torch.core.client_data import FederatedData, batch_global
 from fedml_tpu_torch.core.local import Task, make_eval_fn
 from fedml_tpu_torch.core.robust_agg import (
+    DEFAULT_NORM_MULT,
     REASON_OK,
     QuarantineLedger,
     gated_aggregate,
+    make_robust_aggregator,
+    make_verdict_estimator,
 )
 from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.device import resolve_device
@@ -63,13 +73,12 @@ class FedAvgAggregator:
                  sum_assoc: str = "auto",
                  fused_agg: bool = False, device=None):
         refuse_unported("FedAvgAggregator", {
-            "aggregator": (aggregator is not None, 7),
-            "aggregator_params": (aggregator_params is not None, 7),
-            "sanitize": (sanitize not in (None, False), 7),
             "shard_server_state": (bool(shard_server_state), 12),
             "partition_rules": (partition_rules is not None, 12),
-            "sum_assoc": (sum_assoc != "auto", 7),
             "fused_agg": (bool(fused_agg), 7)})
+        if sum_assoc not in ("auto", "pairwise"):
+            raise ValueError(f"sum_assoc={sum_assoc!r} "
+                             "(expected 'auto' or 'pairwise')")
         if cfg.sampling != "uniform":
             # this runtime's client_sampling + weighted aggregate implement
             # the uniform scheme only — refuse rather than silently ignore
@@ -103,6 +112,31 @@ class FedAvgAggregator:
         self.history: list[dict] = []
         self.quarantine = QuarantineLedger()
         self._last_flush: dict | None = None
+        # gate -> estimator -> suspected merge -> all-rejected fallback,
+        # the composition the engine runs. The gate runs every aggregate:
+        # its norm rule arms with ``sanitize`` (None = on iff an aggregator
+        # is set), the non-finite rule is unconditional (the float wire
+        # ships the sender's bits verbatim)
+        robust = verdict_fn = None
+        if aggregator is not None:
+            build = (make_verdict_estimator if sum_assoc == "pairwise"
+                     else make_robust_aggregator)
+            fn = build(aggregator, n=worker_num, **(aggregator_params or {}))
+            if sum_assoc == "pairwise":
+                verdict_fn = fn
+            else:
+                robust = fn
+        if sanitize is None:
+            sanitize = aggregator is not None
+        self._sanitize_mult = (
+            None if sanitize is False
+            else DEFAULT_NORM_MULT if sanitize is True else float(sanitize))
+        self.sum_assoc = sum_assoc
+        self._gagg_kw = dict(
+            robust_fn=robust, verdict_fn=verdict_fn,
+            norm_mult=(float("inf") if self._sanitize_mult is None
+                       else self._sanitize_mult),
+            pairwise=sum_assoc == "pairwise" and verdict_fn is None)
 
     def get_global_model_params(self):
         return pack_pytree(self.net, self.num_heads)
@@ -174,9 +208,10 @@ class FedAvgAggregator:
         return rec
 
     def _aggregate_core(self):
-        """Gate + weighted mean + ledger, updating ``self.net``: the
+        """Gate + estimator + ledger, updating ``self.net``: the
         non-finite rule always (the float wire path performs no clamping),
-        an all-rejected round keeps the global model."""
+        suspected and rejected slots into the ledger, an all-rejected
+        round keeps the global model."""
         t0 = time.perf_counter()
         ranks = sorted(self.model_dict)
         if not ranks:
@@ -189,7 +224,7 @@ class FedAvgAggregator:
                                dtype=torch.float32, device=self.device)
         with float32_compute():
             avg, _, reasons = gated_aggregate(stacked, self.net, weights,
-                                              norm_mult=float("inf"))
+                                              **self._gagg_kw)
         reasons = reasons.cpu().numpy()
         if reasons.any():
             # slot i holds worker index ranks[i] -> 1-based rank + the

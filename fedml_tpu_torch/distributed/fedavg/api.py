@@ -28,9 +28,13 @@ from fedml_tpu_torch.distributed.fedavg.trainer import DistributedTrainer
 from fedml_tpu_torch.distributed.utils import backend_kwargs, launch_simulated
 
 
-def init_server(dataset, task, cfg, size, backend, device=None, **kw):
+def init_server(dataset, task, cfg, size, backend, device=None,
+                agg_kw: dict | None = None, **kw):
+    """The server rank: ``agg_kw`` goes to the FedAvgAggregator (its
+    ``aggregator`` / ``aggregator_params`` / ``sanitize`` / ``sum_assoc``),
+    ``kw`` to the server manager."""
     aggregator = FedAvgAggregator(dataset, task, cfg, worker_num=size - 1,
-                                  device=device)
+                                  device=device, **(agg_kw or {}))
     return FedAvgServerManager(aggregator, rank=0, size=size, backend=backend, **kw)
 
 
@@ -113,6 +117,14 @@ def run_simulated(
     uplinks degrade to elastic partial aggregation instead of a hang. A
     crash rule naming rank 0 (a server restart) needs the checkpoint and
     WAL recovery path, which is not ported yet.
+
+    ``adversary_plan``: a ``fedml_tpu_torch.chaos.AdversaryPlan`` — the
+    listed worker ranks upload model-space attacks on their scheduled
+    rounds; pair with ``aggregator=`` ('median', 'krum', ...,
+    ``aggregator_params`` such as ``{"f": 2}``), the ``sanitize`` gate and
+    ``sum_assoc`` ('pairwise' with an aggregator: the two-phase
+    evidence/verdict composition) for a replayable attack-vs-defense run;
+    the verdicts land in the returned aggregator's ``quarantine``.
 
     ``update_codec``: delta/quantized uplink tier ('delta' | 'delta-int8'
     | 'delta-sign1', comm/delta.py) with client-side error feedback

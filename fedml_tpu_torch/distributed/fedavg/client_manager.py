@@ -18,9 +18,12 @@ local_fit also packs the fit's result to the host, the port's ends when
 the fit's kernels have (a device sync), and pack carries ``pack_pytree``
 (the copy to the host, the flax layout) and the uplink tier's encode.
 
-The reference's adversary plans, edge tiers, fleet digests, async
-dispatch waves and crash-recovery epochs are queued in ROADMAP.md (queue
-A, items 7-8): a rank asked for one raises.
+A Byzantine rank (``adversary_plan``, chaos/adversary.py) perturbs its
+wire leaves after the honest fit and before the uplink tier encodes them
+(``perturb_leaves``), so every tier and every server defense sees what an
+attacker would send. The reference's edge tiers (``server_rank``, item
+7), fleet digests, async dispatch waves and crash-recovery epochs (item
+8) are queued in ROADMAP.md, queue A: a rank asked for one raises.
 """
 
 from __future__ import annotations
@@ -53,10 +56,15 @@ class FedAvgClientManager(ClientManager):
                  error_feedback: bool = True, server_rank: int = 0,
                  adversary_rank: int | None = None, **kw):
         refuse_unported("FedAvgClientManager", {
-            "adversary_plan": (adversary_plan is not None, 7),
-            "server_rank": (server_rank != 0, 7),
-            "adversary_rank": (adversary_rank is not None, 7)})
+            "server_rank": (server_rank != 0, 7)})
         self.trainer = trainer
+        # model-space adversary: when this rank is in the plan's schedule
+        # its upload is perturbed after the honest fit. ``adversary_rank``
+        # is the 1-based cohort rank the plan matches (default: this
+        # transport rank, the flat topology's identity)
+        self.adversary_plan = adversary_plan
+        self.adversary_rank = (int(adversary_rank) if adversary_rank
+                               is not None else int(rank))
         self.round_idx = 0
         self.server_rank = 0
         # uplinks are encoded and sent on a FIFO worker, not the dispatch
@@ -216,6 +224,12 @@ class FedAvgClientManager(ClientManager):
                       self.server_rank)
         with span("pack"):
             wire_leaves = self.trainer.wire_leaves()
+            if self.adversary_plan is not None:
+                from fedml_tpu_torch.chaos.adversary import perturb_leaves
+
+                wire_leaves = perturb_leaves(
+                    self.adversary_plan, wire_leaves, global_leaves,
+                    self.adversary_rank, self.round_idx)
             self._encode_upload(msg, wire_leaves, global_leaves)
             msg.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, local_sample_num)
             msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx)

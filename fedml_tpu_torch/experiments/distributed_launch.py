@@ -45,7 +45,6 @@ _UNPORTED_FLAGS = {
     "secagg_quant_scale": ("--secagg_quant_scale", float, 2.0 ** 16, 8),
     "secagg_max_abs": ("--secagg_max_abs", float, 4.0, 8),
     "edges": ("--edges", int, 0, 7),
-    "sum_assoc": ("--sum_assoc", str, "auto", 7),
     "ckpt_dir": ("--ckpt_dir", str, None, 8),
     "supervise": ("--supervise", int, 0, 8),
     "async_buffer_k": ("--async_buffer_k", int, None, 8),
@@ -53,11 +52,8 @@ _UNPORTED_FLAGS = {
     "staleness_bound": ("--staleness_bound", int, None, 8),
     "buffer_deadline_s": ("--buffer_deadline_s", float, None, 8),
     "heartbeat_max_age_s": ("--heartbeat_max_age_s", float, None, 8),
-    "aggregator": ("--aggregator", str, None, 7),
-    "byzantine_f": ("--byzantine_f", int, None, 7),
     "shard_server_state": ("--shard_server_state", int, 0, 12),
     "partition_rules": ("--partition_rules", str, None, 12),
-    "adversary_plan": ("--adversary_plan", str, None, 7),
     "metrics_port": ("--metrics_port", int, None, 8),
     "fleet": ("--fleet", int, 0, 8),
     "fleet_job": ("--fleet_job", str, "", 8),
@@ -178,6 +174,37 @@ def add_args(p: argparse.ArgumentParser):
                         "hold r-1) with a dense fallback for the others; "
                         "delta payloads ride the frame lossless, so pair "
                         "with --compression zlib, not f16/q8")
+    p.add_argument("--aggregator", type=str, default=None,
+                   choices=["mean", "median", "trimmed_mean", "krum",
+                            "multi_krum", "geometric_median"],
+                   help="rank 0: Byzantine-robust aggregation strategy "
+                        "(core/robust_agg.py) replacing the weighted mean, "
+                        "fronted by the sanitation gate (non-finite + "
+                        "norm-outlier rejection with survivor reweighting; "
+                        "rejections land in the quarantine ledger / "
+                        "fed_updates_rejected_total)")
+    p.add_argument("--byzantine_f", "--byzantine-f", dest="byzantine_f",
+                   type=int, default=None,
+                   help="Byzantine budget f for krum/multi_krum/"
+                        "trimmed_mean (default (n-3)//2; krum needs "
+                        "n >= 2f+3)")
+    p.add_argument("--sum_assoc", "--sum-assoc", dest="sum_assoc",
+                   type=str, default="auto", choices=["auto", "pairwise"],
+                   help="rank 0: weighted-mean summation association. "
+                        "'pairwise' = the canonical balanced-binary fold "
+                        "(robust_agg.pairwise_sum); with --aggregator, the "
+                        "two-phase evidence/verdict composition; 'auto' "
+                        "keeps the tensordot association")
+    p.add_argument("--adversary-plan", "--adversary_plan",
+                   dest="adversary_plan", type=str, default=None,
+                   help="model-space adversary schedule "
+                        "(fedml_tpu_torch/chaos/adversary.py): a JSON file "
+                        "path or inline JSON {seed, rules:[{attack, ranks, "
+                        "rounds, ...}]} — the listed worker ranks upload "
+                        "sign_flip/scale/gaussian/nan/shift attacks on "
+                        "their scheduled rounds. Pass the SAME plan to "
+                        "every rank (each client applies only its own "
+                        "rules); pair with --aggregator on rank 0")
     p.add_argument("--error_feedback", "--error-feedback",
                    dest="error_feedback", type=int, default=1,
                    help="client-side error-feedback residual for the "
@@ -201,6 +228,16 @@ def refuse_unported_flags(args) -> None:
             raise NotImplementedError(
                 f"{flag}={getattr(args, dest)!r} is not ported yet: "
                 f"ROADMAP.md queue A, item {item}")
+
+
+def _load_adversary_plan(spec: str | None):
+    """--adversary-plan: a JSON file path or inline JSON (the dual form
+    --chaos-plan takes)."""
+    if not spec:
+        return None
+    from fedml_tpu_torch.chaos import AdversaryPlan
+
+    return AdversaryPlan.from_spec(spec)
 
 
 def _drain_broker(broker, timeout_s: float = 60.0) -> None:
@@ -314,8 +351,16 @@ def main(argv=None):
             # critical-path round records) lands next to trace.json
             telemetry = Telemetry(log_dir=args.telemetry_dir or args.trace_dir,
                                   trace_dir=args.trace_dir)
+        # robust aggregation: the aggregator's options, as the reference
+        # wires them (--byzantine_f only reaches an --aggregator)
+        agg_kw: dict = {"sum_assoc": args.sum_assoc}
+        if args.aggregator:
+            agg_kw["aggregator"] = args.aggregator
+            if args.byzantine_f is not None:
+                agg_kw["aggregator_params"] = {"f": args.byzantine_f}
         mgr = init_server(data, task, cfg, args.world_size, backend,
-                          device=device, round_timeout_s=args.round_timeout_s,
+                          device=device, agg_kw=agg_kw,
+                          round_timeout_s=args.round_timeout_s,
                           delta_broadcast=bool(args.delta_broadcast),
                           telemetry=telemetry, **backend_kw)
     else:
@@ -324,6 +369,8 @@ def main(argv=None):
                           sparsify_ratio=args.sparsify_ratio or None,
                           update_codec=args.update_codec,
                           error_feedback=bool(args.error_feedback),
+                          adversary_plan=_load_adversary_plan(
+                              args.adversary_plan),
                           **backend_kw)
     try:
         mgr.run()

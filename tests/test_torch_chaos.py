@@ -15,6 +15,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from fedml_tpu import chaos as jax_chaos
 from fedml_tpu.algorithms.fedavg import FedAvgConfig as JaxConfig
@@ -54,14 +55,16 @@ def test_copied_modules_match_the_reference(path):
 
 def test_adversary_host_half_is_the_reference_and_in_graph_refuses():
     """adversary.py is the reference's up to its in-graph injector, which
-    raises naming its ROADMAP item (the port's engine takes no
-    adversary)."""
+    the port rewrites in torch (held to the JAX injector by
+    tests/test_torch_robust_agg.py): it no longer refuses, and an empty
+    plan leaves the stack as it was."""
     cut = "# --------------------------------------------------------------- in-graph"
     ref = copy_of("chaos/adversary.py")
     port = (ROOT / "fedml_tpu_torch/chaos/adversary.py").read_text()
     assert port[:port.index(cut)] == ref[:ref.index(cut)]
-    with pytest.raises(NotImplementedError, match=r"queue A, item 7"):
-        chaos.adversary.make_in_graph_injector(chaos.AdversaryPlan(), 4)
+    inject = chaos.adversary.make_in_graph_injector(chaos.AdversaryPlan(), 4)
+    st = {"w": torch.randn(4, 3)}
+    assert torch.equal(inject(st, {"w": torch.zeros(3)}, 0)["w"], st["w"])
 
 
 def test_fault_decisions_bitwise_equal_to_jax():

@@ -5,9 +5,9 @@ every frame codec and the JAX package's run_simulated from the same
 weights; torch and JAX ranks share one gRPC job both ways round; elastic
 partial aggregation, the non-finite quarantine (ledger equal to the JAX
 package's) and the undecodable-upload rule; the launcher as three real
-processes over MQTT; the unported options; and the two thread-safety
-repairs the ranks-as-threads runtime needs (the float32 policy, a task's
-module calls)."""
+processes over MQTT; the unported options, and the robust ones running;
+and the two thread-safety repairs the ranks-as-threads runtime needs (the
+float32 policy, a task's module calls)."""
 
 import json
 import os
@@ -40,7 +40,7 @@ from fedml_tpu.models.linear import LogisticRegression as JaxLR
 from fedml_tpu_torch import convert
 from fedml_tpu_torch.algorithms import FedAvgAPI, FedAvgConfig
 from fedml_tpu_torch.algorithms import fedavg as port_fedavg
-from fedml_tpu_torch.chaos import FaultPlan
+from fedml_tpu_torch.chaos import AdversaryPlan, FaultPlan
 from fedml_tpu_torch.comm.loopback import LoopbackCommManager
 from fedml_tpu_torch.comm.message import pack_pytree, set_wire_codec
 from fedml_tpu_torch.core.tasks import classification_task
@@ -394,13 +394,11 @@ def test_launcher_runs_the_wire_flags(tmp_path):
     dict(chaos_plan=FaultPlan.from_json(
         {"seed": 0, "rules": [{"fault": "crash", "ranks": [0],
                                "rounds": [1, 2]}]})),
-    dict(aggregator="median"),
-    dict(aggregator_params={"f": 1}), dict(sanitize=True),
-    dict(adversary_plan=object()), dict(shard_server_state=True),
+    dict(shard_server_state=True),
     dict(partition_rules=[]), dict(async_buffer_k=2),
     dict(staleness="poly:0.5"), dict(staleness_bound=1),
     dict(buffer_deadline_s=1.0), dict(buffer_capacity=4),
-    dict(heartbeat_max_age_s=1.0), dict(sum_assoc="pairwise"),
+    dict(heartbeat_max_age_s=1.0),
     dict(edges=2), dict(fused_agg=True), dict(churn_trace=object()),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_run_simulated_options_raise(setup, option):
@@ -409,10 +407,32 @@ def test_unported_run_simulated_options_raise(setup, option):
                       device="cpu", **option)
 
 
+@pytest.mark.parametrize("option", [
+    dict(aggregator="median"),
+    dict(aggregator="krum", aggregator_params={"f": 0}),
+    dict(sanitize=True), dict(sanitize=2.5),
+    dict(adversary_plan=AdversaryPlan.from_json(
+        {"seed": 0, "rules": [{"attack": "scale", "ranks": [2]}]})),
+    dict(sum_assoc="pairwise"),
+    dict(aggregator="trimmed_mean", sum_assoc="pairwise"),
+], ids=["aggregator", "aggregator_params", "sanitize", "sanitize_mult",
+        "adversary_plan", "sum_assoc", "sum_assoc_verdicts"])
+def test_robust_run_simulated_options_run(setup, option):
+    """The robust options are ported: each runs a clean 2-round job to a
+    finite model and history (sanitize and the estimators behind it find
+    nothing to reject in honest rounds but the scaled rank)."""
+    agg = run_simulated(setup["data"], setup["task"],
+                        FedAvgConfig(**dict(CFG, comm_round=2)), device="cpu",
+                        job_id=f"t-torch-robust-{sorted(option)}", **option)
+    assert [r["round"] for r in agg.history] == [0, 1]
+    assert all(bool(torch.isfinite(v).all()) for v in agg.net.values())
+    assert agg.sum_assoc == option.get("sum_assoc", "auto")
+
+
 @pytest.mark.parametrize("flag", [
     ["--algo", "fedopt"], ["--edges", "2"], ["--ckpt_dir", "/tmp/x"],
-    ["--async_buffer_k", "2"], ["--aggregator", "median"],
-    ["--adversary-plan", "{}"], ["--fused_agg", "1"], ["--shard_server_state", "1"], ["--supervise", "1"],
+    ["--async_buffer_k", "2"], ["--fused_agg", "1"],
+    ["--shard_server_state", "1"], ["--supervise", "1"],
 ], ids=lambda f: f[0])
 def test_unported_launcher_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A, item"):
