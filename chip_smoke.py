@@ -95,6 +95,27 @@ Phases, in order:
            the two-phase median (sum_assoc='pairwise'): ledgers equal to
            the engine's, each round within 1e-2 of the engine's fit with
            the same composition from the wire's entering weights
+  hier     the hierarchical edge tier at main's configuration, not cut: 1
+           root, 5 edge aggregator ranks of 2 cohort slots, 10 workers:
+           (a) edge partials + the root's combine on one stacked [10, ...]
+           CNN update (robust's stack, one slot at weight 0) bitwise the
+           flat pairwise fold, and the two-phase split (per-block evidence,
+           the cohort's verdicts, per-block folds, the combine) bitwise the
+           flat two-phase flush with the krum and medoid verdicts, values
+           and reason codes; one edge's partial, the combine and the flat
+           fold timed; (b) one client fitted twice from the same weights
+           (are the fits repeatable bit for bit?), then 3 rounds of
+           run_simulated(edges=5) over loopback beside the flat
+           sum_assoc='pairwise' run from the same weights: params bitwise
+           if the fits repeat, else within 1e-2 a round, ledgers equal,
+           fan-in 5 a round, round walls and the root's ingress bytes;
+           (c) the same under robust's plan with krum and with median
+           through the two-phase protocol: ledgers equal and naming the
+           attackers, the evidence and verdict bytes within their budgets,
+           the hier record's rejections and verdict round trips; (d) edge
+           rank 1 crashed (sanitize, 3 s deadline, 6 rounds): its cohort
+           ranks ledgered edge_lost in each lost round, fan-in 4 and back
+           to 5, each round's num_samples the reporting blocks' mass
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -125,7 +146,7 @@ from fedml_tpu_torch.ops import loader
 fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
 PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
-          "wire", "robust")
+          "wire", "robust", "hier")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -2080,6 +2101,302 @@ def phase_robust(report):
     _robust_converge(engines, l0)
     if any(fa.LAUNCHES.values()):
         raise AssertionError(f"flash kernels launched by the robust phase: "
+                             f"{fa.LAUNCHES}")
+
+
+# The hierarchical edge tier at MAIN_CFG (distributed/fedavg/hierarchy.py):
+# 1 root, HIER_EDGES edge aggregator ranks of 2 cohort slots each (a power
+# of two), the 10 workers. Tree == flat pairwise holds bitwise where both
+# runs feed the folds the same client updates: the fits are probed for
+# repeatability first, and (b) and (c) hold the runs bitwise if one client
+# fitted twice from the same weights gives the same bits, else to
+# TOL_ROUND a round with equal ledgers.
+HIER_EDGES = 5
+HIER_ROUNDS = 3
+# (c)'s two-phase budgets a round: evidence sketch_dim + 3 float32 scalars
+# a client, verdicts a weight and a reason code a slot, each plus 2 KiB of
+# frame overhead an edge (test_hierarchy_robust.py's budget)
+HIER_EVIDENCE_BUDGET = lambda k, e, sk: k * 4 * (sk + 3) + e * 2048
+HIER_VERDICT_BUDGET = lambda k, e: k * 8 + e * 2048
+# (d): edge rank 1 dark in round 1 (rule windows are half-open); the root
+# marks it undeliverable and reprobes it every 4 rounds, so its block is
+# lost in rounds 1-4 and back in round 5
+HIER_CRASH = {"seed": 5, "rules": [
+    {"fault": "crash", "ranks": [1], "rounds": [1, 2]}]}
+HIER_CRASH_ROUNDS = 6
+HIER_LOST_ROUNDS = (1, 2, 3, 4)
+HIER_TIMEOUT_S = 3.0
+
+
+def _bitwise(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k].view(torch.int32), b[k].view(torch.int32))
+               for k in b)
+
+
+def _hier_folds(start):
+    """(a): the edge tier's folds alone on one stacked [10, ...] CNN update
+    on the card (robust's stack: slots 2 and 5 x10, slot 7 NaN; slot 4 at
+    weight 0): edge partials over the 5 blocks + the root's combine
+    against the flat pairwise fold, and the two-phase split against the
+    flat two-phase flush with the krum and medoid verdicts, all bitwise,
+    values and reason codes; the pieces timed."""
+    from fedml_tpu_torch.algorithms.fedavg import float32_compute
+    from fedml_tpu_torch.core import robust_agg as ra
+
+    stacked, w = _robust_stack(start)
+    w[4] = 0.0
+    st, g, w = _state_on(stacked, "cuda"), _state_on(start, "cuda"), w.cuda()
+    K = MAIN_CFG["client_num_per_round"]
+    C = K // HIER_EDGES
+    blocks = [slice(s, s + C) for s in range(0, K, C)]
+    rows = lambda b: {k: v[b] for k, v in st.items()}
+    mult = ra.DEFAULT_NORM_MULT
+
+    def combine(parts):
+        stackp = {k: torch.stack([p[0][k] for p in parts]) for k in g}
+        return ra.combine_edge_partials(
+            stackp, torch.stack([p[1] for p in parts]), g)[0]
+
+    with float32_compute():
+        want, _, want_r = ra.gated_aggregate(st, g, w, pairwise=True,
+                                             norm_mult=float("inf"))
+        parts = [ra.edge_partial(rows(b), g, w[b]) for b in blocks]
+        got, got_r = combine(parts), torch.cat([p[2] for p in parts])
+        checks = [("edge partials + combine vs gated_aggregate(pairwise)",
+                   got, got_r, want, want_r)]
+        full = ra.update_evidence(st, g, w)
+        for name in ("krum", "median"):
+            vf = ra.make_verdict_estimator(name, n=K)
+            flat, _, flat_r = ra.gated_aggregate(st, g, w, verdict_fn=vf,
+                                                 norm_mult=mult)
+            ev = [ra.update_evidence(rows(b), g, w[b]) for b in blocks]
+            cohort = {k: torch.cat([e[k] for e in ev]) for k in ev[0]}
+            vw, r = ra.evidence_verdicts(cohort, vf, norm_mult=mult)
+            split = combine([ra.apply_verdicts(rows(b), g, vw[b])
+                             for b in blocks])
+            checks.append((f"two-phase split vs gated_aggregate(verdict_fn="
+                           f"{name})", split, r, flat, flat_r))
+        same_rows = {k: torch.equal(full[k], cohort[k])
+                     for k in ("norm", "finite", "sketch", "weight")}
+        ms = {"one edge's partial (2 slots)": _time_ms(
+                  lambda: ra.edge_partial(rows(blocks[0]), g, w[blocks[0]])),
+              "the root's combine (5 partials)": _time_ms(
+                  lambda: combine(parts)),
+              "the flat pairwise fold (10 slots, gate)": _time_ms(
+                  lambda: ra.gated_aggregate(st, g, w, pairwise=True,
+                                             norm_mult=float("inf")))}
+    for label, got, got_r, want, want_r in checks:
+        same = _bitwise(got, want)
+        print(f"hier: (a) {label}: values bitwise {same}, reasons "
+              f"{got_r.tolist()} vs {want_r.tolist()}")
+        if not same or got_r.tolist() != want_r.tolist():
+            raise AssertionError(f"(a) {label}: not bitwise")
+    print(f"hier: (a) per-block evidence rows bitwise the cohort's: "
+          f"{same_rows}")
+    print("hier: (a) " + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items())
+          + " (CUDA events, median of 7 x 5 calls)")
+    return ms
+
+
+def _fit_repeatable(data, cfg, start):
+    """(b)'s probe: one client of round 0 fitted twice on the card from the
+    seed's weights by a DistributedTrainer; are the two results bitwise
+    equal?"""
+    from fedml_tpu_torch.comm.message import pack_pytree
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.distributed.fedavg.trainer import DistributedTrainer
+    from fedml_tpu_torch.models import create_model
+
+    trainer = DistributedTrainer(
+        1, data, classification_task(create_model("cnn", output_dim=62)), cfg)
+    cid = int(sample_clients(0, cfg.client_num_in_total,
+                             cfg.client_num_per_round, cfg.seed)[0])
+    fits = []
+    for _ in range(2):
+        trainer.update_model(pack_pytree(start))
+        trainer.update_dataset(cid)
+        trainer.fit(0)
+        fits.append(_cpu_state(trainer.net))
+    same = _bitwise(fits[0], fits[1])
+    gap = max(float((fits[0][k] - fits[1][k]).abs().max()) for k in start)
+    print(f"hier: (b) determinism probe: client {cid} fitted twice from the "
+          f"same weights: bitwise equal {same} (max |diff| {gap:.3e})")
+    return same
+
+
+def _hier_run(data, cfg, job, plan=None, telemetry=None, **kw):
+    """run_simulated over loopback from the seed's weights (a tree with
+    ``edges=``, else flat): the aggregator, each round's new global model
+    on the CPU and wall (from the launch or the previous aggregate to the
+    end of this one), the wire bytes it moved by direction."""
+    from unittest import mock
+
+    from fedml_tpu_torch import chaos
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.distributed.fedavg import run_simulated
+    from fedml_tpu_torch.distributed.fedavg.aggregator import FedAvgAggregator
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.obs.metrics import REGISTRY
+
+    def by_direction():
+        fam = REGISTRY.snapshot().get("comm_bytes_total", {})
+        return {d: sum(v for k, v in fam.items() if f"direction={d}" in k)
+                for d in ("uplink", "downlink", "evidence", "verdict")}
+
+    stamps, nets, aggregate = [], [], FedAvgAggregator.aggregate
+
+    def stamped(self):
+        out = aggregate(self)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        nets.append(_cpu_state(self.net))
+        return out
+
+    task = classification_task(create_model("cnn", output_dim=62))
+    adv = None if plan is None else chaos.AdversaryPlan.from_json(plan)
+    before = by_direction()
+    with mock.patch.object(FedAvgAggregator, "aggregate", stamped):
+        t0 = time.perf_counter()
+        agg = run_simulated(data, task, cfg, job_id=job, adversary_plan=adv,
+                            telemetry=telemetry, **kw)
+    after = by_direction()
+    return dict(agg=agg, nets=nets,
+                walls=[b - a for a, b in zip([t0] + stamps, stamps)],
+                bytes={d: after[d] - before[d] for d in after})
+
+
+def _hier_pair(label, flat, tree, repeatable):
+    """The tree against its flat pairwise twin: ledgers equal entry for
+    entry; params bitwise every round if the fits repeat, else within
+    TOL_ROUND; root fan-in HIER_EDGES a round."""
+    rounds = len(tree["nets"])
+    gaps = [max(float((a[k] - b[k]).abs().max()) for k in a)
+            for a, b in zip(tree["nets"], flat["nets"])]
+    bits = [_bitwise(a, b) for a, b in zip(tree["nets"], flat["nets"])]
+    led, flat_led = (tree["agg"].quarantine.canonical(),
+                     flat["agg"].quarantine.canonical())
+    up = {n: r["bytes"]["uplink"] / rounds for n, r in (("tree", tree),
+                                                         ("flat", flat))}
+    print(f"hier: {label}: round walls tree "
+          + ", ".join(f"{w:.3f}" for w in tree["walls"]) + " s, flat "
+          + ", ".join(f"{w:.3f}" for w in flat["walls"]) + " s; root ingress"
+          f" (update frames to rank 0) a round: tree {up['tree']:.0f} B "
+          f"({HIER_EDGES} partials), flat {up['flat']:.0f} B "
+          f"({MAIN_CFG['client_num_per_round']} uploads); params tree vs "
+          "flat by round " + ", ".join(f"{g:.3e}" for g in gaps)
+          + f", bitwise {bits}; ledgers equal {led == flat_led} "
+          f"({len(led)} entries); fan-in {tree['agg'].fanin_history}")
+    if len(tree["nets"]) != len(flat["nets"]) or led != flat_led:
+        raise AssertionError(f"{label}: ledgers tree {led}, flat {flat_led}")
+    if tree["agg"].fanin_history != [HIER_EDGES] * rounds:
+        raise AssertionError(f"{label}: fan-in {tree['agg'].fanin_history}")
+    if repeatable and not all(bits):
+        raise AssertionError(f"{label}: the fits repeat, the runs are not "
+                             f"bitwise ({gaps})")
+    if max(gaps) > TOL_ROUND:
+        raise AssertionError(f"{label}: params {gaps} beyond {TOL_ROUND}")
+
+
+def _hier_crash(data, cfg):
+    """(d): edge rank 1 crashed (HIER_CRASH) under the two-phase gate
+    (sanitize) with the reference's crash test's deadline: its block's
+    cohort ranks 1 and 2 ledgered edge_lost in each lost round, fan-in
+    down to HIER_EDGES - 1 and back after the reprobe, each round's
+    num_samples the reporting blocks' sample mass (numpy, from
+    sample_clients and the packing cap)."""
+    from fedml_tpu_torch import chaos
+    from fedml_tpu_torch.core.sampling import sample_clients
+    from fedml_tpu_torch.distributed.fedavg.trainer import num_batches_for
+    from fedml_tpu_torch.obs.telemetry import Telemetry
+
+    ccfg = dataclasses.replace(cfg, comm_round=HIER_CRASH_ROUNDS)
+    tel = Telemetry()
+    run = _hier_run(data, ccfg, "smoke-hier-crash", edges=HIER_EDGES,
+                    sanitize=True, round_timeout_s=HIER_TIMEOUT_S,
+                    chaos_plan=chaos.FaultPlan.from_json(HIER_CRASH),
+                    telemetry=tel)
+    recs = [r for r in tel.events.sink.records if r.get("kind") == "round"]
+    tel.close()
+    agg, K = run["agg"], cfg.client_num_per_round
+    C = K // HIER_EDGES
+    cap = cfg.batch_size * num_batches_for(
+        max(len(v) for v in data.train_idx_map.values()), cfg)
+    lost = sorted((e[0], e[1], e[3]) for e in agg.quarantine.canonical()
+                  if e[2] == "edge_lost")
+    want_lost, masses = [], []
+    for r in range(HIER_CRASH_ROUNDS):
+        ids = sample_clients(r, cfg.client_num_in_total, K, cfg.seed)
+        gone = range(C) if r in HIER_LOST_ROUNDS else range(0)
+        want_lost += [(r, s + 1, int(ids[s])) for s in gone]
+        masses.append(float(sum(min(len(data.train_idx_map[int(ids[s])]),
+                                    cap) for s in range(K) if s not in gone)))
+    got_mass = [r["metrics"]["num_samples"] for r in recs]
+    fan = [HIER_EDGES - (r in HIER_LOST_ROUNDS)
+           for r in range(HIER_CRASH_ROUNDS)]
+    print(f"hier: (d) edge rank 1 crashed in round 1: fan-in "
+          f"{agg.fanin_history}; edge_lost {lost}; num_samples by round "
+          f"{got_mass} (numpy {masses}); round walls "
+          + ", ".join(f"{w:.3f}" for w in run["walls"]) + " s; rejected by "
+          f"edge {[r['hier']['rejected'] for r in recs]}")
+    if agg.fanin_history != fan or lost != sorted(want_lost):
+        raise AssertionError(f"(d): fan-in {agg.fanin_history} (want {fan}),"
+                             f" edge_lost {lost} (want {want_lost})")
+    if got_mass != masses:
+        raise AssertionError(f"(d): num_samples {got_mass}, numpy {masses}")
+    return run
+
+
+def phase_hier(report):
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
+    from fedml_tpu_torch.core.robust_agg import EVIDENCE_SKETCH_DIM
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.obs.telemetry import Telemetry
+
+    fa.reset_launches()
+    data = load_dataset("femnist", seed=0, uint8_pixels=True)
+    cfg = FedAvgConfig(comm_round=HIER_ROUNDS, frequency_of_the_test=1,
+                       **MAIN_CFG)
+    K = cfg.client_num_per_round
+    start = _cpu_state(_initial_state(data, cfg))
+    hier = report["hier"] = {"folds_ms": _hier_folds(start)}
+    hier["repeatable"] = rep = _fit_repeatable(data, cfg, start)
+    print("hier: (b), (c) hold the tree to the flat run "
+          + ("bitwise" if rep else f"within {TOL_ROUND:g} a round, ledgers "
+             "equal (the fits do not repeat bit for bit)"))
+    flat = _hier_run(data, cfg, "smoke-hier-flat", sum_assoc="pairwise")
+    tree = _hier_run(data, cfg, "smoke-hier-tree", edges=HIER_EDGES)
+    _hier_pair("(b) plain", flat, tree, rep)
+    for label, kw in (("krum", {"aggregator": "krum",
+                                "aggregator_params": {"f": 2}}),
+                      ("median", {"aggregator": "median"})):
+        flat = _hier_run(data, cfg, f"smoke-hier-flat-{label}",
+                         plan=ROBUST_PLAN, sum_assoc="pairwise", **kw)
+        tel = Telemetry()
+        tree = _hier_run(data, cfg, f"smoke-hier-tree-{label}",
+                         plan=ROBUST_PLAN, edges=HIER_EDGES, telemetry=tel,
+                         **kw)
+        recs = [r["hier"] for r in tel.events.sink.records
+                if r.get("kind") == "round"]
+        tel.close()
+        _hier_pair(f"(c) {label}", flat, tree, rep)
+        _named_every_round(tree["agg"].quarantine.entries(), HIER_ROUNDS)
+        ev, vd = (tree["bytes"][d] / HIER_ROUNDS for d in ("evidence",
+                                                           "verdict"))
+        ev_cap = HIER_EVIDENCE_BUDGET(K, HIER_EDGES, EVIDENCE_SKETCH_DIM)
+        vd_cap = HIER_VERDICT_BUDGET(K, HIER_EDGES)
+        print(f"hier: (c) {label}: evidence {ev:.0f} B a round (budget "
+              f"{ev_cap}), verdicts {vd:.0f} B (budget {vd_cap}); hier "
+              f"rejected by round {[r['rejected'] for r in recs]}, "
+              f"verdict_rtt_s {[r['verdict_rtt_s'] for r in recs]}")
+        if not (0 < ev <= ev_cap and 0 < vd <= vd_cap):
+            raise AssertionError(f"(c) {label}: evidence {ev} B, verdicts "
+                                 f"{vd} B a round")
+        hier[label] = dict(evidence_b=ev, verdict_b=vd,
+                           verdict_rtt_s=[r["verdict_rtt_s"] for r in recs])
+    _hier_crash(data, cfg)
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched by the hier phase: "
                              f"{fa.LAUNCHES}")
 
 

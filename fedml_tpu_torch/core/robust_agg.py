@@ -37,10 +37,13 @@ applied to the update flattened in the reference's leaf order and layout
 (``reference_order``). Distance matmuls must run in float32 (the engine and
 server call these under ``float32_compute``; TF32 moves selections).
 
+The edge tier of the hierarchical runtime (``nonfinite_gate``,
+``edge_partial``, ``combine_edge_partials``; distributed/fedavg/
+hierarchy.py) folds contiguous power-of-two blocks of cohort slots at the
+edges and their partials at the root, bitwise the flat pairwise fold.
+
 Still refused here: ``gated_aggregate(reshard_fn=)`` (the sharded server
-state, ROADMAP.md queue A item 12). The edge tier's ``nonfinite_gate``,
-``edge_partial`` and ``combine_edge_partials`` come with
-``distributed/fedavg/hierarchy.py`` (item 7).
+state, ROADMAP.md queue A item 12).
 """
 
 from __future__ import annotations
@@ -287,6 +290,53 @@ def pairwise_finalize(wsum: dict, total, global_state: dict) -> dict:
     den = total.clamp_min(1e-12)
     return {k: torch.where(alive, s / den, global_state[k].to(s.dtype))
             for k, s in wsum.items()}
+
+
+# ----------------------------------------------------- the edge tier
+# An edge aggregator (distributed/fedavg/hierarchy.py) folds its block of
+# C cohort slots into one partial; the root folds the E partials. Any
+# container of entries in a fixed order serves as a state here: an edge
+# passes its workers' wire leaves keyed by position, the root its state
+# dicts. With C a power of two the blocks are aligned sub-trees of the
+# canonical fold, so the tree's result is bitwise the flat pairwise one.
+
+def nonfinite_gate(stacked: dict, global_state: dict, weights):
+    """The per-slot half of ``sanitize_updates``, non-finite rejection
+    only: ``(clean_stacked, new_weights, reasons)``. A verdict depends on
+    its slot alone, so an edge gating its own children reaches the
+    verdicts a flat server reaches for those slots. The single-phase
+    tree's whole defense; the cohort statistics (norm rule, estimators)
+    cross the tiers through the two-phase evidence/verdict protocol."""
+    first = _first(stacked)
+    w = _as_weights(weights, first)
+    k = w.shape[0]
+    finite = torch.ones(k, dtype=torch.bool, device=first.device)
+    for s in stacked.values():
+        finite &= torch.isfinite(s).reshape(k, -1).all(1)
+    reasons = torch.where(finite, REASON_OK, REASON_NONFINITE)
+    reasons = torch.where(w > 0, reasons, REASON_OK).to(torch.int32)
+    new_w = torch.where(finite, w, torch.zeros_like(w))
+    return _replace_rejected(stacked, global_state, ~finite), new_w, reasons
+
+
+def edge_partial(stacked: dict, global_state: dict, weights):
+    """One edge's round step: the non-finite gate over its children, then
+    the canonical pairwise partial. Returns ``(wsum_state, total_weight,
+    reasons)``: the weighted SUM and its weight ride the uplink (the
+    division happens once, at the root), the reasons carry the per-child
+    verdicts into the root's ledger."""
+    clean, w, reasons = nonfinite_gate(stacked, global_state, weights)
+    wsum, total = pairwise_weighted_stats(clean, w)
+    return wsum, total, reasons
+
+
+def combine_edge_partials(partial_stack: dict, totals, global_state: dict):
+    """The root's combine: pairwise-fold the stacked ``[E, ...]`` edge
+    partials and the ``[E]`` totals, then ``pairwise_finalize``. Returns
+    ``(avg_state, total_weight)``."""
+    wsum = {k: pairwise_sum(s) for k, s in partial_stack.items()}
+    total = pairwise_sum(_as_weights(totals, _first(partial_stack)))
+    return pairwise_finalize(wsum, total, global_state), total
 
 
 # ----------------------------------------- two-phase robust (evidence/verdict)

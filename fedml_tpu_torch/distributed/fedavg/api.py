@@ -1,5 +1,6 @@
-"""Distributed FedAvg entry, port of fedml_tpu/distributed/fedavg/api.py
-(the flat topology): rank dispatch + the in-process simulation helper.
+"""Distributed FedAvg entry, port of fedml_tpu/distributed/fedavg/api.py:
+rank dispatch + the in-process simulation helper, flat or (``edges=``)
+the hierarchical 2-tier topology of hierarchy.py.
 
 Mirror of fedml_api/distributed/fedavg/FedAvgAPI.py:13-75: rank 0 becomes
 the server (aggregator + server manager), rank k the client (trainer +
@@ -135,9 +136,58 @@ def run_simulated(
     round records (and, when it traces, the stitched cross-rank timeline)
     into.
 
+    ``edges``: the hierarchical 2-tier topology (hierarchy.py): 1 root +
+    ``edges`` edge aggregator ranks + the workers, root fan-in O(edges),
+    bitwise the flat ``sum_assoc='pairwise'`` run; ``aggregator=`` /
+    ``sanitize=`` arm its two-phase cross-tier gating. Returns the root's
+    aggregator (also ``.fanin_history``).
+
     Each option the port does not run yet raises in the constructor it is
     passed to."""
-    refuse_unported("run_simulated", {"edges": (bool(edges), 7)})
+    if edges:
+        # the dense synchronous protocol is the tree's contract: these
+        # modes are not wired through the edge tier
+        unsupported = {
+            "sparsify_ratio": sparsify_ratio, "update_codec": update_codec,
+            "delta_broadcast": delta_broadcast or None,
+            "async_buffer_k": async_buffer_k,
+            "shard_server_state": shard_server_state or None,
+            "heartbeat_max_age_s": heartbeat_max_age_s,
+            "sum_assoc": None if sum_assoc == "auto" else sum_assoc,
+        }
+        bad = [k for k, v in unsupported.items() if v is not None]
+        if bad:
+            raise ValueError(
+                f"edges={edges} (hierarchical topology) does not compose "
+                f"with {bad} — run the flat topology for those modes "
+                "(tree aggregation is pairwise by construction)")
+        if churn_trace is not None:
+            raise ValueError(
+                "churn_trace= here is RANK-level scheduled availability, "
+                "and the tree's edge/worker ranks are infrastructure "
+                "slots, not devices — drive client-level churn through "
+                "cfg.churn_trace (cohort sampling), which composes with "
+                "edges")
+        refuse_unported("run_simulated(edges=)", {
+            "fused_agg": (bool(fused_agg), 7),
+            "partition_rules": (partition_rules is not None, 12),
+            "staleness": (staleness != "constant", 8),
+            "staleness_bound": (staleness_bound is not None, 8),
+            "buffer_deadline_s": (buffer_deadline_s is not None, 8),
+            "buffer_capacity": (buffer_capacity is not None, 8)})
+        from fedml_tpu_torch.distributed.fedavg.hierarchy import (
+            run_simulated_hierarchical,
+        )
+
+        return run_simulated_hierarchical(
+            dataset, task, cfg, edges=edges, backend=backend,
+            job_id=job_id, base_port=base_port, broker_host=broker_host,
+            broker_port=broker_port, ckpt_dir=ckpt_dir,
+            telemetry=telemetry, chaos_plan=chaos_plan,
+            round_timeout_s=round_timeout_s, adversary_plan=adversary_plan,
+            warmup=warmup, aggregator=aggregator,
+            aggregator_params=aggregator_params, sanitize=sanitize,
+            device=device)
     from fedml_tpu_torch import chaos as _chaos
 
     size = cfg.client_num_per_round + 1

@@ -1,7 +1,7 @@
 """FedAvg client manager, port of fedml_tpu/distributed/fedavg/client_manager.py
 (the synchronous protocol): on INIT/SYNC, take the broadcast model (dense,
 or a round delta against the held base) and the assigned client index, run
-the local fit, upload to rank 0 (dense, top-k or a delta tier).
+the local fit, upload to the server rank (dense, top-k or a delta tier).
 
 Mirror of fedml_api/distributed/fedavg/FedAvgClientManager.py (:66-75).
 The upload is encoded and sent on a FIFO sender thread
@@ -21,9 +21,12 @@ the fit's kernels have (a device sync), and pack carries ``pack_pytree``
 A Byzantine rank (``adversary_plan``, chaos/adversary.py) perturbs its
 wire leaves after the honest fit and before the uplink tier encodes them
 (``perturb_leaves``), so every tier and every server defense sees what an
-attacker would send. The reference's edge tiers (``server_rank``, item
-7), fleet digests, async dispatch waves and crash-recovery epochs (item
-8) are queued in ROADMAP.md, queue A: a rank asked for one raises.
+attacker would send. In the hierarchical topology (hierarchy.py) a
+worker's ``server_rank`` is its edge aggregator: uploads go there, and
+``adversary_rank`` is its cohort slot + 1, so one plan drives a flat and a
+tree run alike. The reference's fleet digests, async dispatch waves and
+crash-recovery epochs (item 8) are queued in ROADMAP.md, queue A: a rank
+asked for one raises.
 """
 
 from __future__ import annotations
@@ -36,7 +39,6 @@ import torch
 
 from fedml_tpu_torch.comm.managers import ClientManager
 from fedml_tpu_torch.comm.message import Message
-from fedml_tpu_torch.distributed.fedavg.aggregator import refuse_unported
 from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage
 from fedml_tpu_torch.distributed.fedavg.trainer import DistributedTrainer
 from fedml_tpu_torch.obs.tracing import TRACE_KEY, ClientSpanBuffer
@@ -55,8 +57,6 @@ class FedAvgClientManager(ClientManager):
                  adversary_plan=None, update_codec: str | None = None,
                  error_feedback: bool = True, server_rank: int = 0,
                  adversary_rank: int | None = None, **kw):
-        refuse_unported("FedAvgClientManager", {
-            "server_rank": (server_rank != 0, 7)})
         self.trainer = trainer
         # model-space adversary: when this rank is in the plan's schedule
         # its upload is perturbed after the honest fit. ``adversary_rank``
@@ -66,7 +66,8 @@ class FedAvgClientManager(ClientManager):
         self.adversary_rank = (int(adversary_rank) if adversary_rank
                                is not None else int(rank))
         self.round_idx = 0
-        self.server_rank = 0
+        # where uploads go: rank 0, or this worker's edge in the tree
+        self.server_rank = int(server_rank)
         # uplinks are encoded and sent on a FIFO worker, not the dispatch
         # loop's thread; a send failure still kills the manager visibly
         # (re-raised from the next submit / finish)

@@ -407,6 +407,11 @@ class FedAvgServerManager(ServerManager):
                 return
             self._advance_round()
 
+    def _round_record_extra(self) -> dict:
+        """Extra blocks a subclass rides on the telemetry round record
+        (the hierarchical root adds its ``hier`` block); none here."""
+        return {}
+
     def _advance_round(self):
         """Aggregate what's collected, eval, and start the next round (or
         finish). Caller holds _round_lock."""
@@ -441,7 +446,8 @@ class FedAvgServerManager(ServerManager):
                        and hist[-1].get("round") == self.round_idx else None),
                 **({"critical_path": cp} if cp else {}),
                 **({"quarantine": q} if q else {}),
-                agg=self.aggregator.agg_record())
+                agg=self.aggregator.agg_record(),
+                **self._round_record_extra())
             self._tracer.next_round()
         else:
             global_params = self.aggregator.aggregate()

@@ -12,7 +12,9 @@ own ``--rank``:
 Routing: --ip_config CSV (receiver_id,ip — grpc_ipconfig.csv parity) or
 everything on 127.0.0.1 by default. Rank 0 prints the eval history as one
 JSON line when the job completes; the worker count must be
-client_num_per_round (one process per sampled client).
+client_num_per_round (one process per sampled client). With ``--edges E``
+ranks 1..E are edge aggregators and the workers follow them
+(distributed/fedavg/hierarchy.py).
 
 Every rank runs on the CUDA device unless ``--device`` names another (the
 one flag the reference lacks: the port's device rule). The reference's
@@ -44,7 +46,6 @@ _UNPORTED_FLAGS = {
     "secagg_threshold_t": ("--secagg_threshold_t", int, None, 8),
     "secagg_quant_scale": ("--secagg_quant_scale", float, 2.0 ** 16, 8),
     "secagg_max_abs": ("--secagg_max_abs", float, 4.0, 8),
-    "edges": ("--edges", int, 0, 7),
     "ckpt_dir": ("--ckpt_dir", str, None, 8),
     "supervise": ("--supervise", int, 0, 8),
     "async_buffer_k": ("--async_buffer_k", int, None, 8),
@@ -188,6 +189,22 @@ def add_args(p: argparse.ArgumentParser):
                    help="Byzantine budget f for krum/multi_krum/"
                         "trimmed_mean (default (n-3)//2; krum needs "
                         "n >= 2f+3)")
+    p.add_argument("--edges", type=int, default=0,
+                   help="hierarchical 2-tier topology (distributed/fedavg/"
+                        "hierarchy.py): ranks 1..E become EDGE AGGREGATORS "
+                        "that fold their worker block's gated uplinks and "
+                        "forward ONE pre-aggregated update each, so root "
+                        "fan-in is O(edges), bitwise the flat run under "
+                        "--sum_assoc pairwise. Pair with --aggregator to "
+                        "arm two-phase cross-tier robust gating (edges "
+                        "forward per-client evidence, the root returns "
+                        "verdict frames, edges fold only the survivors). "
+                        "Workers are ranks E+1..world_size-1; the per-edge "
+                        "block size (workers/edges) must be a power of "
+                        "two. 0 = flat (default). Not with --algo "
+                        "turboaggregate (the hierarchical masked tier: "
+                        "ROADMAP.md queue A, item 8) or --fused_agg "
+                        "(item 7)")
     p.add_argument("--sum_assoc", "--sum-assoc", dest="sum_assoc",
                    type=str, default="auto", choices=["auto", "pairwise"],
                    help="rank 0: weighted-mean summation association. "
@@ -256,6 +273,46 @@ def _drain_broker(broker, timeout_s: float = 60.0) -> None:
         timeout_s)
 
 
+def _tree_rank(args, data, task, cfg, backend, device, agg_kw, telemetry,
+               backend_kw):
+    """This rank's manager in the hierarchical topology: rank 0 the root,
+    1..E the edges, the rest workers whose server is their edge."""
+    from fedml_tpu_torch.distributed.fedavg.api import init_client
+    from fedml_tpu_torch.distributed.fedavg.hierarchy import (
+        EdgeTopology,
+        FedAvgEdgeManager,
+        HierFedAvgAggregator,
+        HierFedAvgServerManager,
+    )
+
+    topo = EdgeTopology(edges=args.edges,
+                        workers=args.world_size - 1 - args.edges)
+    if args.rank == 0:
+        agg = HierFedAvgAggregator(data, task, cfg, topo, device=device,
+                                   **agg_kw)
+        return HierFedAvgServerManager(
+            agg, rank=0, size=args.world_size, backend=backend,
+            round_timeout_s=args.round_timeout_s, telemetry=telemetry,
+            **backend_kw)
+    if args.rank <= args.edges:
+        # every rank shares argv, so the edge reads the two-phase mode off
+        # the --aggregator the root arms; its watchdog runs at HALF the
+        # root's deadline so a stalled block resolves before the root acts
+        return FedAvgEdgeManager(
+            args.rank, topo, backend=backend,
+            round_timeout_s=(args.round_timeout_s / 2.0
+                             if args.round_timeout_s else None),
+            robust=bool(args.aggregator), device=device, **backend_kw)
+    slot = topo.slot_of(args.rank)
+    return init_client(
+        data, task, cfg, args.rank, args.world_size, backend, device=device,
+        adversary_plan=_load_adversary_plan(args.adversary_plan),
+        server_rank=topo.edge_rank(topo.edge_of_slot(slot)),
+        # adversary plans name 1-based COHORT ranks: a tree worker matches
+        # by slot + 1, so one plan drives a flat and a tree job alike
+        adversary_rank=slot + 1, **backend_kw)
+
+
 def main(argv=None):
     args = add_args(argparse.ArgumentParser(
         "fedml_tpu_torch.distributed")).parse_args(argv)
@@ -263,7 +320,25 @@ def main(argv=None):
         level=logging.INFO,
         format=f"%(asctime)s rank{args.rank} %(name)s %(levelname)s %(message)s",
     )
+    if args.edges and args.algo == "turboaggregate":
+        raise NotImplementedError(
+            "--edges with --algo turboaggregate (the hierarchical masked "
+            "tier) is not ported yet: ROADMAP.md queue A, item 8")
     refuse_unported_flags(args)
+    if args.edges:
+        # the dense synchronous protocol is the tree's contract (the
+        # flags of the other unported modes were refused just above)
+        incompatible = [name for name, v in (
+            ("--sparsify_ratio", args.sparsify_ratio),
+            ("--update_codec", None if args.update_codec in (None, "dense")
+             else args.update_codec),
+            ("--delta_broadcast", args.delta_broadcast or None),
+            ("--sum_assoc", None if args.sum_assoc == "auto"
+             else args.sum_assoc),  # the tree IS pairwise already
+        ) if v is not None]
+        if incompatible:
+            raise ValueError(f"--edges does not compose with "
+                             f"{incompatible} — run the flat topology")
     from fedml_tpu_torch.device import resolve_device
 
     device = resolve_device(args.device)
@@ -303,17 +378,18 @@ def main(argv=None):
     task = {"classification": classification_task,
             "sequence": sequence_task}[spec.task](model)
     n_total = data.num_clients
-    n_workers = args.world_size - 1
+    n_workers = args.world_size - 1 - args.edges
     if n_workers < 1:
         raise ValueError(f"--world_size {args.world_size} leaves no worker "
-                         "ranks after the server")
-    if args.rank != 0 and n_workers == n_total:
-        # full participation: rank r always trains client r-1, so this
+                         f"ranks after {args.edges} edges + 1 server")
+    worker_slot = args.rank - 1 - args.edges
+    if args.rank != 0 and worker_slot >= 0 and n_workers == n_total:
+        # full participation: worker slot s always trains client s, so this
         # process keeps only its own shard (load_partition_data_distributed_*
         # parity — the reference's per-rank loaders, cifar10/data_loader.py:433)
         from fedml_tpu_torch.core.client_data import subset_clients
 
-        data = subset_clients(data, [args.rank - 1])
+        data = subset_clients(data, [worker_slot])
     cfg = FedAvgConfig(
         comm_round=args.comm_round, client_num_in_total=n_total,
         client_num_per_round=n_workers, epochs=args.epochs,
@@ -343,23 +419,27 @@ def main(argv=None):
 
     backend = args.backend.upper()
     telemetry = None
-    if args.rank == 0:
-        if args.telemetry_dir or args.trace_dir:
-            from fedml_tpu_torch.obs.telemetry import Telemetry
+    if args.rank == 0 and (args.telemetry_dir or args.trace_dir):
+        from fedml_tpu_torch.obs.telemetry import Telemetry
 
-            # --trace-dir alone implies telemetry: the event log (with the
-            # critical-path round records) lands next to trace.json
-            telemetry = Telemetry(log_dir=args.telemetry_dir or args.trace_dir,
-                                  trace_dir=args.trace_dir)
-        # robust aggregation: the aggregator's options, as the reference
-        # wires them (--byzantine_f only reaches an --aggregator)
-        agg_kw: dict = {"sum_assoc": args.sum_assoc}
-        if args.aggregator:
-            agg_kw["aggregator"] = args.aggregator
-            if args.byzantine_f is not None:
-                agg_kw["aggregator_params"] = {"f": args.byzantine_f}
+        # --trace-dir alone implies telemetry: the event log (with the
+        # critical-path round records) lands next to trace.json
+        telemetry = Telemetry(log_dir=args.telemetry_dir or args.trace_dir,
+                              trace_dir=args.trace_dir)
+    # robust aggregation: the aggregator's options, as the reference wires
+    # them (--byzantine_f only reaches an --aggregator)
+    agg_kw: dict = {}
+    if args.aggregator:
+        agg_kw["aggregator"] = args.aggregator
+        if args.byzantine_f is not None:
+            agg_kw["aggregator_params"] = {"f": args.byzantine_f}
+    if args.edges:
+        mgr = _tree_rank(args, data, task, cfg, backend, device, agg_kw,
+                         telemetry, backend_kw)
+    elif args.rank == 0:
         mgr = init_server(data, task, cfg, args.world_size, backend,
-                          device=device, agg_kw=agg_kw,
+                          device=device,
+                          agg_kw=dict(agg_kw, sum_assoc=args.sum_assoc),
                           round_timeout_s=args.round_timeout_s,
                           delta_broadcast=bool(args.delta_broadcast),
                           telemetry=telemetry, **backend_kw)

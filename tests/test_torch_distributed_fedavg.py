@@ -399,7 +399,8 @@ def test_launcher_runs_the_wire_flags(tmp_path):
     dict(staleness="poly:0.5"), dict(staleness_bound=1),
     dict(buffer_deadline_s=1.0), dict(buffer_capacity=4),
     dict(heartbeat_max_age_s=1.0),
-    dict(edges=2), dict(fused_agg=True), dict(churn_trace=object()),
+    dict(edges=2, fused_agg=True), dict(fused_agg=True),
+    dict(churn_trace=object()),
 ], ids=lambda kw: next(iter(kw)))
 def test_unported_run_simulated_options_raise(setup, option):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A, item"):
@@ -430,7 +431,8 @@ def test_robust_run_simulated_options_run(setup, option):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--algo", "fedopt"], ["--edges", "2"], ["--ckpt_dir", "/tmp/x"],
+    ["--algo", "fedopt"], ["--edges", "2", "--algo", "turboaggregate"],
+    ["--ckpt_dir", "/tmp/x"],
     ["--async_buffer_k", "2"], ["--fused_agg", "1"],
     ["--shard_server_state", "1"], ["--supervise", "1"],
 ], ids=lambda f: f[0])
