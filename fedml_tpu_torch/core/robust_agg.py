@@ -736,6 +736,11 @@ class QuarantineLedger:
     def __init__(self):
         self._entries: list[dict] = []
         self._lock = threading.Lock()
+        # crash-recovery journal hook: callable(entry_dict) invoked per
+        # verdict so the server's WAL carries a forensic trail of
+        # mid-round quarantines; the ledger's commit-time authority stays
+        # quarantine.json. None = no journaling, zero extra work.
+        self.journal = None
 
     def record(self, round_idx: int, rank: int, reason: str,
                client=None) -> None:
@@ -748,6 +753,8 @@ class QuarantineLedger:
         }
         with self._lock:
             self._entries.append(entry)
+        if self.journal is not None:
+            self.journal(dict(entry))
 
     def record_codes(self, round_idx: int, reasons, clients=None,
                      ranks=None) -> None:
@@ -774,10 +781,16 @@ class QuarantineLedger:
 
     def restore(self, entries) -> None:
         """Re-install saved entries through :meth:`record` (the reason
-        vocabulary stays validated); the metric families are not fed."""
-        for e in entries:
-            self.record(int(e["round"]), int(e["rank"]), e["reason"],
-                        client=e.get("client"))
+        vocabulary stays validated); the metric families are not fed and
+        the journal hook is suppressed (restored entries are already
+        durable; re-journaling them would grow the WAL per boot)."""
+        j, self.journal = self.journal, None
+        try:
+            for e in entries:
+                self.record(int(e["round"]), int(e["rank"]), e["reason"],
+                            client=e.get("client"))
+        finally:
+            self.journal = j
 
     def canonical(self) -> list[tuple]:
         with self._lock:

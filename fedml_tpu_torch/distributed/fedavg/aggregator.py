@@ -98,6 +98,16 @@ class FedAvgAggregator:
         # the server manager at broadcast (begin_round); uploads tagged
         # with any other round are rejected, never slotted
         self.current_round = 0
+        # heartbeat-driven cohort admission: worker INDICES the server
+        # manager excluded from this round's cohort (heartbeat age past the
+        # threshold) — the barrier does not wait for them, but an excluded
+        # rank that uploads anyway (it just resumed) is still folded in
+        self.excluded: set[int] = set()
+        # async buffered flush (server_manager async mode): slot ->
+        # (1-based worker rank, trained client id) for ledger attribution —
+        # buffered slots are arrival positions, not worker indices, and a
+        # buffer may fold several waves of one rank into one aggregate
+        self._async_meta: dict[int, tuple[int, int]] | None = None
         # the standalone engine's init, so every party (and the standalone
         # oracle) starts from identical weights
         init = task.init(torch.Generator().manual_seed(cfg.seed),
@@ -186,8 +196,29 @@ class FedAvgAggregator:
         self.sample_num_dict[index] = sample_num
         self.flag_client_model_uploaded[index] = True
 
+    def load_buffered(self, entries, weights) -> None:
+        """Populate the aggregation slots from an async buffer drain
+        (server_manager async mode): slot i carries ``entries[i]``'s staged
+        state with its staleness-DISCOUNTED weight, and the (rank, client)
+        side table routes quarantine verdicts to the true worker rank. The
+        next ``aggregate()`` consumes and clears the slots as usual. With
+        constant discount the weights are bitwise the sample counts, which
+        is the weight half of the K=cohort sync-parity contract. (The
+        reference also keeps the bare discounts aside for its DP uniform
+        average, queued with DP.)"""
+        self.model_dict.clear()
+        self.sample_num_dict.clear()
+        self._async_meta = {}
+        for slot, (e, w) in enumerate(zip(entries, weights)):
+            self.model_dict[slot] = e.payload
+            self.sample_num_dict[slot] = float(w)
+            self._async_meta[slot] = (int(e.rank), int(e.client))
+
     def check_whether_all_receive(self) -> bool:
-        if not all(self.flag_client_model_uploaded.values()):
+        if any(not v for i, v in self.flag_client_model_uploaded.items()
+               if i not in self.excluded):
+            # heartbeat-excluded indices never block the barrier; everyone
+            # else must report (or the elastic watchdog trips)
             return False
         for i in self.flag_client_model_uploaded:
             self.flag_client_model_uploaded[i] = False
@@ -227,13 +258,21 @@ class FedAvgAggregator:
                                               **self._gagg_kw)
         reasons = reasons.cpu().numpy()
         if reasons.any():
-            # slot i holds worker index ranks[i] -> 1-based rank + the
-            # client id that rank trained this round
-            ids = self.client_sampling(self.current_round)
+            if self._async_meta is not None:
+                # async buffered flush: slots are arrival positions — the
+                # (rank, client) attribution rides the side table the
+                # server manager staged with the buffer entries
+                rank_l = [self._async_meta[r][0] for r in ranks]
+                client_l = [self._async_meta[r][1] for r in ranks]
+            else:
+                # slot i holds worker index ranks[i] -> 1-based rank + the
+                # client id that rank trained this round
+                ids = self.client_sampling(self.current_round)
+                rank_l = [r + 1 for r in ranks]
+                client_l = [int(ids[r]) for r in ranks]
             self.quarantine.record_codes(
-                self.current_round, reasons,
-                clients=[int(ids[r]) for r in ranks],
-                ranks=[r + 1 for r in ranks])
+                self.current_round, reasons, clients=client_l,
+                ranks=rank_l)
             if (reasons != REASON_OK).all():
                 log.warning("round %d: all %d uploads quarantined — "
                             "keeping the current global model",

@@ -11,10 +11,14 @@ Every entry point runs on the CUDA device unless ``device`` says otherwise
 (``device="cpu"``), and raises with no CUDA device and no such request.
 The reference's options this slice does not run raise NotImplementedError
 naming their ROADMAP.md item; ``warmup`` is accepted and does nothing
-(see DistributedTrainer.warmup).
+(see DistributedTrainer.warmup). Chaos crash rules naming rank 0 run under
+``run_supervised_simulated``: the server is killed at its crash point and
+a fresh one recovers through checkpoint + WAL.
 """
 
 from __future__ import annotations
+
+import logging
 
 from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
 from fedml_tpu_torch.core.client_data import FederatedData
@@ -24,9 +28,14 @@ from fedml_tpu_torch.distributed.fedavg.aggregator import (
     refuse_unported,
 )
 from fedml_tpu_torch.distributed.fedavg.client_manager import FedAvgClientManager
-from fedml_tpu_torch.distributed.fedavg.server_manager import FedAvgServerManager
+from fedml_tpu_torch.distributed.fedavg.server_manager import (
+    FedAvgServerManager,
+    SimulatedServerCrash,
+)
 from fedml_tpu_torch.distributed.fedavg.trainer import DistributedTrainer
 from fedml_tpu_torch.distributed.utils import backend_kwargs, launch_simulated
+
+log = logging.getLogger("fedml_tpu_torch.distributed.fedavg")
 
 
 def init_server(dataset, task, cfg, size, backend, device=None,
@@ -116,8 +125,14 @@ def run_simulated(
     deterministic fault injector (drops/dups/corruption/partitions per the
     plan's seeded schedule). Pair with ``round_timeout_s`` so dropped
     uplinks degrade to elastic partial aggregation instead of a hang. A
-    crash rule naming rank 0 (a server restart) needs the checkpoint and
-    WAL recovery path, which is not ported yet.
+    crash rule naming rank 0 is a supervised server restart (it needs
+    ``ckpt_dir``): the server is killed at the scheduled point and a
+    fresh one recovers through checkpoint + WAL while the clients run on
+    (``run_supervised_simulated``).
+
+    ``ckpt_dir``: checkpoint after every aggregate (the npz layout the
+    JAX package reads too) and journal the round lifecycle to the durable
+    WAL at ``<ckpt_dir>/wal``; a server booted on it resumes the job.
 
     ``adversary_plan``: a ``fedml_tpu_torch.chaos.AdversaryPlan`` — the
     listed worker ranks upload model-space attacks on their scheduled
@@ -135,6 +150,17 @@ def run_simulated(
     others. ``telemetry``: an ``obs.Telemetry`` bundle the server emits its
     round records (and, when it traces, the stitched cross-rank timeline)
     into.
+
+    ``async_buffer_k``: buffered-async rounds — the server aggregates as
+    soon as K sanitized arrivals are staged (or ``buffer_deadline_s``
+    fires), weighting each by the ``staleness`` discount ('constant' |
+    'poly:A' | 'exp:A'); ``staleness_bound`` rejects-and-requeues staler
+    updates (bound 0 = the synchronous barrier expressed async: bitwise
+    the sync run at K = cohort); ``buffer_capacity`` bounds the staging
+    queue (overflow sheds the stalest, never blocks).
+    ``heartbeat_max_age_s`` arms heartbeat-driven cohort admission (sync
+    AND async: silent ranks are excluded until a reprobe brings them
+    back).
 
     ``edges``: the hierarchical 2-tier topology (hierarchy.py): 1 root +
     ``edges`` edge aggregator ranks + the workers, root fan-in O(edges),
@@ -154,6 +180,11 @@ def run_simulated(
             "shard_server_state": shard_server_state or None,
             "heartbeat_max_age_s": heartbeat_max_age_s,
             "sum_assoc": None if sum_assoc == "auto" else sum_assoc,
+            # the async buffer's knobs: the tree is synchronous
+            "staleness": None if staleness == "constant" else staleness,
+            "staleness_bound": staleness_bound,
+            "buffer_deadline_s": buffer_deadline_s,
+            "buffer_capacity": buffer_capacity,
         }
         bad = [k for k, v in unsupported.items() if v is not None]
         if bad:
@@ -170,11 +201,7 @@ def run_simulated(
                 "edges")
         refuse_unported("run_simulated(edges=)", {
             "fused_agg": (bool(fused_agg), 7),
-            "partition_rules": (partition_rules is not None, 12),
-            "staleness": (staleness != "constant", 8),
-            "staleness_bound": (staleness_bound is not None, 8),
-            "buffer_deadline_s": (buffer_deadline_s is not None, 8),
-            "buffer_capacity": (buffer_capacity is not None, 8)})
+            "partition_rules": (partition_rules is not None, 12)})
         from fedml_tpu_torch.distributed.fedavg.hierarchy import (
             run_simulated_hierarchical,
         )
@@ -195,32 +222,34 @@ def run_simulated(
     if chaos_plan is not None:  # None must not clobber an installed plan
         _chaos.install_plan(chaos_plan)
     try:
-        active = _chaos.active_plan()
-        if active is not None and active.server_crash_points():
-            raise NotImplementedError(
-                "a chaos crash rule naming rank 0 (a server restart) needs "
-                "checkpoint + WAL recovery, not ported yet: ROADMAP.md "
-                "queue A, item 8")
-        agg = FedAvgAggregator(dataset, task, cfg, worker_num=size - 1,
-                               aggregator=aggregator,
-                               aggregator_params=aggregator_params,
-                               sanitize=sanitize,
-                               shard_server_state=shard_server_state,
-                               partition_rules=partition_rules,
-                               sum_assoc=sum_assoc, fused_agg=fused_agg,
-                               device=device)
-        server = FedAvgServerManager(agg, rank=0, size=size, backend=backend,
-                                     ckpt_dir=ckpt_dir,
-                                     round_timeout_s=round_timeout_s,
-                                     telemetry=telemetry,
-                                     async_buffer_k=async_buffer_k,
-                                     staleness=staleness,
-                                     staleness_bound=staleness_bound,
-                                     buffer_deadline_s=buffer_deadline_s,
-                                     buffer_capacity=buffer_capacity,
-                                     heartbeat_max_age_s=heartbeat_max_age_s,
-                                     delta_broadcast=delta_broadcast,
-                                     churn_trace=churn_trace, **kw)
+        # chaos crash rules naming RANK 0 are server restarts: this driver
+        # executes them deterministically — kill the manager at the
+        # scheduled point (SimulatedServerCrash, a SIGKILL analogue: no
+        # farewell frames, no graceful saves) and boot a FRESH manager
+        # through the real checkpoint + WAL recovery path
+        crash_points = server_crash_points(ckpt_dir)
+
+        def build_server():
+            agg = FedAvgAggregator(dataset, task, cfg, worker_num=size - 1,
+                                   aggregator=aggregator,
+                                   aggregator_params=aggregator_params,
+                                   sanitize=sanitize,
+                                   shard_server_state=shard_server_state,
+                                   partition_rules=partition_rules,
+                                   sum_assoc=sum_assoc, fused_agg=fused_agg,
+                                   device=device)
+            return FedAvgServerManager(
+                agg, rank=0, size=size, backend=backend, ckpt_dir=ckpt_dir,
+                round_timeout_s=round_timeout_s, telemetry=telemetry,
+                async_buffer_k=async_buffer_k, staleness=staleness,
+                staleness_bound=staleness_bound,
+                buffer_deadline_s=buffer_deadline_s,
+                buffer_capacity=buffer_capacity,
+                heartbeat_max_age_s=heartbeat_max_age_s,
+                delta_broadcast=delta_broadcast, churn_trace=churn_trace,
+                **kw)
+
+        server = build_server()
         clients = [
             init_client(dataset, task, cfg, rank, size, backend,
                         device=device, sparsify_ratio=sparsify_ratio,
@@ -231,8 +260,96 @@ def run_simulated(
         ]
         if warmup and clients:
             clients[0].warmup()
-        launch_simulated(server, clients)
+        if crash_points:
+            server = run_supervised_simulated(server, clients,
+                                              crash_points, build_server)
+        else:
+            launch_simulated(server, clients)
     finally:
         if chaos_plan is not None:
             _chaos.install_plan(None)
-    return agg
+    return server.aggregator
+
+
+def server_crash_points(ckpt_dir) -> list:
+    """The installed chaos plan's rank-0 crash schedule (``[(round,
+    after_uploads)]``, empty without a plan), checked against what the
+    supervision loop can run: recovery needs ``ckpt_dir``, and the
+    reference's mid-reveal point (``after_uploads=-1``) needs the secure
+    aggregation tier (ROADMAP.md queue A, item 8)."""
+    from fedml_tpu_torch import chaos as _chaos
+
+    active = _chaos.active_plan()
+    points = active.server_crash_points() if active is not None else []
+    if any(after is not None and int(after) == -1 for _, after in points):
+        raise NotImplementedError(
+            "the mid-reveal server crash point (after_uploads=-1) needs the "
+            "secure aggregation tier, not ported yet: ROADMAP.md queue A, "
+            "item 8")
+    if points and ckpt_dir is None:
+        raise ValueError(
+            "a chaos crash rule naming rank 0 (server restart) needs "
+            "ckpt_dir= — recovery replays checkpoint + WAL")
+    return points
+
+
+def run_supervised_simulated(server, clients, crash_points, build_server,
+                             join_timeout: float = 60.0):
+    """Loopback supervision loop: run the server until a scheduled
+    SimulatedServerCrash fires, abandon the dead manager's transport
+    WITHOUT any farewell frame (clients observe exactly the silence a dead
+    process leaves), and boot a fresh manager — fresh aggregator, fresh
+    memory — that recovers through checkpoint + WAL. Each crash point is
+    consumed by one kill; the recovered server does not re-crash on it.
+    Clients run once, spanning every server generation (they survive the
+    outage and answer the resume probe). Returns the last server."""
+    import threading
+
+    threads = [threading.Thread(target=c.run, daemon=True) for c in clients]
+    for t in threads:
+        t.start()
+    remaining = list(crash_points)
+    while True:
+        server._crash_plan = list(remaining)
+        try:
+            server.run()
+        except SimulatedServerCrash as e:
+            remaining = remaining[1:]
+            log.warning("supervisor: %s — abandoning the dead manager and "
+                        "restarting through recovery (%d scheduled "
+                        "crash(es) left)", e, len(remaining))
+            abandon_simulated_server(server)
+            server = build_server()
+            continue
+        if remaining:
+            # the campaign finished with scheduled kills never fired (e.g.
+            # an elastic round accepted fewer uploads than the
+            # after_uploads threshold) — say so loudly, or a run 'passes'
+            # a recovery path that was never exercised
+            log.warning("supervisor: run completed with %d scheduled "
+                        "crash point(s) never fired: %s — the recovery "
+                        "path was NOT exercised", len(remaining),
+                        remaining)
+        break
+    for t in threads:
+        t.join(timeout=join_timeout)
+    return server
+
+
+def abandon_simulated_server(server) -> None:
+    """SIGKILL analogue for an in-process server manager: free its
+    transport registration so the next generation can bind rank 0, close
+    its journal handle (post-mortem appends become no-ops), and flag it
+    finished so its timers/watchdog exit. Sends NOTHING — a dead process
+    says no goodbyes."""
+    server._finished.set()
+    try:
+        cm = server.com_manager
+        inner = getattr(cm, "inner", cm)  # unwrap a chaos proxy
+        inner.stop_receive_message()
+    except Exception:  # noqa: BLE001 — teardown of a "dead" manager must
+        # not kill the supervisor; the next boot re-binds rank 0 anyway
+        log.warning("supervisor: abandoning dead server transport failed",
+                    exc_info=True)
+    if server.wal is not None:
+        server.wal.close()

@@ -24,9 +24,16 @@ wire leaves after the honest fit and before the uplink tier encodes them
 attacker would send. In the hierarchical topology (hierarchy.py) a
 worker's ``server_rank`` is its edge aggregator: uploads go there, and
 ``adversary_rank`` is its cohort slot + 1, so one plan drives a flat and a
-tree run alike. The reference's fleet digests, async dispatch waves and
-crash-recovery epochs (item 8) are queued in ROADMAP.md, queue A: a rank
-asked for one raises.
+tree run alike.
+
+Buffered-async dispatch: a frame carrying a ``dispatch_wave`` keys the fit
+by the wave (a requeued dispatch within one global version draws fresh
+batches) and the wave and client index are echoed on the upload. Crash
+recovery: the server's restart epoch is adopted from any s2c frame that
+carries it and echoed on every upload, and a recovered server's resume
+probe is answered with this rank's last round and wave. The reference's
+fleet digests (item 8) are queued in ROADMAP.md, queue A: a rank asked for
+one raises.
 """
 
 from __future__ import annotations
@@ -46,9 +53,7 @@ from fedml_tpu_torch.obs.tracing import TRACE_KEY, ClientSpanBuffer
 log = logging.getLogger("fedml_tpu_torch.distributed.fedavg")
 
 # downlink keys of protocols this slice does not run -> their ROADMAP item
-_UNPORTED_DOWNLINK = {MyMessage.MSG_ARG_KEY_DISPATCH_WAVE: 8,
-                      MyMessage.MSG_ARG_KEY_RESTART_EPOCH: 8,
-                      MyMessage.MSG_ARG_KEY_TELEMETRY: 8}
+_UNPORTED_DOWNLINK = {MyMessage.MSG_ARG_KEY_TELEMETRY: 8}
 
 
 class FedAvgClientManager(ClientManager):
@@ -111,6 +116,10 @@ class FedAvgClientManager(ClientManager):
         self._held = None
         self._held_version: int | None = None
         self._trace_buf: ClientSpanBuffer | None = None  # lazy: see module doc
+        # crash-recovery session tag (adopted from the server, echoed on
+        # uploads) and the last async dispatch wave (kept for the probe)
+        self._restart_epoch = 0
+        self._last_wave: int | None = None
         super().__init__(rank, size, backend, **kw)
 
     def register_message_receive_handlers(self):
@@ -123,10 +132,41 @@ class FedAvgClientManager(ClientManager):
         self.register_message_receive_handler(
             MyMessage.MSG_TYPE_S2C_FINISH, lambda _m: self.finish()
         )
+        self.register_message_receive_handler(
+            MyMessage.MSG_TYPE_S2C_RESUME_PROBE,
+            self.handle_message_resume_probe,
+        )
 
     def handle_message_init(self, msg_params):
         self.round_idx = 0
         self._sync_and_train(msg_params)
+
+    def handle_message_resume_probe(self, msg_params):
+        """Post-restart server probe: adopt the new restart epoch — every
+        later upload echoes it, which is what lets the server shed this
+        client's pre-crash in-flight work — and answer with the last round
+        (and async dispatch wave) this client saw, so the server
+        re-dispatches or sheds deterministically. Handlers run serially:
+        if this client was mid-fit when the server died, the probe is
+        answered right after that fit's (now epoch-stale) upload is
+        queued."""
+        self._restart_epoch = int(msg_params.get(
+            MyMessage.MSG_ARG_KEY_RESTART_EPOCH, self._restart_epoch))
+        # answer the PROBE'S sender: probes always come straight from the
+        # root, and in the hierarchical topology self.server_rank is this
+        # worker's edge — which has no ack handler
+        probe_src = int(msg_params.get(Message.MSG_ARG_KEY_SENDER,
+                                       self.server_rank))
+        msg = Message(MyMessage.MSG_TYPE_C2S_RESUME_ACK, self.rank,
+                      probe_src)
+        msg.add_params(MyMessage.MSG_ARG_KEY_LAST_SEEN_ROUND,
+                       int(self.round_idx))
+        msg.add_params(MyMessage.MSG_ARG_KEY_LAST_SEEN_WAVE,
+                       -1 if self._last_wave is None
+                       else int(self._last_wave))
+        msg.add_params(MyMessage.MSG_ARG_KEY_RESTART_EPOCH,
+                       self._restart_epoch)
+        self.send_message(msg)
 
     def handle_message_receive_model(self, msg_params):
         self.round_idx += 1  # fallback when the server omits the round tag
@@ -198,6 +238,21 @@ class FedAvgClientManager(ClientManager):
         # trust the server's round counter (keeps stragglers aligned after an
         # elastic partial aggregation skipped them)
         self.round_idx = int(msg_params.get(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx))
+        # adopt the server's restart epoch from any s2c frame carrying one
+        # (a post-crash broadcast can arrive before the resume probe)
+        ep = msg_params.get(MyMessage.MSG_ARG_KEY_RESTART_EPOCH)
+        if ep is not None:
+            self._restart_epoch = int(ep)
+        # buffered-async dispatch: the server's dispatch-wave counter is
+        # the work-unit key — the fit's batch order is keyed by the WAVE
+        # (a requeued dispatch within one global version draws fresh
+        # batches), and the wave is echoed on the upload so the server
+        # attributes it exactly even with two dispatches in flight after
+        # a reprobe. Absent on synchronous rounds: round_idx keys the fit,
+        # nothing is echoed, and the wire is unchanged.
+        wave = msg_params.get(MyMessage.MSG_ARG_KEY_DISPATCH_WAVE)
+        if wave is not None:
+            self._last_wave = int(wave)  # answered on a resume probe
         buf = None
         blob = msg_params.get(TRACE_KEY)
         if isinstance(blob, dict) and blob.get("tid"):  # server is tracing
@@ -217,7 +272,8 @@ class FedAvgClientManager(ClientManager):
             self.trainer.update_dataset(int(msg_params[MyMessage.MSG_ARG_KEY_CLIENT_INDEX]))
         t0 = time.perf_counter()
         with span("local_fit"):
-            local_sample_num = self.trainer.fit(self.round_idx)
+            local_sample_num = self.trainer.fit(
+                self.round_idx if wave is None else int(wave))
             if self.trainer.device.type == "cuda":
                 # the fit's kernels end inside its span, not in pack's D2H
                 torch.cuda.synchronize(self.trainer.device)
@@ -234,6 +290,18 @@ class FedAvgClientManager(ClientManager):
             self._encode_upload(msg, wire_leaves, global_leaves)
             msg.add_params(MyMessage.MSG_ARG_KEY_NUM_SAMPLES, local_sample_num)
             msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx)
+            if self._restart_epoch:
+                # echo the session tag: a restarted server's epoch gate
+                # sheds pre-crash uploads by exactly this mismatch
+                msg.add_params(MyMessage.MSG_ARG_KEY_RESTART_EPOCH,
+                               self._restart_epoch)
+            if wave is not None:  # echo the async work-unit key verbatim
+                msg.add_params(MyMessage.MSG_ARG_KEY_DISPATCH_WAVE, int(wave))
+                # ... and the client id, so the server's ingest path never
+                # rebuilds the seeded sampling permutation per upload
+                msg.add_params(
+                    MyMessage.MSG_ARG_KEY_CLIENT_INDEX,
+                    int(msg_params[MyMessage.MSG_ARG_KEY_CLIENT_INDEX]))
         log.info("rank %d round %d: client %d fit on %d samples and packed "
                  "in %.3f s", self.rank, self.round_idx,
                  self.trainer.client_index, local_sample_num,

@@ -43,11 +43,17 @@ device rule), under ``float32_compute``, and converts every partial to
 numpy before it reaches a frame, so its frames are the JAX package's:
 ranks of the two packages mix in one tree.
 
+Root crash recovery is the flat server's (server_manager.py): with
+``ckpt_dir`` the root checkpoints and journals its rounds, a chaos crash
+rule naming rank 0 kills it at its crash points (an edge partial counts as
+the tier's upload), and ``run_simulated_hierarchical`` boots a fresh root
+through checkpoint + WAL while the edges and workers run on; the recovered
+root probes every rank, and an edge answers with its last-seen round.
+
 Not ported yet (ROADMAP.md queue A): the edges' fused ingest (item 7), the
-fleet digests an edge relays and folds, the edge's answer to a recovered
-root's resume probe, the root's WAL and crash points, supervised root
-restarts and the hierarchical masked tier (item 8). Each raises where it
-would be asked for.
+fleet digests an edge relays and folds and the hierarchical masked tier
+with its reveal crash point (item 8). Each raises where it would be asked
+for.
 """
 
 from __future__ import annotations
@@ -249,8 +255,9 @@ class HierFedAvgAggregator(FedAvgAggregator):
             avg, total_w = combine_edge_partials(stacked, totals, self.net)
         self.fanin_history.append(len(edges))
         # the reference also counts the staged bytes here
-        # (perf_instrument.record_agg_bytes): no perf_instrument in the
-        # port yet, ROADMAP.md queue A item 8
+        # (perf_instrument.record_agg_bytes): the port's perf_instrument
+        # carries only the async and restart families yet, ROADMAP.md
+        # queue A item 8
         # the verdicts go into the ledger under the COHORT-SLOT rank
         # (slot + 1), a flat server's attribution
         for e in edges:
@@ -577,11 +584,17 @@ class FedAvgEdgeManager(DistributedManager):
             else:
                 self._forward_partial()
 
-    def _handle_resume_probe(self, _msg_params) -> None:
-        raise NotImplementedError(
-            f"edge {self.edge_idx}: a recovered root's resume probe needs "
-            "the crash-recovery protocol, not ported yet: ROADMAP.md queue "
-            "A, item 8")
+    def _handle_resume_probe(self, msg_params) -> None:
+        """A recovered root probes EVERY rank (edges included — the root
+        can't tell tiers apart at probe time). Answer with this edge's
+        last-seen round; workers answer the same probe directly (their
+        ack goes to the probe's sender, rank 0, not through this edge)."""
+        with self._lock:
+            last = -1 if self._round is None else int(self._round)
+        msg = Message(MyMessage.MSG_TYPE_C2S_RESUME_ACK, self.rank, 0)
+        msg.add_params(MyMessage.MSG_ARG_KEY_LAST_SEEN_ROUND, last)
+        msg.add_params(MyMessage.MSG_ARG_KEY_LAST_SEEN_WAVE, -1)
+        self.send_message(msg)
 
 
 class HierFedAvgServerManager(FedAvgServerManager):
@@ -646,11 +659,17 @@ class HierFedAvgServerManager(FedAvgServerManager):
 
     def _broadcast_model(self, msg_type: str, global_params) -> None:
         """One frame per EDGE (fan-out O(edges)): the model, that edge
-        block's client assignments and the round tag. The reference also
-        journals the round's opening, fires its crash points and rides the
-        fleet marker here: not ported yet (ROADMAP.md queue A, item 8).
-        Nothing in the tree reads a stashed broadcast (its uplinks are
-        dense), so none is kept."""
+        block's client assignments and the round tag, with the flat
+        broadcast's crash and journal choreography (the between-commits
+        point fires BEFORE any frame leaves; the round opening is
+        journaled so recovery knows round r was in flight). The
+        reference's fleet marker rides here too: not ported yet
+        (ROADMAP.md queue A, item 8). Nothing in the tree reads a stashed
+        broadcast (its uplinks are dense), so none is kept."""
+        self._maybe_crash("broadcast")
+        if self.wal is not None:
+            self.wal.append("broadcast", sync=True, round=self.round_idx)
+        self._uploads_this_round = 0
         topo = self.topology
         client_indexes = self.aggregator.client_sampling(self.round_idx)
         self._round_ids = [int(c) for c in client_indexes]
@@ -679,6 +698,8 @@ class HierFedAvgServerManager(FedAvgServerManager):
             self.send_message(msg)
         if tr is not None:
             tr.end_broadcast()
+        # broadcast out, zero partials accepted — the after_uploads=0 point
+        self._maybe_crash("post_broadcast")
 
     def handle_message_edge_evidence(self, msg_params) -> None:
         """Phase 2 intake: stage one edge's per-slot evidence; once every
@@ -782,6 +803,8 @@ class HierFedAvgServerManager(FedAvgServerManager):
             if self._dtracer is not None:
                 self._dtracer.on_upload(sender, msg_params.get(TRACE_KEY))
             samples = msg_params.get(MyMessage.MSG_ARG_KEY_EDGE_SAMPLES)
+            already = bool(self.aggregator.flag_client_model_uploaded.get(
+                sender - 1))
             self.aggregator.add_edge_result(
                 sender - 1,
                 msg_params[MyMessage.MSG_ARG_KEY_EDGE_WSUM],
@@ -791,6 +814,19 @@ class HierFedAvgServerManager(FedAvgServerManager):
                 msg_params[MyMessage.MSG_ARG_KEY_EDGE_CLIENTS],
                 round_idx=int(msg_round),
                 samples=None if samples is None else float(samples))
+            if (not already and self.aggregator
+                    .flag_client_model_uploaded.get(sender - 1)):
+                # the accepted partial is this tier's "upload": journal it
+                # (fsync'd) so a crash before the commit ledgers the edge's
+                # slot server_restart on recovery — and feed the
+                # after_uploads crash points, which count edge partials in
+                # tree mode (a verdict-retry retransmit stays dedup'd by
+                # the `already` flag)
+                self._uploads_this_round += 1
+                if self.wal is not None:
+                    self.wal.append("upload", sync=True,
+                                    round=int(msg_round), rank=int(sender))
+                self._maybe_crash("upload")
             if self._robust and self._verdict_t is not None:
                 # verdict fan-out -> this partial (the last one's arrival
                 # is the slowest edge's turn-around)
@@ -856,9 +892,12 @@ def run_simulated_hierarchical(
     ``aggregator=`` / ``sanitize=`` arm the two-phase protocol with the
     flat ``run_simulated``'s semantics; an ``adversary_plan``'s 1-based
     ranks match workers by COHORT SLOT (slot + 1), not transport rank, so
-    one plan drives a flat and a tree run alike. Returns the root's
-    aggregator (``.net``, ``.history``, ``.quarantine``,
-    ``.fanin_history``)."""
+    one plan drives a flat and a tree run alike. Chaos crash rules naming
+    rank 0 run the flat driver's supervision loop (they need ``ckpt_dir``):
+    the root is killed at its crash point and a fresh one recovers through
+    checkpoint + WAL while the edges and workers, started once, run on.
+    Returns the root's aggregator (``.net``, ``.history``,
+    ``.quarantine``, ``.fanin_history``)."""
     from fedml_tpu_torch import chaos as _chaos
     from fedml_tpu_torch.distributed.fedavg.client_manager import (
         FedAvgClientManager,
@@ -872,20 +911,28 @@ def run_simulated_hierarchical(
     if chaos_plan is not None:
         _chaos.install_plan(chaos_plan)
     try:
-        active = _chaos.active_plan()
-        if active is not None and active.server_crash_points():
-            raise NotImplementedError(
-                "a chaos crash rule naming rank 0 (a root restart) needs "
-                "checkpoint + WAL recovery, not ported yet: ROADMAP.md "
-                "queue A, item 8")
-        root_agg = HierFedAvgAggregator(
-            dataset, task, cfg, topo, aggregator=aggregator,
-            aggregator_params=aggregator_params, sanitize=sanitize,
-            device=device)
-        server = HierFedAvgServerManager(
-            root_agg, rank=0, size=topo.world_size, backend=backend,
-            ckpt_dir=ckpt_dir, round_timeout_s=round_timeout_s,
-            telemetry=telemetry, **kw)
+        from fedml_tpu_torch.distributed.fedavg.api import (
+            run_supervised_simulated,
+            server_crash_points,
+        )
+
+        # chaos crash rules naming rank 0 are supervised root restarts,
+        # the flat driver's contract: edges reset their round state on
+        # the recovered root's next downlink
+        crash_points = server_crash_points(ckpt_dir)
+
+        def build_server():
+            root_agg = HierFedAvgAggregator(
+                dataset, task, cfg, topo, aggregator=aggregator,
+                aggregator_params=aggregator_params, sanitize=sanitize,
+                device=device)
+            return HierFedAvgServerManager(
+                root_agg, rank=0, size=topo.world_size, backend=backend,
+                ckpt_dir=ckpt_dir, round_timeout_s=round_timeout_s,
+                telemetry=telemetry, **kw)
+
+        server = build_server()
+        root_agg = server.aggregator
         # the edge watchdog runs at HALF the root's deadline: a stalled
         # block's evidence or partial goes out strictly before the root's
         # own timeout acts, so a chaos run's replay rests on the seeded
@@ -912,8 +959,13 @@ def run_simulated_hierarchical(
                 adversary_rank=slot + 1, **kw))
         if warmup and clients:
             clients[0].warmup()
-        launch_simulated(server, edge_mgrs + clients)
+        if crash_points:
+            # edges and workers run ONCE, spanning every root generation
+            server = run_supervised_simulated(
+                server, edge_mgrs + clients, crash_points, build_server)
+        else:
+            launch_simulated(server, edge_mgrs + clients)
     finally:
         if chaos_plan is not None:
             _chaos.install_plan(None)
-    return root_agg
+    return server.aggregator

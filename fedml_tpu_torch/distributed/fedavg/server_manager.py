@@ -22,16 +22,36 @@ With a ``Telemetry`` bundle the server emits one record a round (its
 bundle traces, rides trace context on each broadcast and stitches the
 clients' spans into the round's timeline.
 
-The WAL, checkpoints and resume, crash points, buffered-async rounds,
-heartbeat admission, churn traces, fused ingest and goodput records are
-queued in ROADMAP.md (queue A, items 7-8); passing one raises.
+Crash recovery (the JAX package's; docs/ROBUSTNESS.md §Server crash
+recovery there): with ``ckpt_dir`` the server checkpoints after every
+aggregate (core/checkpoint.py, the npz layout both packages read) and
+journals its round lifecycle to the durable WAL at ``<ckpt_dir>/wal``
+(core/wal.py). A fresh server boots through replay -> journal ``restart``
+-> restore: the newest restorable checkpoint is the state authority, an
+open round re-runs behind a resume probe under a new restart epoch, every
+upload the dead server had accepted is ledgered ``server_restart``, and the
+epoch gate sheds pre-crash uploads. Chaos ``crash`` rules naming rank 0 kill
+the server at its journaled crash points (:class:`SimulatedServerCrash`).
+
+Buffered-async mode (``async_buffer_k=K``) replaces the barrier with an
+event-driven loop: each upload is admitted (staleness bound / non-finite
+quarantine), staged into a bounded buffer (core/async_buffer.py), and its
+rank immediately re-dispatched; K staged arrivals (or
+``buffer_deadline_s``) flush one staleness-discounted aggregate through the
+aggregator's usual composition. ``heartbeat_max_age_s`` arms
+heartbeat-driven cohort admission on BOTH modes.
+
+Churn traces, the fleet plane, fused ingest, DP recovery and goodput
+records are queued in ROADMAP.md (queue A, items 7-8); passing one raises.
 """
 
 from __future__ import annotations
 
 import contextlib
 import logging
+import os
 import threading
+import time
 
 from fedml_tpu_torch.comm.managers import ServerManager
 from fedml_tpu_torch.comm.message import (
@@ -51,6 +71,21 @@ from fedml_tpu_torch.obs.tracing import TRACE_KEY
 log = logging.getLogger("fedml_tpu_torch.distributed.fedavg")
 
 
+class SimulatedServerCrash(BaseException):
+    """Deterministic SIGKILL analogue for loopback supervision (chaos
+    ``crash`` rules naming rank 0): raised at a journaled crash point and
+    deliberately a BaseException so no elastic/chaos ``except Exception``
+    swallows it. Only the supervision driver (``run_simulated``) catches
+    it: the dead manager's transport is abandoned without any farewell
+    frame and a FRESH manager boots through the real checkpoint + WAL
+    recovery path."""
+
+    def __init__(self, round_idx: int, point: str):
+        super().__init__(f"simulated server crash at round {round_idx} "
+                         f"({point})")
+        self.round_idx, self.point = round_idx, point
+
+
 class FedAvgServerManager(ServerManager):
     def __init__(self, aggregator: FedAvgAggregator, rank=0, size=0,
                  backend="LOOPBACK", round_timeout_s: float | None = None,
@@ -63,14 +98,6 @@ class FedAvgServerManager(ServerManager):
                  heartbeat_max_age_s: float | None = None,
                  delta_broadcast: bool = False, churn_trace=None, **kw):
         refuse_unported("FedAvgServerManager", {
-            "ckpt_dir": (ckpt_dir is not None, 8),
-            "wal_dir": (wal_dir is not None, 8),
-            "async_buffer_k": (async_buffer_k is not None, 8),
-            "staleness": (staleness != "constant", 8),
-            "staleness_bound": (staleness_bound is not None, 8),
-            "buffer_deadline_s": (buffer_deadline_s is not None, 8),
-            "buffer_capacity": (buffer_capacity is not None, 8),
-            "heartbeat_max_age_s": (heartbeat_max_age_s is not None, 8),
             "churn_trace": (churn_trace is not None, 8)})
         self.aggregator = aggregator
         self.round_num = aggregator.cfg.comm_round
@@ -89,6 +116,73 @@ class FedAvgServerManager(ServerManager):
         # ranks (joiners, ranks that missed a round) the dense fallback
         self.delta_broadcast = bool(delta_broadcast)
         self.round_timeout_s = round_timeout_s
+        self.ckpt_dir = ckpt_dir
+        # Buffered-async mode: ``async_buffer_k`` arms the event-driven
+        # loop — clients train continuously against possibly-stale
+        # globals, each upload is admitted (staleness bound; non-finite
+        # quarantined at the door), staged into a bounded AsyncBuffer
+        # (overflow sheds the stalest, counted, never blocks), and a full
+        # buffer (or deadline) flushes a staleness-discounted gated
+        # aggregate, after which the uploading ranks are immediately
+        # re-dispatched with the fresh global. ``round_idx`` then counts
+        # GLOBAL UPDATES (buffer flushes), so the checkpoint/eval/telemetry
+        # cadence carries over unchanged. None = the synchronous barrier.
+        self._async = async_buffer_k is not None
+        self._buffer = None
+        if self._async and self.delta_broadcast:
+            log.warning("delta_broadcast ignored in async buffered mode: "
+                        "per-rank dispatch holds arbitrary versions, so "
+                        "downlinks stay dense (uplink delta/quantized "
+                        "tiers still apply)")
+            self.delta_broadcast = False
+        self._staleness_bound = staleness_bound
+        if self._async:
+            from fedml_tpu_torch.core.async_buffer import (AsyncBuffer,
+                                                           StalenessPolicy)
+            from fedml_tpu_torch.obs import perf_instrument as _perf
+
+            self._staleness = StalenessPolicy.from_spec(
+                staleness, bound=staleness_bound)
+            self._discount_np = self._staleness.discount_np()
+            self._buffer = AsyncBuffer(int(async_buffer_k),
+                                       capacity=buffer_capacity)
+            self.buffer_deadline_s = buffer_deadline_s
+            self._buffer_epoch = 0
+            self._buffer_first_t: float | None = None
+            # per-rank dispatch counters (the sampling key: rank r's n-th
+            # dispatch trains client_sampling(n)[r-1], the structure the
+            # sync round loop uses) and the bound-0 parking lot (see
+            # StalenessPolicy.synchronous)
+            self._dispatch_wave: dict[int, int] = {}
+            # rank -> the ONE outstanding dispatch's wave: the upload gate
+            # folds exactly the wave it awaits, so a reprobe's superseded
+            # twin (or a chaos duplicate) is dropped instead of spawning a
+            # second self-perpetuating dispatch stream
+            self._awaiting: dict[int, int] = {}
+            self._parked: list[int] = []
+            self._last_dispatch_version: dict[int, int] = {}
+            self._bcast_version = -1
+            self._bcast_pack = None
+            # graceful drain: after the last flush the server keeps its
+            # receive loop up until every outstanding dispatch's upload
+            # landed (and was discarded); a grace timer bounds the wait
+            # when a rank crashed mid-dispatch
+            self._draining = False
+            self._drain_grace_s = round_timeout_s or 2.0
+            # reprobe grace is WALL-CLOCK, not versions: with small K
+            # global updates can elapse faster than one slow rank's honest
+            # fit — a wave is only declared lost after this many SECONDS
+            # since its dispatch
+            self._reprobe_grace_s = (round_timeout_s or buffer_deadline_s
+                                     or 30.0)
+            self._last_dispatch_t: dict[int, float] = {}
+            # per-JOB shed tally for round records (the registry counter is
+            # process-cumulative)
+            self._shed_counts: dict[str, int] = {}
+            # pre-register every shed reason so the Prometheus export
+            # carries the full fed_async_shed_total family
+            _perf.ensure_async_shed_families()
+        self.heartbeat_max_age_s = heartbeat_max_age_s
         # rank -> round its delivery last failed. Initialized HERE, not
         # lazily at first failure: two sender paths (round loop + watchdog
         # thread) can fail concurrently.
@@ -114,6 +208,47 @@ class FedAvgServerManager(ServerManager):
                                  dataset_source=dataset_source(
                                      aggregator.dataset),
                                  tracing=self._dtracer is not None)
+        # ---- server crash recovery: a ckpt_dir implies the durable round
+        # WAL next to it (override with wal_dir). Boot order matters:
+        # replay FIRST (the restart epoch and the open-round evidence),
+        # then open the log for append and journal this boot, then
+        # restore state.
+        self.wal = None
+        self._wal_replay = None
+        self._restart_epoch = 0
+        self._resume_round: int | None = None
+        self._resume_pending: set[int] = set()
+        self._resume_acks: dict[int, tuple[int, int]] = {}
+        self._crash_plan: list[tuple[int, int | None]] = []
+        self._sim_crash: SimulatedServerCrash | None = None
+        self._uploads_this_round = 0
+        if wal_dir is None and ckpt_dir is not None:
+            wal_dir = os.path.join(ckpt_dir, "wal")
+        if wal_dir is not None:
+            from fedml_tpu_torch.core.wal import RoundWAL
+            from fedml_tpu_torch.obs import perf_instrument as _perf
+
+            self._wal_replay = RoundWAL.replay(wal_dir)
+            self._restart_epoch = self._wal_replay.restart_epochs
+            self.wal = RoundWAL(wal_dir)
+            self.wal.append("restart", sync=True,
+                            epoch=self._restart_epoch)
+            _perf.ensure_restart_families()
+            _perf.sync_server_restarts(self._restart_epoch)
+            # quarantine verdicts ride the WAL as a forensic trail (the
+            # ledger's commit-time authority is quarantine.json)
+            self.aggregator.quarantine.journal = (
+                lambda e: self.wal.append("quarantine", **e))
+            if self._buffer is not None:
+                # async buffer membership rides the WAL: recovery ledgers
+                # exactly the admitted-and-unflushed entries that died
+                # with the process
+                self._buffer.journal = self._journal_buffer
+            if self._restart_epoch:
+                log.warning("server restart epoch %d (WAL at %s): "
+                            "recovering", self._restart_epoch, wal_dir)
+        if ckpt_dir is not None or self._wal_replay is not None:
+            self._maybe_resume()
         self._round_lock = threading.Lock()
         self._validate_world_size(size)
         ts = kw.pop("timeout_s", None)
@@ -192,6 +327,137 @@ class FedAvgServerManager(ServerManager):
             log.warning("elastic: dropping undeliverable send to rank %d",
                         rank, exc_info=True)
 
+    # ------------------------------------------------------ crash recovery
+    def _ckpt_state_template(self) -> dict:
+        """What a checkpoint holds (the reference's layout): the net, the
+        server optimizer state (none in the port: FedOpt is item 9) and
+        the reference's ``PRNGKey(0)`` bits, which DP runs replace with
+        their noise key (DP is queued, item 8)."""
+        import numpy as np
+
+        return {"net": self.aggregator.net, "server_opt_state": (),
+                "rng": np.zeros(2, np.uint32)}
+
+    def _maybe_resume(self) -> None:
+        import json
+
+        import numpy as np
+
+        from fedml_tpu_torch.core.checkpoint import restore_latest
+
+        t0 = time.monotonic()
+        committed = -1
+        if self.ckpt_dir is not None:
+            template = dict(self._ckpt_state_template(),
+                            round=np.asarray(0, np.int64))
+            # the newest RESTORABLE checkpoint is the commit authority: a
+            # torn newest file (crash mid-save) is skipped + counted and
+            # recovery falls back to the previous round
+            hit = restore_latest(self.ckpt_dir, template,
+                                 self.aggregator.num_heads)
+            if hit is not None:
+                committed, state = hit
+                self.aggregator.net = state["net"]
+            # reload the persisted eval history + quarantine ledger so a
+            # restarted process reports the SAME artifacts an
+            # uninterrupted run would
+            hist_path = os.path.join(self.ckpt_dir, "history.json")
+            if os.path.exists(hist_path):
+                with open(hist_path) as f:
+                    self.aggregator.history = json.load(f)
+            quar_path = os.path.join(self.ckpt_dir, "quarantine.json")
+            if os.path.exists(quar_path):
+                with open(quar_path) as f:
+                    self.aggregator.quarantine.restore(json.load(f))
+        replay = self._wal_replay
+        if committed < 0 and (replay is None or not replay.records):
+            return  # genuinely fresh start
+        self.round_idx = committed + 1
+        self._recover_in_flight(committed, replay)
+        if self.wal is not None:
+            from fedml_tpu_torch.obs import perf_instrument as _perf
+
+            _perf.record_recovery_seconds(time.monotonic() - t0)
+        log.info("resumed from checkpoint+WAL: committed round %d, next "
+                 "round %d%s (restart epoch %d)", committed, self.round_idx,
+                 " [open round re-runs]" if self._resume_round is not None
+                 else "", self._restart_epoch)
+
+    def _recover_in_flight(self, committed: int, replay) -> None:
+        """WAL half of recovery: reconstruct what the crash interrupted.
+
+        - an OPEN round (anything journaled past the last commit) re-runs
+          as ``self.round_idx`` behind a resume probe, and every upload
+          the dead server had ACCEPTED (sync ``upload`` / async buffer
+          ``admit`` records — the payloads died with the process) is
+          ledgered ``server_restart``, slot-exact;
+        - async dispatch-wave counters resume past their journaled
+          maxima, keeping the per-rank sampling chain monotonic.
+
+        A WAL with DP pre-charges (a DP run's) needs the accountant's
+        recovery, queued with DP (ROADMAP.md queue A, item 8): it raises."""
+        if replay is None:
+            return
+        if replay.of_kind("precharge"):
+            raise NotImplementedError(
+                "this WAL holds DP pre-charge records: recovering a DP "
+                "run's accountant and per-client ledgers is not ported "
+                "yet: ROADMAP.md queue A, item 8")
+        if self._async:
+            for rank, w in replay.dispatch_waves().items():
+                self._dispatch_wave[rank] = w + 1
+        in_flight = replay.since_last_commit(
+            ("broadcast", "dispatch", "upload", "admit"))
+        if not in_flight or self.round_idx >= self.round_num:
+            return
+        self._resume_round = self.round_idx
+        lost = replay.since_last_commit(("upload", "admit"))
+        # an admit whose entry was overflow-SHED pre-crash held no
+        # foldable work at death (and was already counted overflow by the
+        # live server) — it must not be re-ledgered server_restart
+        shed_keys = {(int(r.get("rank", -1)), int(r.get("wave", -1)))
+                     for r in replay.since_last_commit("shed")}
+        lost = [rec for rec in lost
+                if rec.get("kind") != "admit"
+                or (int(rec["rank"]),
+                    int(rec.get("wave", -1))) not in shed_keys]
+        for rec in lost:
+            self.aggregator.quarantine.record(
+                int(rec.get("round", self.round_idx)), int(rec["rank"]),
+                "server_restart", client=rec.get("client"))
+            _obs.record_update_rejected("server_restart")
+            if self._async:
+                self._record_shed("server_restart")
+        log.warning("recovery: round %d was in flight at the crash — "
+                    "%d accepted upload(s) lost with the process "
+                    "(ledgered server_restart); re-dispatching behind a "
+                    "resume probe", self.round_idx, len(lost))
+
+    def _maybe_save(self) -> None:
+        if self.ckpt_dir is None:
+            return
+        import json
+
+        from fedml_tpu_torch.core.checkpoint import save_round
+        from fedml_tpu_torch.core.wal import durable_write
+
+        st = self._ckpt_state_template()
+        save_round(self.ckpt_dir, self.round_idx, st["net"],
+                   st["server_opt_state"], st["rng"],
+                   history=self.aggregator.history,
+                   num_heads=self.aggregator.num_heads)
+        # the quarantine ledger rides the commit (atomic + fsync'd): a
+        # restarted process must report the same ledger an uninterrupted
+        # run would — the WAL's quarantine records are forensic only
+        durable_write(os.path.join(self.ckpt_dir, "quarantine.json"),
+                      json.dumps(self.aggregator.quarantine.entries())
+                      .encode())
+        if self.wal is not None:
+            # commit AFTER the checkpoint rename: the checkpoint is the
+            # state authority; the record witnesses it and resets the
+            # WAL's in-flight (since_last_commit) window
+            self.wal.commit(self.round_idx)
+
     def _broadcast_finish(self):
         # final best-effort delivery to EVERY rank, including ones the
         # elastic sender had marked undeliverable: a rank that RECOVERED
@@ -207,24 +473,45 @@ class FedAvgServerManager(ServerManager):
         self.finish()
 
     def run(self):
-        if self.round_idx >= self.round_num:
+        if self.round_idx >= self.round_num:  # resumed past the last round
             self._broadcast_finish()
             return
-        log.info("server up: broadcasting round %d to %d client ranks",
-                 self.round_idx, self.size - 1)
-        self.send_init_msg()
+        if self._resume_round is not None:
+            # recovery found an open round: probe before re-dispatching so
+            # the fleet's in-flight pre-crash work is accounted, then the
+            # ack quorum (or the backstop) re-broadcasts under this epoch
+            with self._round_lock:
+                self._send_resume_probes()
+        else:
+            log.info("server up: %s round %d to %d client ranks",
+                     "dispatching" if self._async else "broadcasting",
+                     self.round_idx, self.size - 1)
+            self.send_init_msg()
         super().run()
+        if self._sim_crash is not None:
+            # a crash point fired on a non-dispatch thread (watchdog /
+            # timer) and stopped the loop: surface it to the supervision
+            # driver from the thread that owns run()
+            raise self._sim_crash
 
     def _broadcast_model(self, msg_type: str, global_params) -> None:
         """Sample this round's clients and broadcast ``global_params`` to
         every rank under ``msg_type`` — the shared body of send_init_msg
         and the round-advance sync (they must not diverge)."""
+        self._maybe_crash("broadcast")
+        if self.wal is not None:
+            # journal the round opening BEFORE any frame leaves: recovery
+            # must know round r was in flight even if the crash lands
+            # mid-broadcast
+            self.wal.append("broadcast", sync=True, round=self.round_idx)
+        self._uploads_this_round = 0
         client_indexes = self.aggregator.client_sampling(self.round_idx)
         self._round_ids = [int(c) for c in client_indexes]
         # stamp the aggregator's accepted round BEFORE any client can
         # answer the broadcast — uploads tagged with any other round are
         # rejected at the slotting layer (add_local_trained_result)
         self.aggregator.begin_round(self.round_idx)
+        suspects = self._admit_cohort()
         # stash the pack AS CLIENTS WILL SEE IT: under a lossy wire
         # codec their deltas are relative to the decoded broadcast; under
         # delta_broadcast the stash IS the base chain every rank holds
@@ -252,6 +539,8 @@ class FedAvgServerManager(ServerManager):
         if tr is not None:
             tr.begin_round(self.round_idx)
         for rank in range(1, self.size):
+            if rank in suspects:
+                continue
             msg = Message(msg_type, self.rank, rank)
             if delta is not None and self._rank_version.get(rank) == base_v:
                 # warm rank: its last upload proved it holds base_v
@@ -266,14 +555,556 @@ class FedAvgServerManager(ServerManager):
                     msg.mark_lossless(MyMessage.MSG_ARG_KEY_MODEL_PARAMS)
             msg.add_params(MyMessage.MSG_ARG_KEY_CLIENT_INDEX, int(client_indexes[rank - 1]))
             msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx)
+            if self._restart_epoch:
+                # post-restart session tag, echoed on every upload so the
+                # epoch gate sheds pre-crash in-flight work exactly once;
+                # absent at epoch 0 — the wire is unchanged until a crash
+                # actually happened
+                msg.add_params(MyMessage.MSG_ARG_KEY_RESTART_EPOCH,
+                               self._restart_epoch)
             if tr is not None:  # trace context rides the header scalars
                 msg.add_params(TRACE_KEY, tr.broadcast_ctx(rank))
             self.send_message(msg)
         if tr is not None:
             tr.end_broadcast()
+        # after_uploads=0: mid-round with the broadcast OUT but zero
+        # uploads accepted — distinct from None (between commits, before
+        # any frame of the round leaves)
+        self._maybe_crash("post_broadcast")
+
+    def _admit_cohort(self) -> set[int]:
+        """Heartbeat-driven cohort admission for this round: ranks silent
+        past the age threshold are excluded — no send, and the barrier
+        does not wait for them (the aggregator's excluded set) — except on
+        reprobe rounds, which re-invite them so a resumed rank rejoins;
+        its first frame resets the age and readmits it for good. Returns
+        the excluded (suspect) ranks."""
+        suspects = _obs.suspect_ranks(
+            range(1, self.size), self.heartbeat_max_age_s, self.round_idx,
+            self._DEAD_RANK_REPROBE_ROUNDS)
+        self.aggregator.excluded = {r - 1 for r in suspects}
+        if (self.heartbeat_max_age_s is not None
+                and self.round_idx % self._DEAD_RANK_REPROBE_ROUNDS == 0):
+            # reprobe round: force a REAL send attempt to every silent rank
+            # — the elastic undeliverable skip runs on its own (failed_at
+            # anchored) cadence, and the two schedules can otherwise never
+            # align, leaving a resumed rank permanently uninvited
+            silent = _obs.suspect_ranks(
+                range(1, self.size), self.heartbeat_max_age_s,
+                self.round_idx, 0)  # reprobe_every=0: the raw verdict
+            for rank in list(self._undeliverable):
+                if rank in silent:
+                    self._undeliverable.pop(rank, None)
+            self._update_alive_gauge()
+        if suspects:
+            log.warning("round %d: heartbeat-suspect ranks %s excluded "
+                        "from the cohort (age > %.2fs; reprobed every %d "
+                        "rounds)", self.round_idx, sorted(suspects),
+                        self.heartbeat_max_age_s,
+                        self._DEAD_RANK_REPROBE_ROUNDS)
+        return suspects
 
     def send_init_msg(self):
+        if self._async:
+            # async boot: every rank gets wave-0 work individually (same
+            # cohort assignment as the sync broadcast — rank r trains
+            # client_sampling(0)[r-1]); from here on dispatch is
+            # event-driven, one rank at a time as uploads land
+            self.aggregator.begin_round(self.round_idx)
+            for rank in range(1, self.size):
+                self._dispatch_one(rank, MyMessage.MSG_TYPE_S2C_INIT_CONFIG)
+            return
         self._broadcast_model(MyMessage.MSG_TYPE_S2C_INIT_CONFIG,
+                              self.aggregator.get_global_model_params())
+
+    # ------------------------------------------------- async buffered mode
+    # The event-driven loop of buffered-async rounds. All state below is
+    # touched under _round_lock only.
+    def _dispatch_one(self, rank: int,
+                      msg_type: str | None = None) -> None:
+        """Hand ``rank`` its next unit of work: the current global model
+        (packed once per version) + the client its dispatch-wave counter
+        samples. Heartbeat-suspect ranks are skipped (admission control) —
+        the flush-time reprobe re-dispatches them once they may have
+        resumed."""
+        suspects = _obs.suspect_ranks(
+            range(1, self.size), self.heartbeat_max_age_s, self.round_idx,
+            self._DEAD_RANK_REPROBE_ROUNDS)
+        if rank in suspects:
+            self._record_shed("suspect")
+            log.warning("async: not dispatching to heartbeat-suspect rank "
+                        "%d (reprobed every %d updates)", rank,
+                        self._DEAD_RANK_REPROBE_ROUNDS)
+            return
+        wave = self._dispatch_wave.get(rank, 0)
+        self._dispatch_wave[rank] = wave + 1
+        self._last_dispatch_version[rank] = self.round_idx
+        self._last_dispatch_t[rank] = time.monotonic()
+        if self._bcast_version != self.round_idx or self._bcast_pack is None:
+            self._bcast_pack = self.aggregator.get_global_model_params()
+            self._bcast_version = self.round_idx
+            # versioned base stash: encoded uplinks from THIS dispatch wave
+            # densify against the broadcast as the client decodes it
+            self._stash_version(self.round_idx,
+                                codec_roundtrip(self._bcast_pack))
+        cid = int(self.aggregator.client_sampling(wave)[rank - 1])
+        if self.wal is not None:
+            # journaled (fsync'd) so a restarted server resumes every
+            # rank's wave counter PAST this dispatch — the sampling chain
+            # stays monotonic across restarts and recovery knows work was
+            # in flight
+            self.wal.append("dispatch", sync=True, round=self.round_idx,
+                            rank=rank, wave=wave, client=cid)
+        msg = Message(msg_type or MyMessage.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT,
+                      self.rank, rank)
+        msg.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, self._bcast_pack)
+        msg.add_params(MyMessage.MSG_ARG_KEY_CLIENT_INDEX, cid)
+        msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx)
+        if self._restart_epoch:
+            msg.add_params(MyMessage.MSG_ARG_KEY_RESTART_EPOCH,
+                           self._restart_epoch)
+        # the wave rides the dispatch and comes back on the upload: it is
+        # the work-unit key (sampling + the client's batch order), and
+        # reconstructing it server-side from the counter would misattribute
+        # a delayed upload once a reprobe puts two dispatches in flight
+        msg.add_params(MyMessage.MSG_ARG_KEY_DISPATCH_WAVE, wave)
+        self._awaiting[rank] = wave
+        self.send_message(msg)
+        if rank in self._undeliverable:
+            # elastic send failure: nothing is outstanding for this rank —
+            # the flush-time reprobe owns bringing it back
+            self._awaiting.pop(rank, None)
+
+    def _handle_async_upload(self, msg_params) -> None:
+        """Admission -> staging -> maybe flush -> re-dispatch. Caller holds
+        _round_lock."""
+        import numpy as np
+
+        from fedml_tpu_torch.core.async_buffer import BufferedUpdate
+
+        sender = int(msg_params[Message.MSG_ARG_KEY_SENDER])
+        if self._draining or self.round_idx >= self.round_num:
+            # post-FINISH drain: absorb (and discard) the uploads that
+            # were in flight when the job completed, then stop the loop —
+            # clients never see a torn-down transport mid-upload
+            self._awaiting.pop(sender, None)
+            if self._draining and not self._awaiting:
+                log.info("async: drain complete — stopping")
+                self.finish()
+            return
+        expected_wave = self._awaiting.get(sender)
+        # the echoed dispatch wave is authoritative (see _dispatch_one);
+        # the fallback covers interop peers that drop unknown keys
+        wave = msg_params.get(MyMessage.MSG_ARG_KEY_DISPATCH_WAVE)
+        wave = expected_wave if wave is None else int(wave)
+        if expected_wave is None or wave != expected_wave:
+            # chaos-duplicated or superseded upload: either the rank has no
+            # outstanding dispatch, or this is the abandoned twin of a
+            # reprobe — exactly-once folding, like the sync round-tag gate
+            _obs.record_stale_upload("stale")
+            log.warning("async: drop upload from rank %d for wave %s "
+                        "(awaiting %s)", sender, wave, expected_wave)
+            return
+        self._awaiting.pop(sender, None)
+        trained_version = int(msg_params.get(MyMessage.MSG_ARG_KEY_ROUND,
+                                             self.round_idx))
+        staleness = self.round_idx - trained_version
+        if not self._staleness.admits(staleness):
+            # admission control: reject-and-requeue with the fresh global
+            self._record_shed("stale")
+            log.warning("async: rejecting upload from rank %d at staleness "
+                        "%d > bound %d — requeued", sender, staleness,
+                        self._staleness.bound)
+            self._dispatch_one(sender)
+            return
+        # encoded uplinks compose with the async waves because they
+        # densify against the stashed broadcast of the version the
+        # dispatch carried: an admissible-staleness upload whose base was
+        # EVICTED from the bounded stash is shed as stale and requeued —
+        # only a version never broadcast stays a loud protocol error
+        encoded = (MyMessage.MSG_ARG_KEY_SPARSE_IDX in msg_params
+                   or MyMessage.MSG_ARG_KEY_UPDATE_CODEC in msg_params)
+        if encoded and trained_version not in self._version_pack \
+                and 0 <= trained_version <= self.round_idx:
+            self._record_shed("stale")
+            log.warning("async: rank %d's upload encoded against evicted "
+                        "base version %d (stash floor %s) — requeued",
+                        sender, trained_version,
+                        min(self._version_pack, default=None))
+            self._dispatch_one(sender)
+            return
+        wire_leaves = self._decode_upload(msg_params, sender,
+                                          trained_version)
+        if wire_leaves is None:
+            # undecodable payload: quarantined + counted by
+            # _decode_upload; the rank gets fresh work like any other
+            # consumed upload
+            self._record_shed("undecodable")
+            self._dispatch_one(sender)
+            return
+        # the work unit's client id: echoed from the dispatch frame (like
+        # the wave) so the hot path never rebuilds the seeded sampling
+        # permutation under _round_lock; the fallback recomputes it for
+        # interop peers that drop unknown keys
+        client = msg_params.get(MyMessage.MSG_ARG_KEY_CLIENT_INDEX)
+        client = (int(self.aggregator.client_sampling(wave)[sender - 1])
+                  if client is None else int(client))
+        finite = all(np.isfinite(v).all() for v in wire_leaves
+                     if isinstance(v, np.ndarray)
+                     and np.issubdtype(v.dtype, np.floating))
+        if not finite:
+            # quarantine at the door: a non-finite arrival never enters
+            # the buffer (norm outliers still gate at flush, where the
+            # cohort median exists)
+            self.aggregator.quarantine.record(
+                self.round_idx, sender, "nonfinite", client=client)
+            _obs.record_update_rejected("nonfinite")
+            self._record_shed("nonfinite")
+            self._dispatch_one(sender)
+            return
+        now = time.monotonic()
+        if len(self._buffer) == 0:
+            self._buffer_first_t = now
+            self._arm_deadline()
+        entry = BufferedUpdate(
+            rank=sender, client=client,
+            version=trained_version, wave=wave,
+            payload=self.aggregator._stage_upload(wire_leaves),
+            nsamp=float(msg_params[MyMessage.MSG_ARG_KEY_NUM_SAMPLES]),
+            seq=wave * self.size + sender, t_arrival=now)
+        for victim in self._buffer.add(entry):
+            # backpressure: shed the stalest pending update, never block.
+            # Counting is ALL a victim needs: an old victim's rank already
+            # has outstanding work (it was re-dispatched or parked when its
+            # entry was staged), and a shed-on-arrival sender gets its one
+            # park-or-redispatch below like any other consumed upload
+            self._record_shed("overflow")
+            log.warning("async: buffer overflow shed rank %d's update "
+                        "(trained at version %d)", victim.rank,
+                        victim.version)
+        if self._staleness.synchronous:
+            # bound 0 = the barrier expressed async: work dispatched now
+            # would be born stale post-flush — park until the flush lands
+            self._parked.append(sender)
+        else:
+            self._dispatch_one(sender)
+        if self._buffer.ready:
+            self._flush_buffer()
+
+    def _flush_buffer(self) -> None:
+        """One buffered aggregate = one global update: staleness-discounted
+        weights through the aggregator's gated composition, then
+        eval/checkpoint/telemetry at the sync round cadence, then
+        re-dispatch of every parked rank with the fresh global. Caller
+        holds _round_lock."""
+        import numpy as np
+
+        from fedml_tpu_torch.obs import perf_instrument as _perf
+
+        entries = self._buffer.drain()
+        self._buffer_epoch += 1
+        if not entries or self.round_idx >= self.round_num:
+            return
+        version = self.round_idx
+        self.aggregator.begin_round(version)
+        stale = np.asarray([version - e.version for e in entries],
+                           np.float32)
+        discounts = [float(d) for d in self._discount_np(stale)]
+        weights = [e.nsamp * d for e, d in zip(entries, discounts)]
+        self.aggregator.load_buffered(entries, weights)
+        for s in stale:
+            _perf.record_update_staleness(float(s))
+        now = time.monotonic()
+        fill_s = now - (self._buffer_first_t
+                        if self._buffer_first_t is not None else now)
+        _perf.record_buffer_fill(fill_s)
+        self._buffer_first_t = None
+        tel = self.telemetry
+        try:
+            if tel is not None:
+                old_leaves = [np.asarray(v) for v in
+                              self.aggregator.get_global_model_params()]
+                with self._tracer.span("aggregate"):
+                    global_params = self.aggregator.aggregate()
+                with self._tracer.span("eval"):
+                    self.aggregator.test_on_server_for_all_clients(version)
+                upd_sq = sum(float(np.sum((np.asarray(n) - o) ** 2))
+                             for n, o in zip(global_params, old_leaves))
+                hist = self.aggregator.history
+                q = self.aggregator.quarantine.for_round(version)
+                tel.emit_round(
+                    version, clients=[e.client for e in entries],
+                    spans=dict(self._tracer.rounds[-1]),
+                    metrics={"update_norm": float(np.sqrt(upd_sq)),
+                             "num_samples": float(sum(e.nsamp
+                                                      for e in entries))},
+                    evals=(hist[-1] if hist
+                           and hist[-1].get("round") == version else None),
+                    **{"async": {
+                        "k": len(entries),
+                        "staleness": [int(s) for s in stale],
+                        "buffer_fill_s": round(fill_s, 6),
+                        "shed": dict(self._shed_counts)}},
+                    **({"quarantine": q} if q else {}),
+                    agg=self.aggregator.agg_record(),
+                    **self._round_record_extra())
+                self._tracer.next_round()
+            else:
+                self.aggregator.aggregate()
+                self.aggregator.test_on_server_for_all_clients(version)
+        finally:
+            self.aggregator._async_meta = None
+        self._maybe_save()
+        self.round_idx += 1
+        self._bcast_pack = None  # repack lazily at the next dispatch
+        # crash points in async terms: a flush IS the commit boundary —
+        # 'between commits' fires here (the new round exists, nothing of
+        # it dispatched), and the per-round upload counter resets so
+        # 'after_uploads' counts THIS round's admissions
+        self._uploads_this_round = 0
+        self._maybe_crash("broadcast")
+        if self.round_idx >= self.round_num:
+            self._finish_async()
+            return
+        parked, self._parked = self._parked, []
+        for rank in parked:
+            self._dispatch_one(rank)
+        self._async_reprobe()
+        # after_uploads=0 in async terms: the new round's dispatches are
+        # out, nothing admitted yet
+        self._maybe_crash("post_broadcast")
+
+    def _finish_async(self) -> None:
+        """Broadcast FINISH, then DRAIN instead of tearing down: the
+        receive loop stays up until every outstanding dispatch's upload
+        has landed (each is discarded by the drain gate), bounded by a
+        grace timer for ranks that died mid-dispatch. Caller holds
+        _round_lock."""
+        # final best-effort delivery to EVERY rank, including ones the
+        # elastic sender had marked undeliverable
+        self._undeliverable.clear()
+        self._update_alive_gauge()
+        for rank in range(1, self.size):
+            msg = Message(MyMessage.MSG_TYPE_S2C_FINISH, self.rank, rank)
+            msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx)
+            self.send_message(msg)
+        if not self._awaiting:
+            self.finish()
+            return
+        self._draining = True
+        log.info("async: job complete — draining %d in-flight upload(s) "
+                 "(grace %.1fs)", len(self._awaiting), self._drain_grace_s)
+        t = threading.Timer(self._drain_grace_s, self.finish)
+        t.daemon = True
+        t.start()
+
+    def _record_shed(self, reason: str) -> None:
+        """One shed verdict: the process-wide metric family AND this job's
+        own tally (round records must scope to this job)."""
+        from fedml_tpu_torch.obs import perf_instrument as _perf
+
+        _perf.record_async_shed(reason)
+        self._shed_counts[reason] = self._shed_counts.get(reason, 0) + 1
+
+    def _journal_buffer(self, event: str, e) -> None:
+        """AsyncBuffer journal hook: buffer membership rides the WAL so
+        recovery ledgers exactly the admitted-and-unflushed entries that
+        died with the process. Admits are fsync'd (the lost-slot ledger
+        is a correctness artifact); overflow sheds are forensic."""
+        if self.wal is None:
+            return
+        extra = {} if event == "admit" else {"reason": "overflow"}
+        self.wal.append("admit" if event == "admit" else "shed",
+                        sync=event == "admit", round=int(e.version),
+                        rank=int(e.rank), client=int(e.client),
+                        wave=int(e.wave), nsamp=float(e.nsamp), **extra)
+        if event == "admit":
+            self._uploads_this_round += 1
+            self._maybe_crash("upload")
+
+    def _async_reprobe(self, force: bool = False) -> None:
+        """Bring silent ranks back: a rank whose dispatch went nowhere
+        (send failed elastically, heartbeat-skipped) OR whose upload was
+        lost on the wire (still awaiting, silent for
+        ``_DEAD_RANK_REPROBE_ROUNDS`` global updates) is re-dispatched —
+        the reissue DECLARES the old wave lost, so a late upload of it
+        dies at the wave-matched awaiting gate. ``force`` skips the
+        recently-dispatched check (the idle watchdog after
+        ``round_timeout_s`` of total silence); both paths respect the
+        WALL-CLOCK grace. Caller holds _round_lock."""
+        now = time.monotonic()
+        for rank in range(1, self.size):
+            if rank in self._parked:
+                continue
+            last = self._last_dispatch_version.get(rank)
+            if not force and last is not None and \
+                    (self.round_idx - last) < \
+                    self._DEAD_RANK_REPROBE_ROUNDS:
+                continue  # recently dispatched: give it time
+            t_disp = self._last_dispatch_t.get(rank)
+            if t_disp is not None and \
+                    (now - t_disp) < self._reprobe_grace_s:
+                continue  # dispatched recently in WALL-CLOCK: still alive
+            log.info("async: reprobing silent rank %d", rank)
+            # the reprobe IS the re-invitation: drop the elastic
+            # undeliverable mark so the send is actually attempted
+            self._undeliverable.pop(rank, None)
+            self._update_alive_gauge()
+            self._awaiting.pop(rank, None)
+            self._dispatch_one(rank)
+
+    def _arm_deadline(self) -> None:
+        """Deadline flush: a buffer that has waited ``buffer_deadline_s``
+        since its first arrival aggregates PARTIAL instead of waiting out a
+        straggler cohort — the async analogue of the elastic round
+        timeout."""
+        if self.buffer_deadline_s is None:
+            return
+        t = threading.Timer(self.buffer_deadline_s, self._deadline_fire,
+                            args=(self._buffer_epoch,))
+        t.daemon = True
+        t.start()
+
+    def _deadline_fire(self, epoch: int) -> None:
+        with self._round_lock:
+            if (self._finished.is_set() or epoch != self._buffer_epoch
+                    or len(self._buffer) == 0):
+                return
+            log.warning("async: buffer deadline fired with %d/%d staged — "
+                        "flushing partial", len(self._buffer),
+                        self._buffer.flush_threshold)
+            self._flush_buffer()
+
+    # ------------------------------------------------ crash points (chaos)
+    def _maybe_crash(self, point: str) -> None:
+        """Deterministic simulated-crash hook (loopback supervision):
+        ``_crash_plan`` holds ``(round, after_uploads)`` points derived
+        from chaos ``crash`` rules naming rank 0 — ``after_uploads=None``
+        dies BETWEEN COMMITS (entering the round, before any frame of it
+        leaves), an integer dies MID-ROUND once that many uploads of the
+        round were accepted (``0`` = broadcast out, nothing accepted yet;
+        their WAL records already fsync'd, their payloads about to die
+        with the process). Only the head of the plan is consulted; the
+        supervision driver pops it per boot, so a recovered server does
+        not re-crash on the same point. The reference's ``-1`` point (the
+        secure tier's reveal fan-out) is queued with secure aggregation;
+        the supervision driver refuses it (``api.server_crash_points``)."""
+        if not self._crash_plan:
+            return
+        rnd, after = self._crash_plan[0]
+        why = None
+        if point == "broadcast" and after is None \
+                and self.round_idx == int(rnd):
+            why = "between commits"
+        elif point == "post_broadcast" and after is not None \
+                and int(after) == 0 and self.round_idx == int(rnd):
+            # m=0 must fire with the broadcast out and ZERO uploads
+            # journaled — the upload hook can't express it (it only runs
+            # after an accept)
+            why = "mid-round after 0 uploads"
+        elif point == "upload" and after is not None and int(after) >= 1 \
+                and self.round_idx == int(rnd) \
+                and self._uploads_this_round >= int(after):
+            why = f"mid-round after {self._uploads_this_round} uploads"
+        if why is None:
+            return
+        exc = SimulatedServerCrash(self.round_idx, why)
+        # crash points can fire on the WATCHDOG or a timer thread, where a
+        # bare raise would kill only that thread: flag the crash and stop
+        # the dispatch loop WITHOUT any farewell frame (the loopback
+        # deregistration IS process death), then raise — run() re-raises
+        # the flag to the supervision driver whichever thread died first
+        self._sim_crash = exc
+        # black box (obs/flightrec.py): the crash is the one moment the
+        # in-memory ring MUST become durable — record the crash marker,
+        # then dump before the transport goes down
+        from fedml_tpu_torch.obs import flightrec as _flightrec
+
+        _flightrec.flight_record("sim_crash", rank=self.rank,
+                                 round=self.round_idx, point=point, why=why)
+        _flightrec.dump_active("sim_crash")
+        try:
+            inner = getattr(self.com_manager, "inner", self.com_manager)
+            inner.stop_receive_message()
+        except Exception:  # noqa: BLE001 — dying is the whole point
+            log.debug("simulated crash: transport teardown failed",
+                      exc_info=True)
+        raise exc
+
+    # --------------------------------------------------- session resumption
+    def _send_resume_probes(self) -> None:
+        """Post-restart probe fan-out: recovery found an OPEN round, so
+        clients may hold in-flight pre-crash work. Each rank gets one
+        s2c_resume frame carrying the new restart epoch; its c2s_resume
+        answer (last-seen round + async wave) tells the server who is
+        alive and what they hold before the open round is re-dispatched.
+        A backstop timer proceeds without the silent ranks (they re-enter
+        through the elastic undeliverable/reprobe machinery)."""
+        self._resume_pending = set(range(1, self.size))
+        log.info("resume probe: round %d re-runs under restart epoch %d — "
+                 "probing %d rank(s)", self._resume_round,
+                 self._restart_epoch, len(self._resume_pending))
+        for rank in range(1, self.size):
+            msg = Message(MyMessage.MSG_TYPE_S2C_RESUME_PROBE, self.rank,
+                          rank)
+            msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self._resume_round)
+            msg.add_params(MyMessage.MSG_ARG_KEY_RESTART_EPOCH,
+                           self._restart_epoch)
+            self.send_message(msg)
+        grace = self.round_timeout_s or 5.0
+        t = threading.Timer(grace, self._resume_backstop)
+        t.daemon = True
+        t.start()
+
+    def _resume_backstop(self) -> None:
+        with self._round_lock:
+            if self._resume_round is None or self._finished.is_set():
+                return
+            log.warning("resume probe: %d rank(s) silent past the grace — "
+                        "re-dispatching without them (elastic machinery "
+                        "owns their rejoin)", len(self._resume_pending))
+            self._complete_resume()
+
+    def handle_message_resume_ack(self, msg_params):
+        with self._round_lock:
+            if self._resume_round is None:
+                return  # late/duplicate ack after the backstop proceeded
+            sender = int(msg_params[Message.MSG_ARG_KEY_SENDER])
+            last = int(msg_params.get(MyMessage.MSG_ARG_KEY_LAST_SEEN_ROUND,
+                                      -1))
+            wave = int(msg_params.get(MyMessage.MSG_ARG_KEY_LAST_SEEN_WAVE,
+                                      -1))
+            self._resume_pending.discard(sender)
+            self._resume_acks[sender] = (last, wave)
+            log.info("resume probe: rank %d last saw round %d (wave %d); "
+                     "%d pending", sender, last, wave,
+                     len(self._resume_pending))
+            if not self._resume_pending:
+                self._complete_resume()
+
+    def _complete_resume(self) -> None:
+        """Re-dispatch the open round under the new epoch. Caller holds
+        _round_lock. Ranks whose ack shows pre-crash work for this round
+        get it superseded (the epoch gate sheds the stale upload when it
+        lands); ranks that never answered ride the elastic path."""
+        rnd, self._resume_round = self._resume_round, None
+        if rnd is None:
+            return
+        stale = sorted(r for r, (last, _w) in self._resume_acks.items()
+                       if last >= rnd)
+        if stale:
+            log.info("resume: ranks %s hold pre-crash round-%d work — "
+                     "superseded by the re-dispatch (epoch gate sheds it "
+                     "on arrival)", stale, rnd)
+        if self._async:
+            # async re-dispatch: every rank gets fresh work at the
+            # recovered round; wave counters already resume past the
+            # journaled maxima
+            self.aggregator.begin_round(self.round_idx)
+            for rank in range(1, self.size):
+                self._dispatch_one(rank)
+            return
+        self._broadcast_model(MyMessage.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT,
                               self.aggregator.get_global_model_params())
 
     def register_message_receive_handlers(self):
@@ -281,16 +1112,25 @@ class FedAvgServerManager(ServerManager):
             MyMessage.MSG_TYPE_C2S_SEND_MODEL_TO_SERVER,
             self.handle_message_receive_model_from_client,
         )
+        self.register_message_receive_handler(
+            MyMessage.MSG_TYPE_C2S_RESUME_ACK,
+            self.handle_message_resume_ack,
+        )
 
-    # sync rounds only look up the current version (the round-tag gate
+    # Sync rounds only look up the current version (the round-tag gate
     # drops anything else before densify), and the delta chain needs only
-    # r-1: two stashed versions, not a model copy per round
+    # r-1: two stashed versions, not a model copy per round. Async rounds
+    # retain enough versions to cover any admissible staleness, with a
+    # floor for the unbounded-staleness mode.
     _VERSION_RETAIN = 2
+    _ASYNC_VERSION_RETAIN = 16
 
     def _stash_version(self, version: int, decoded_leaves) -> None:
         self._version_pack[int(version)] = decoded_leaves
-        for v in [v for v in self._version_pack
-                  if v <= version - self._VERSION_RETAIN]:
+        retain = (max(self._ASYNC_VERSION_RETAIN,
+                      (self._staleness_bound or 0) + 2)
+                  if self._async else self._VERSION_RETAIN)
+        for v in [v for v in self._version_pack if v <= version - retain]:
             del self._version_pack[v]
 
     def _decode_upload(self, msg_params, sender: int, version: int):
@@ -355,8 +1195,41 @@ class FedAvgServerManager(ServerManager):
             return None
         return leaves
 
+    def _epoch_admits(self, msg_params) -> bool:
+        """Restart-epoch gate: an upload whose echoed epoch predates this
+        boot is PRE-CRASH in-flight work — its slot was already ledgered
+        ``server_restart`` at recovery (if the dead server had accepted
+        it) and the open round was re-dispatched, so folding it now would
+        double-count. Counted, never ledgered (arrival timing is
+        wall-clock; the ledger stays deterministic). Epoch-0 uploads
+        against an epoch-0 server pass untouched."""
+        up_epoch = int(msg_params.get(MyMessage.MSG_ARG_KEY_RESTART_EPOCH,
+                                      0))
+        if up_epoch == self._restart_epoch:
+            return True
+        _obs.record_stale_upload("server_restart")
+        log.warning("dropping upload from rank %s at restart epoch %d "
+                    "(server now at %d) — superseded by the post-crash "
+                    "re-dispatch",
+                    msg_params.get(Message.MSG_ARG_KEY_SENDER), up_epoch,
+                    self._restart_epoch)
+        return False
+
     def handle_message_receive_model_from_client(self, msg_params):
         with self._round_lock:
+            if not self._epoch_admits(msg_params):
+                if self._async:
+                    # the pre-crash dispatch is dead; hand the rank fresh
+                    # work under the new epoch so it rejoins the fleet
+                    sender = int(msg_params[Message.MSG_ARG_KEY_SENDER])
+                    self._record_shed("server_restart")
+                    self._awaiting.pop(sender, None)
+                    if not self._draining:
+                        self._dispatch_one(sender)
+                return
+            if self._async:
+                self._handle_async_upload(msg_params)
+                return
             sender = msg_params[Message.MSG_ARG_KEY_SENDER]
             msg_round = msg_params.get(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx)
             if int(msg_round) != self.round_idx:
@@ -403,13 +1276,33 @@ class FedAvgServerManager(ServerManager):
                 if self.aggregator.check_whether_all_receive():
                     self._advance_round()
                 return
+            if self.wal is not None and \
+                    self.aggregator.flag_client_model_uploaded.get(
+                        int(sender) - 1):
+                # journal the ACCEPT (fsync'd): the payload lives only in
+                # this process — if we die before the round commits,
+                # recovery ledgers this slot ``server_restart``
+                self._uploads_this_round += 1
+                self.wal.append(
+                    "upload", sync=True, round=int(msg_round),
+                    rank=int(sender),
+                    client=(self._round_ids[int(sender) - 1]
+                            if int(sender) - 1 < len(self._round_ids)
+                            else None),
+                    nsamp=float(
+                        msg_params[MyMessage.MSG_ARG_KEY_NUM_SAMPLES]))
+                self._maybe_crash("upload")
             if not self.aggregator.check_whether_all_receive():
                 return
             self._advance_round()
 
     def _round_record_extra(self) -> dict:
         """Extra blocks a subclass rides on the telemetry round record
-        (the hierarchical root adds its ``hier`` block); none here."""
+        (the hierarchical root adds its ``hier`` block). Rounds emitted
+        after a restart carry the epoch (crash-recovery provenance)."""
+        if self._restart_epoch:
+            return {"server": {"restarts": self._restart_epoch,
+                               "restart_epoch": self._restart_epoch}}
         return {}
 
     def _advance_round(self):
@@ -452,6 +1345,7 @@ class FedAvgServerManager(ServerManager):
         else:
             global_params = self.aggregator.aggregate()
             self.aggregator.test_on_server_for_all_clients(self.round_idx)
+        self._maybe_save()
         self.round_idx += 1
         if self.round_idx == self.round_num:
             self._broadcast_finish()
@@ -459,9 +1353,37 @@ class FedAvgServerManager(ServerManager):
         self._broadcast_model(MyMessage.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT,
                               global_params)
 
+    def finish(self):
+        try:
+            super().finish()
+        finally:
+            if self.wal is not None:
+                # flush + close the journal; a zombie timer appending
+                # after this is a no-op (closed-handle check), which is
+                # exactly the post-mortem silence a dead process has
+                self.wal.close()
+
     def on_timeout(self, idle_s: float):
         """Watchdog (own thread): no traffic for round_timeout_s."""
         with self._round_lock:
+            if self._async:
+                # async analogue of elastic partial aggregation: a stalled
+                # fleet flushes whatever is staged; a fully empty buffer
+                # means every rank is dark — reprobe them instead of
+                # waiting forever. A DRAINING server is quiet by design
+                # (FINISH is out) — let the grace timer finish it.
+                if self._finished.is_set() or self._draining:
+                    return
+                if len(self._buffer):
+                    log.warning("async: fleet idle %.1fs — flushing %d "
+                                "staged update(s)", idle_s,
+                                len(self._buffer))
+                    self._flush_buffer()
+                else:
+                    log.error("async: fleet idle %.1fs with an empty "
+                              "buffer — reprobing silent ranks", idle_s)
+                    self._async_reprobe(force=True)
+                return
             received = [i + 1 for i, v in
                         self.aggregator.flag_client_model_uploaded.items() if v]
             missing = [i + 1 for i, v in

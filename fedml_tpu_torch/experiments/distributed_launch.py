@@ -46,13 +46,6 @@ _UNPORTED_FLAGS = {
     "secagg_threshold_t": ("--secagg_threshold_t", int, None, 8),
     "secagg_quant_scale": ("--secagg_quant_scale", float, 2.0 ** 16, 8),
     "secagg_max_abs": ("--secagg_max_abs", float, 4.0, 8),
-    "ckpt_dir": ("--ckpt_dir", str, None, 8),
-    "supervise": ("--supervise", int, 0, 8),
-    "async_buffer_k": ("--async_buffer_k", int, None, 8),
-    "staleness": ("--staleness", str, "constant", 8),
-    "staleness_bound": ("--staleness_bound", int, None, 8),
-    "buffer_deadline_s": ("--buffer_deadline_s", float, None, 8),
-    "heartbeat_max_age_s": ("--heartbeat_max_age_s", float, None, 8),
     "shard_server_state": ("--shard_server_state", int, 0, 12),
     "partition_rules": ("--partition_rules", str, None, 12),
     "metrics_port": ("--metrics_port", int, None, 8),
@@ -97,6 +90,51 @@ def add_args(p: argparse.ArgumentParser):
                         "aggregates over the clients that DID report and "
                         "moves on (dead/straggler clients are dropped; "
                         "their stale uploads are discarded by round id)")
+    p.add_argument("--ckpt_dir", type=str, default=None,
+                   help="server round checkpoints; restart resumes the job "
+                        "(also arms the durable round WAL at "
+                        "<ckpt_dir>/wal)")
+    p.add_argument("--supervise", type=int, default=0, metavar="N",
+                   help="rank 0: run the server as a SUPERVISED child "
+                        "process and restart it up to N times when it "
+                        "dies (SIGKILL, crash, OOM). The child recovers "
+                        "through checkpoint + WAL (requires --ckpt_dir); "
+                        "clients survive the outage and answer the "
+                        "restarted server's resume probe. The child pid is "
+                        "published at <ckpt_dir>/server.pid. 0 = run "
+                        "in-process (default)")
+    p.add_argument("--async_buffer_k", "--async-buffer-k",
+                   dest="async_buffer_k", type=int, default=None,
+                   help="rank 0: buffered-async rounds — no round barrier; "
+                        "clients train continuously and the server "
+                        "aggregates every K sanitized arrivals with "
+                        "staleness-discounted weights, so stragglers "
+                        "degrade throughput instead of serializing the "
+                        "fleet. K = cohort with --staleness_bound 0 is "
+                        "bitwise the synchronous path. Unset = the "
+                        "synchronous barrier")
+    p.add_argument("--staleness", type=str, default="constant",
+                   help="async staleness discount: 'constant' | 'poly:A' "
+                        "((1+s)^-A) | 'exp:A' (e^-As) "
+                        "(core/async_buffer.py)")
+    p.add_argument("--staleness_bound", "--staleness-bound",
+                   dest="staleness_bound", type=int, default=None,
+                   help="async admission bound: reject-and-requeue updates "
+                        "staler than this many global updates (0 = the "
+                        "synchronous barrier expressed async; unset = "
+                        "admit any staleness, discount-only)")
+    p.add_argument("--buffer_deadline_s", "--buffer-deadline-s",
+                   dest="buffer_deadline_s", type=float, default=None,
+                   help="async: flush a partially-filled buffer after this "
+                        "many seconds from its first arrival (the async "
+                        "analogue of --round_timeout_s)")
+    p.add_argument("--heartbeat_max_age_s", "--heartbeat-max-age-s",
+                   dest="heartbeat_max_age_s", type=float, default=None,
+                   help="heartbeat-driven cohort admission (sync AND "
+                        "async): exclude ranks whose "
+                        "fed_last_heartbeat_age_seconds exceeds this from "
+                        "the cohort, with a periodic reprobe so a resumed "
+                        "rank rejoins")
     p.add_argument("--device", type=str, default=None,
                    help="torch device of this rank (default: the CUDA "
                         "device; with none, the launcher raises — pass "
@@ -273,6 +311,65 @@ def _drain_broker(broker, timeout_s: float = 60.0) -> None:
         timeout_s)
 
 
+def _supervise(args, argv) -> int:
+    """Rank-0 supervision loop: run the real server as a child process,
+    restart it up to ``--supervise N`` times when it dies abnormally
+    (SIGKILL, crash, OOM). Every restart recovers through checkpoint + WAL
+    — the child's OWN boot path, nothing supervisor-special — so the
+    supervisor stays a dumb loop: spawn, publish the pid, wait, decide. A
+    clean exit (rc 0) ends the job; exhausting the budget forwards the
+    child's rc."""
+    import os
+    import subprocess
+    import sys
+
+    from fedml_tpu_torch.core.wal import durable_write
+
+    log = logging.getLogger("fedml_tpu_torch.launch")
+    if not args.ckpt_dir:
+        raise ValueError("--supervise needs --ckpt_dir: the restarted "
+                         "server recovers through checkpoint + WAL")
+    child_argv = list(sys.argv[1:] if argv is None else argv)
+    # strip --supervise (both '--supervise N' and '--supervise=N' forms)
+    # so the child runs the server in-process
+    out, skip = [], False
+    for tok in child_argv:
+        if skip:
+            skip = False
+            continue
+        if tok == "--supervise":
+            skip = True
+            continue
+        if tok.startswith("--supervise="):
+            continue
+        out.append(tok)
+    os.makedirs(args.ckpt_dir, exist_ok=True)
+    pid_path = os.path.join(args.ckpt_dir, "server.pid")
+    restarts = 0
+    while True:
+        child = subprocess.Popen(
+            [sys.executable, "-m",
+             "fedml_tpu_torch.experiments.distributed_launch", *out])
+        # the pid file is a chaos driver's kill handle; atomic-replace so
+        # a reader never sees a torn pid
+        durable_write(pid_path, str(child.pid).encode())
+        log.info("supervise: server child pid %d (restart %d/%d)",
+                 child.pid, restarts, args.supervise)
+        rc = child.wait()
+        if rc == 0:
+            log.info("supervise: server exited cleanly after %d "
+                     "restart(s)", restarts)
+            return 0
+        restarts += 1
+        if restarts > args.supervise:
+            log.error("supervise: restart budget %d exhausted (last rc "
+                      "%s) — giving up", args.supervise, rc)
+            return rc if rc > 0 else 1
+        log.warning("supervise: server died (rc %s) — restarting "
+                    "(%d/%d); recovery replays checkpoint + WAL",
+                    rc, restarts, args.supervise)
+
+
 def _tree_rank(args, data, task, cfg, backend, device, agg_kw, telemetry,
                backend_kw):
     """This rank's manager in the hierarchical topology: rank 0 the root,
@@ -292,8 +389,8 @@ def _tree_rank(args, data, task, cfg, backend, device, agg_kw, telemetry,
                                    **agg_kw)
         return HierFedAvgServerManager(
             agg, rank=0, size=args.world_size, backend=backend,
-            round_timeout_s=args.round_timeout_s, telemetry=telemetry,
-            **backend_kw)
+            ckpt_dir=args.ckpt_dir, round_timeout_s=args.round_timeout_s,
+            telemetry=telemetry, **backend_kw)
     if args.rank <= args.edges:
         # every rank shares argv, so the edge reads the two-phase mode off
         # the --aggregator the root arms; its watchdog runs at HALF the
@@ -313,6 +410,48 @@ def _tree_rank(args, data, task, cfg, backend, device, agg_kw, telemetry,
         adversary_rank=slot + 1, **backend_kw)
 
 
+def init_role(args, data, task, cfg, backend_kw, telemetry=None,
+              device=None):
+    """Construct this rank's manager (does not run it): the server (or
+    the tree's root / edge) with the options rank 0 routes, or a client."""
+    from fedml_tpu_torch.distributed.fedavg.api import init_client, init_server
+
+    backend = args.backend.upper()
+    # robust aggregation: the aggregator's options, as the reference wires
+    # them (--byzantine_f only reaches an --aggregator)
+    agg_kw: dict = {}
+    if args.aggregator:
+        agg_kw["aggregator"] = args.aggregator
+        if args.byzantine_f is not None:
+            agg_kw["aggregator_params"] = {"f": args.byzantine_f}
+    if args.edges:
+        return _tree_rank(args, data, task, cfg, backend, device, agg_kw,
+                          telemetry, backend_kw)
+    if args.rank == 0:
+        srv_kw: dict = {}
+        if args.async_buffer_k is not None:
+            srv_kw.update(async_buffer_k=args.async_buffer_k,
+                          staleness=args.staleness,
+                          staleness_bound=args.staleness_bound,
+                          buffer_deadline_s=args.buffer_deadline_s)
+        return init_server(data, task, cfg, args.world_size, backend,
+                           device=device,
+                           agg_kw=dict(agg_kw, sum_assoc=args.sum_assoc),
+                           ckpt_dir=args.ckpt_dir,
+                           round_timeout_s=args.round_timeout_s,
+                           heartbeat_max_age_s=args.heartbeat_max_age_s,
+                           delta_broadcast=bool(args.delta_broadcast),
+                           telemetry=telemetry, **srv_kw, **backend_kw)
+    return init_client(data, task, cfg, args.rank, args.world_size,
+                       backend, device=device,
+                       sparsify_ratio=args.sparsify_ratio or None,
+                       update_codec=args.update_codec,
+                       error_feedback=bool(args.error_feedback),
+                       adversary_plan=_load_adversary_plan(
+                           args.adversary_plan),
+                       **backend_kw)
+
+
 def main(argv=None):
     args = add_args(argparse.ArgumentParser(
         "fedml_tpu_torch.distributed")).parse_args(argv)
@@ -325,6 +464,8 @@ def main(argv=None):
             "--edges with --algo turboaggregate (the hierarchical masked "
             "tier) is not ported yet: ROADMAP.md queue A, item 8")
     refuse_unported_flags(args)
+    if args.rank == 0 and args.supervise:
+        raise SystemExit(_supervise(args, argv))
     if args.edges:
         # the dense synchronous protocol is the tree's contract (the
         # flags of the other unported modes were refused just above)
@@ -335,6 +476,8 @@ def main(argv=None):
             ("--delta_broadcast", args.delta_broadcast or None),
             ("--sum_assoc", None if args.sum_assoc == "auto"
              else args.sum_assoc),  # the tree IS pairwise already
+            ("--async_buffer_k", args.async_buffer_k),
+            ("--heartbeat_max_age_s", args.heartbeat_max_age_s),
         ) if v is not None]
         if incompatible:
             raise ValueError(f"--edges does not compose with "
@@ -361,7 +504,6 @@ def main(argv=None):
     from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
     from fedml_tpu_torch.core.tasks import classification_task, sequence_task
     from fedml_tpu_torch.data.registry import DATASETS, load_dataset
-    from fedml_tpu_torch.distributed.fedavg.api import init_client, init_server
     from fedml_tpu_torch.models import create_model
 
     spec = DATASETS[args.dataset]
@@ -417,7 +559,6 @@ def main(argv=None):
     else:
         backend_kw.update(job_id="launch")
 
-    backend = args.backend.upper()
     telemetry = None
     if args.rank == 0 and (args.telemetry_dir or args.trace_dir):
         from fedml_tpu_torch.obs.telemetry import Telemetry
@@ -426,32 +567,8 @@ def main(argv=None):
         # critical-path round records) lands next to trace.json
         telemetry = Telemetry(log_dir=args.telemetry_dir or args.trace_dir,
                               trace_dir=args.trace_dir)
-    # robust aggregation: the aggregator's options, as the reference wires
-    # them (--byzantine_f only reaches an --aggregator)
-    agg_kw: dict = {}
-    if args.aggregator:
-        agg_kw["aggregator"] = args.aggregator
-        if args.byzantine_f is not None:
-            agg_kw["aggregator_params"] = {"f": args.byzantine_f}
-    if args.edges:
-        mgr = _tree_rank(args, data, task, cfg, backend, device, agg_kw,
-                         telemetry, backend_kw)
-    elif args.rank == 0:
-        mgr = init_server(data, task, cfg, args.world_size, backend,
-                          device=device,
-                          agg_kw=dict(agg_kw, sum_assoc=args.sum_assoc),
-                          round_timeout_s=args.round_timeout_s,
-                          delta_broadcast=bool(args.delta_broadcast),
-                          telemetry=telemetry, **backend_kw)
-    else:
-        mgr = init_client(data, task, cfg, args.rank, args.world_size,
-                          backend, device=device,
-                          sparsify_ratio=args.sparsify_ratio or None,
-                          update_codec=args.update_codec,
-                          error_feedback=bool(args.error_feedback),
-                          adversary_plan=_load_adversary_plan(
-                              args.adversary_plan),
-                          **backend_kw)
+    mgr = init_role(args, data, task, cfg, backend_kw, telemetry=telemetry,
+                    device=device)
     try:
         mgr.run()
         if broker is not None:

@@ -1,0 +1,385 @@
+"""Buffered-async rounds and heartbeat admission in the port
+(fedml_tpu_torch/core/async_buffer.py, obs/perf_instrument.py and the
+async mode of distributed/fedavg/server_manager.py) against the JAX
+package's, on tests/test_async_buffer.py's tiny configuration (synthetic
+images of 8 clients, 6x6x1, 3 classes, 12 samples each,
+LogisticRegression), from the same seeded numpy inputs and weights.
+
+Tolerances: the staleness oracle bitwise the JAX package's, its torch twin
+within the reference's 1e-6; inside the port the degenerate mode (K = cohort, bound 0)
+bitwise the synchronous run, model, history and ledger; against the JAX
+package's async run within 1e-5. The engine's virtual-clock runner
+(``FedAvgAPI.run_async``) is queued, so the reference's engine-side tests
+are mirrored on the cross-process server. No test waits out a deadline of
+more than 0.5 s: the buffer deadline is driven through ``_deadline_fire``.
+"""
+
+import os
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from fedml_tpu.algorithms.fedavg import FedAvgConfig as JaxConfig
+from fedml_tpu.comm.message import pack_pytree as jax_pack
+from fedml_tpu.core import async_buffer as J
+from fedml_tpu.core.tasks import classification_task as jax_classification_task
+from fedml_tpu.data.synthetic import synthetic_images as jax_synthetic_images
+from fedml_tpu.distributed.fedavg import api as jax_api
+from fedml_tpu.models.linear import LogisticRegression as JaxLR
+from fedml_tpu_torch import convert
+from fedml_tpu_torch.algorithms import FedAvgConfig
+from fedml_tpu_torch.chaos import AdversaryPlan, FaultPlan
+from fedml_tpu_torch.comm.message import pack_pytree
+from fedml_tpu_torch.core import async_buffer as P
+from fedml_tpu_torch.core.tasks import classification_task
+from fedml_tpu_torch.core.wal import RoundWAL
+from fedml_tpu_torch.data.synthetic import synthetic_images
+from fedml_tpu_torch.distributed.fedavg import run_simulated
+from fedml_tpu_torch.distributed.fedavg.aggregator import FedAvgAggregator
+from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage
+from fedml_tpu_torch.distributed.fedavg.server_manager import (
+    FedAvgServerManager,
+)
+from fedml_tpu_torch.distributed.utils import backend_kwargs
+from fedml_tpu_torch.models import create_model
+from fedml_tpu_torch.obs import perf_instrument
+from fedml_tpu_torch.obs.metrics import REGISTRY
+
+DATA_KW = dict(num_clients=8, image_shape=(6, 6, 1), num_classes=3,
+               samples_per_client=12, test_samples=48, seed=0)
+TOL_RUN = dict(rtol=1e-5, atol=1e-6)
+
+
+def _cfg(rounds=3, per_round=3, freq=1):
+    return dict(comm_round=rounds, client_num_in_total=8,
+                client_num_per_round=per_round, epochs=1, batch_size=6,
+                lr=0.1, frequency_of_the_test=freq, seed=0)
+
+
+@pytest.fixture(scope="module")
+def setup():
+    jdata = jax_synthetic_images(**DATA_KW)
+    jtask = jax_classification_task(JaxLR(num_classes=3))
+    _, key = jax.random.split(jax.random.PRNGKey(0))
+    params = jax.tree.map(np.asarray, jtask.init(
+        key, jnp.asarray(jdata.train_x[:6])).params)
+    state = convert.from_flax(params)
+    task = classification_task(create_model("lr", output_dim=3, device="cpu"))
+    task = task._replace(init=lambda g, x=None: {k: v.clone()
+                                                 for k, v in state.items()})
+    return dict(data=synthetic_images(**DATA_KW), task=task, jdata=jdata,
+                jtask=jtask)
+
+
+def _port(s, job, rounds=3, per_round=3, chaos=None, adversary=None, **kw):
+    return run_simulated(
+        s["data"], s["task"], FedAvgConfig(**_cfg(rounds, per_round)),
+        job_id=job, device="cpu",
+        chaos_plan=None if chaos is None else FaultPlan.from_json(chaos),
+        adversary_plan=(None if adversary is None
+                        else AdversaryPlan.from_json(adversary)), **kw)
+
+
+def _same(a, b) -> bool:
+    return (all(x.tobytes() == y.tobytes() for x, y in
+                zip(pack_pytree(a.net), pack_pytree(b.net)))
+            and a.history == b.history
+            and a.quarantine.canonical() == b.quarantine.canonical())
+
+
+# ------------------------------------------------------ staleness discounts
+@pytest.mark.parametrize("kind,a", [("constant", 0.5), ("polynomial", 0.5),
+                                    ("polynomial", 2.0),
+                                    ("exponential", 0.3),
+                                    ("exponential", 1.0)])
+def test_staleness_discounts_match_the_oracle(kind, a):
+    """The numpy oracle — the discount the server's flush applies — is
+    bitwise the JAX package's; the torch twin matches it within the
+    reference's 1e-6 for its device twin (numpy's float32 pow and exp are
+    not the device's), and ``constant`` is exactly 1.0 on both."""
+    s = np.array([0, 1, 2, 5, 17], np.int32)
+    oracle = P.staleness_oracle(kind, a)(s)
+    assert oracle.dtype == np.float32
+    assert oracle.tobytes() == np.asarray(
+        J.staleness_oracle(kind, a)(s), np.float32).tobytes()
+    got = P.make_staleness_fn(kind, a)(torch.from_numpy(s)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_allclose(got, oracle, rtol=1e-6)
+    np.testing.assert_allclose(
+        got, np.asarray(jax.jit(J.make_staleness_fn(kind, a))(s)),
+        rtol=1e-6)
+    if kind == "constant":
+        assert got.tolist() == oracle.tolist() == [1.0] * len(s)
+    else:
+        assert all(got[i] >= got[i + 1] for i in range(len(s) - 1))
+
+
+def test_staleness_policy_spec_parsing_matches_the_reference():
+    for spec, bound in (("poly:0.8", 2), ("exp:0.3", None),
+                        (None, None), ("polynomial:1.5", 0),
+                        ("EXPONENTIAL", 3), ("constant", 0)):
+        p = P.StalenessPolicy.from_spec(spec, bound=bound)
+        j = J.StalenessPolicy.from_spec(spec, bound=bound)
+        assert (p.kind, p.a, p.bound, p.synchronous) == \
+            (j.kind, j.a, j.bound, j.synchronous)
+        assert [p.admits(s) for s in range(5)] == [j.admits(s)
+                                                   for s in range(5)]
+    p = P.StalenessPolicy.from_spec("poly:0.8", bound=2)
+    assert P.StalenessPolicy.from_spec(p) is p
+    assert P.StalenessPolicy.from_spec(p, bound=0).synchronous
+    with pytest.raises(ValueError):
+        P.StalenessPolicy.from_spec("fancy:1")
+    with pytest.raises(ValueError):
+        P.StalenessPolicy(bound=-1)
+    # the shed vocabulary the metric family pre-registers
+    assert P.SHED_REASONS == J.SHED_REASONS
+    perf_instrument.ensure_async_shed_families()
+    fam = REGISTRY.snapshot()["fed_async_shed_total"]
+    assert {f"reason={r}" for r in P.SHED_REASONS} <= set(fam)
+
+
+# ------------------------------------------------------------- buffer unit
+def _bu(rank, version, seq):
+    return P.BufferedUpdate(rank=rank, client=rank - 1, version=version,
+                            wave=version, payload=None, nsamp=1.0, seq=seq,
+                            t_arrival=float(seq))
+
+
+def test_async_buffer_overflow_sheds_the_stalest():
+    journal = []
+    buf = P.AsyncBuffer(k=8, capacity=3,
+                        journal=lambda ev, e: journal.append((ev, e.rank)))
+    assert buf.flush_threshold == 3  # capacity clamps K
+    shed = []
+    for i, v in enumerate([5, 2, 7]):
+        shed += buf.add(_bu(rank=i + 1, version=v, seq=i))
+    assert not shed and len(buf) == 3 and buf.ready
+    shed = buf.add(_bu(rank=4, version=6, seq=3))
+    assert [e.version for e in shed] == [2]
+    assert journal[-2:] == [("admit", 4), ("shed", 2)]
+    assert [e.rank for e in buf.drain()] == [1, 3, 4]
+    assert len(buf) == 0
+    with pytest.raises(ValueError):
+        P.AsyncBuffer(k=0)
+
+
+def test_straggle_duration_model_matches_the_reference():
+    from fedml_tpu.chaos import FaultPlan as JaxFaultPlan
+
+    spec = {"seed": 7, "rules": [
+        {"fault": "straggle", "src": [2], "delay_s": 2.0},
+        {"fault": "straggle", "src": [3], "delay_s": 0.5, "prob": 0.5},
+        {"fault": "crash", "ranks": [4], "rounds": [1, 3]}]}
+    p, j = FaultPlan.from_json(spec), JaxFaultPlan.from_json(spec)
+    for rank in range(1, 5):
+        for wave in range(4):
+            assert P.straggle_delay_s(p, rank, wave) == \
+                J.straggle_delay_s(j, rank, wave)
+            assert P.crashed_in_wave(p, rank, wave) == \
+                J.crashed_in_wave(j, rank, wave)
+    assert P.sync_virtual_wallclock(p, 4, 5) == \
+        J.sync_virtual_wallclock(j, 4, 5)
+
+
+# ----------------------------------------------- degenerate bitwise parity
+def test_async_k_cohort_bound0_bitwise_equals_sync_and_the_jax_run(setup):
+    """K = cohort with bound 0 is the barrier expressed async: bitwise the
+    port's sync run (model, history, ledger), and within 1e-5 of the JAX
+    package's same async run."""
+    sync = _port(setup, "ta-par-sync")
+    asy = _port(setup, "ta-par-async", async_buffer_k=3,
+                staleness="constant", staleness_bound=0)
+    assert _same(sync, asy)
+    jasy = jax_api.run_simulated(
+        setup["jdata"], setup["jtask"], JaxConfig(**_cfg()),
+        job_id="ta-par-jax", async_buffer_k=3, staleness="constant",
+        staleness_bound=0)
+    for a, b in zip(pack_pytree(asy.net), jax_pack(jasy.net)):
+        np.testing.assert_allclose(a, np.asarray(b), **TOL_RUN)
+    assert [h["round"] for h in asy.history] == \
+        [h["round"] for h in jasy.history]
+
+
+def test_async_k_cohort_gated_matches_sync_model_and_ledger(setup):
+    # a tight norm gate quarantines natural outliers -> non-vacuous ledgers
+    kw = dict(aggregator="median", sanitize=0.9)
+    sync = _port(setup, "ta-gate-sync", per_round=4, **kw)
+    asy = _port(setup, "ta-gate-async", per_round=4, async_buffer_k=4,
+                staleness_bound=0, **kw)
+    assert _same(sync, asy)
+    assert len(sync.quarantine.canonical()) > 0
+
+
+def test_seeded_async_chaos_run_replays_bit_for_bit(setup):
+    """K = cohort, bound 0, a seeded plan of duplicated and delayed uplinks
+    and a scaling attacker under the norm gate: two runs are bitwise equal
+    (the wave gate drops every duplicate; every flush is the whole cohort,
+    gated at the flush)."""
+    chaos = {"seed": 11, "rules": [
+        {"fault": "duplicate", "src": [1, 2, 3], "dst": [0], "prob": 0.3},
+        {"fault": "straggle", "src": [2], "delay_s": 0.02}]}
+    adv = {"seed": 5, "rules": [{"attack": "scale", "ranks": [3],
+                                 "factor": 50.0, "rounds": [1, 3]}]}
+    runs = [_port(setup, f"ta-replay-{i}", rounds=4, chaos=chaos,
+                  adversary=adv, async_buffer_k=3, staleness_bound=0,
+                  sanitize=True) for i in range(2)]
+    assert _same(*runs)
+    assert any(e[2] == "norm_outlier"
+               for e in runs[0].quarantine.canonical())
+
+
+def test_unbounded_async_run_completes_and_exports_its_families(setup):
+    agg = _port(setup, "ta-unbounded", rounds=5, async_buffer_k=2,
+                staleness="poly:0.5")
+    assert agg.history[-1]["round"] == 4
+    assert all(bool(torch.isfinite(v).all()) for v in agg.net.values())
+    prom = REGISTRY.to_prometheus()
+    for fam in ("fed_buffer_fill_seconds", "fed_update_staleness",
+                "fed_async_shed_total"):
+        assert fam in prom, fam
+
+
+# --------------------------------------------------------------- admission
+def _server(setup, job, k=3, **kw):
+    agg = FedAvgAggregator(setup["data"], setup["task"],
+                           FedAvgConfig(**_cfg(rounds=4)), worker_num=3,
+                           device="cpu")
+    srv = FedAvgServerManager(agg, rank=0, size=4, async_buffer_k=k,
+                              **backend_kwargs("LOOPBACK", job, 0,
+                                               "127.0.0.1", 1), **kw)
+    sent = []
+    srv.send_message = sent.append
+    return srv, sent
+
+
+def _upload(srv, rank, version, leaves=None):
+    wave = srv._awaiting[rank]
+    return {"sender": rank, MyMessage.MSG_ARG_KEY_ROUND: version,
+            MyMessage.MSG_ARG_KEY_DISPATCH_WAVE: wave,
+            MyMessage.MSG_ARG_KEY_CLIENT_INDEX: rank - 1,
+            MyMessage.MSG_ARG_KEY_NUM_SAMPLES: 12,
+            MyMessage.MSG_ARG_KEY_MODEL_PARAMS: (
+                leaves if leaves is not None
+                else srv.aggregator.get_global_model_params())}
+
+
+def test_admission_bound_rejects_and_requeues(setup):
+    """An arrival staler than the bound is shed ``stale`` and its rank
+    requeued with the fresh global at once; one within the bound is
+    staged."""
+    srv, sent = _server(setup, "ta-bound", staleness_bound=1)
+    try:
+        srv.send_init_msg()
+        srv.round_idx = 3  # three flushes since rank 1's dispatch
+        n = len(sent)
+        with srv._round_lock:
+            srv._handle_async_upload(_upload(srv, 1, version=0))
+        assert srv._shed_counts == {"stale": 1} and len(srv._buffer) == 0
+        requeue = sent[n]
+        assert (requeue.get_receiver_id(),
+                requeue.get(MyMessage.MSG_ARG_KEY_ROUND),
+                requeue.get(MyMessage.MSG_ARG_KEY_DISPATCH_WAVE)) == (1, 3, 1)
+        with srv._round_lock:
+            srv._handle_async_upload(_upload(srv, 2, version=2))
+        assert len(srv._buffer) == 1 and srv._shed_counts == {"stale": 1}
+    finally:
+        srv.finish()
+
+
+def test_nonfinite_arrival_never_enters_the_buffer(setup, monkeypatch):
+    orig = P.AsyncBuffer.add
+
+    def checked_add(self, entry):
+        assert all(bool(torch.isfinite(v).all())
+                   for v in entry.payload.values()), \
+            "a non-finite arrival reached the buffer"
+        return orig(self, entry)
+
+    monkeypatch.setattr(P.AsyncBuffer, "add", checked_add)
+    agg = _port(setup, "ta-nan", rounds=4, async_buffer_k=3,
+                staleness="poly:0.5",
+                adversary={"seed": 5, "rules": [
+                    {"attack": "nan", "ranks": [2], "rounds": [1, 3]}]})
+    assert any(e[1] == 2 and e[2] == "nonfinite"
+               for e in agg.quarantine.canonical())
+    assert all(bool(torch.isfinite(v).all()) for v in agg.net.values())
+
+
+def test_deadline_flushes_a_partial_buffer(setup):
+    """With one arrival staged and K = 3, the buffer deadline (driven, not
+    waited) flushes a partial aggregate of that one update; a deadline
+    armed for an already-flushed buffer is ignored."""
+    srv, sent = _server(setup, "ta-deadline", buffer_deadline_s=600.0)
+    try:
+        srv.send_init_msg()
+        before = srv.aggregator.get_global_model_params()
+        leaves = [v + 0.5 for v in before]
+        with srv._round_lock:
+            srv._handle_async_upload(_upload(srv, 2, version=0,
+                                             leaves=leaves))
+        epoch = srv._buffer_epoch
+        assert len(srv._buffer) == 1 and srv.round_idx == 0
+        srv._deadline_fire(epoch)
+        assert srv.round_idx == 1 and len(srv._buffer) == 0
+        for a, b in zip(srv.aggregator.get_global_model_params(), leaves):
+            np.testing.assert_array_equal(a, b)  # a weight-1 mean of one
+        srv._deadline_fire(epoch)  # stale epoch: nothing happens
+        assert srv.round_idx == 1
+    finally:
+        srv.finish()
+
+
+# ------------------------------------------------------------ restart
+def test_async_buffered_restart_stays_live_and_ledgers_lost_admits(
+        setup, tmp_path):
+    """A mid-flight server crash in async mode: the job completes every
+    global update, dispatch waves resume past their journaled maxima
+    (no (rank, wave) repeats), and the admits that died with the process,
+    less the overflow sheds, are ledgered ``server_restart``."""
+    agg = _port(setup, "ta-restart", rounds=6, async_buffer_k=3,
+                staleness_bound=0, round_timeout_s=30.0,
+                ckpt_dir=str(tmp_path),
+                chaos={"seed": 1, "rules": [
+                    {"fault": "crash", "ranks": [0], "rounds": [2, 3],
+                     "after_uploads": 1}]})
+    assert agg.history[-1]["round"] == 5
+    rep = RoundWAL.replay(os.path.join(str(tmp_path), "wal"))
+    seen = [(r["rank"], r["wave"]) for r in rep.of_kind("dispatch")]
+    assert len(seen) == len(set(seen))
+    # the admits of the crashed boot past its last commit
+    boot = [i for i, r in enumerate(rep.records) if r["kind"] == "restart"]
+    assert len(boot) == 2
+    dead = rep.records[:boot[1]]
+    last = max(i for i, r in enumerate(dead) if r["kind"] == "commit")
+    tail = dead[last + 1:]
+    admits = {(r["rank"], r["wave"]) for r in tail if r["kind"] == "admit"}
+    shed = {(r["rank"], r["wave"]) for r in tail if r["kind"] == "shed"}
+    lost = [e for e in agg.quarantine.canonical()
+            if e[2] == "server_restart"]
+    assert len(lost) == len(admits - shed) >= 1
+    assert all(e[0] == 2 for e in lost)
+
+
+# ---------------------------------------------------- heartbeat admission
+def test_heartbeat_admission_crash_window_excludes_then_readmits(setup):
+    """Rank 2 is dark for rounds [1, 3): heartbeat admission excludes it
+    without waiting out a 0.5 s deadline on every round, and readmits it
+    after the window (its heartbeat is fresh again)."""
+    import time
+
+    from fedml_tpu_torch.obs.comm_instrument import (heartbeat_ages,
+                                                     reset_heartbeats)
+
+    reset_heartbeats()  # earlier loopback jobs' silence must not leak in
+    t0 = time.perf_counter()
+    agg = _port(setup, "ta-hb", rounds=7,
+                chaos={"seed": 9, "rules": [
+                    {"fault": "crash", "ranks": [2], "rounds": [1, 3]}]},
+                round_timeout_s=0.5, heartbeat_max_age_s=0.35)
+    wall = time.perf_counter() - t0
+    assert agg.history and agg.history[-1]["round"] == 6
+    assert wall < 6 * 0.5 + 2.5, wall
+    assert heartbeat_ages().get(2, 1e9) < 5.0

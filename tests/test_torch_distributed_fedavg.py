@@ -388,24 +388,54 @@ def test_launcher_runs_the_wire_flags(tmp_path):
     assert (tmp_path / "metrics.prom").exists()
 
 
-@pytest.mark.parametrize("option", [
-    dict(ckpt_dir="/nonexistent"),
-    # a server restart (a crash rule naming rank 0) needs checkpoint + WAL
-    dict(chaos_plan=FaultPlan.from_json(
+# Options whose own protocol is ported now (checkpoints, crash recovery,
+# buffered-async rounds, heartbeat admission) keep their case, each with
+# the composition that still raises: resuming a DP run's WAL, the
+# mid-reveal crash point of the secure tier, and the rank-level churn trace
+# the async dispatch and heartbeat paths consult (all item 8).
+_CHURN = object()
+_OPTION_CASES = {
+    "ckpt_dir": lambda d: dict(ckpt_dir=_dp_wal(d)),
+    "chaos_plan": lambda d: dict(ckpt_dir=str(d), chaos_plan=FaultPlan.from_json(
         {"seed": 0, "rules": [{"fault": "crash", "ranks": [0],
-                               "rounds": [1, 2]}]})),
-    dict(shard_server_state=True),
-    dict(partition_rules=[]), dict(async_buffer_k=2),
-    dict(staleness="poly:0.5"), dict(staleness_bound=1),
-    dict(buffer_deadline_s=1.0), dict(buffer_capacity=4),
-    dict(heartbeat_max_age_s=1.0),
-    dict(edges=2, fused_agg=True), dict(fused_agg=True),
-    dict(churn_trace=object()),
-], ids=lambda kw: next(iter(kw)))
-def test_unported_run_simulated_options_raise(setup, option):
+                               "rounds": [1, 2], "after_uploads": -1}]})),
+    "shard_server_state": lambda d: dict(shard_server_state=True),
+    "partition_rules": lambda d: dict(partition_rules=[]),
+    "async_buffer_k": lambda d: dict(async_buffer_k=2, churn_trace=_CHURN),
+    "staleness": lambda d: dict(async_buffer_k=2, staleness="poly:0.5",
+                                churn_trace=_CHURN),
+    "staleness_bound": lambda d: dict(async_buffer_k=2, staleness_bound=1,
+                                      churn_trace=_CHURN),
+    "buffer_deadline_s": lambda d: dict(async_buffer_k=2,
+                                        buffer_deadline_s=1.0,
+                                        churn_trace=_CHURN),
+    "buffer_capacity": lambda d: dict(async_buffer_k=2, buffer_capacity=4,
+                                      churn_trace=_CHURN),
+    "heartbeat_max_age_s": lambda d: dict(heartbeat_max_age_s=1.0,
+                                          churn_trace=_CHURN),
+    "edges": lambda d: dict(edges=2, fused_agg=True),
+    "fused_agg": lambda d: dict(fused_agg=True),
+    "churn_trace": lambda d: dict(churn_trace=_CHURN),
+}
+
+
+def _dp_wal(d) -> str:
+    """A ckpt_dir whose WAL holds a DP pre-charge (a DP run's crash
+    artifact): resuming it needs the accountant's recovery."""
+    from fedml_tpu_torch.core.wal import RoundWAL
+
+    w = RoundWAL(str(d / "wal"))
+    w.append("broadcast", sync=True, round=0)
+    w.append("precharge", sync=True, round=0, q=0.5, z=1.0)
+    w.close()
+    return str(d)
+
+
+@pytest.mark.parametrize("option", list(_OPTION_CASES))
+def test_unported_run_simulated_options_raise(setup, option, tmp_path):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A, item"):
         run_simulated(setup["data"], setup["task"], FedAvgConfig(**CFG),
-                      device="cpu", **option)
+                      device="cpu", **_OPTION_CASES[option](tmp_path))
 
 
 @pytest.mark.parametrize("option", [
@@ -430,11 +460,15 @@ def test_robust_run_simulated_options_run(setup, option):
     assert agg.sum_assoc == option.get("sum_assoc", "auto")
 
 
+# --ckpt_dir, --async_buffer_k and --supervise run now: each case pairs
+# the flag with a flag still refused (the DP noise multiplier, the fleet
+# plane, the metrics endpoint: item 8), so nothing starts
 @pytest.mark.parametrize("flag", [
     ["--algo", "fedopt"], ["--edges", "2", "--algo", "turboaggregate"],
-    ["--ckpt_dir", "/tmp/x"],
-    ["--async_buffer_k", "2"], ["--fused_agg", "1"],
-    ["--shard_server_state", "1"], ["--supervise", "1"],
+    ["--ckpt_dir", "/tmp/x", "--noise_multiplier", "0.5"],
+    ["--async_buffer_k", "2", "--fleet", "1"], ["--fused_agg", "1"],
+    ["--shard_server_state", "1"],
+    ["--supervise", "1", "--ckpt_dir", "/tmp/x", "--metrics_port", "9"],
 ], ids=lambda f: f[0])
 def test_unported_launcher_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A, item"):

@@ -659,11 +659,15 @@ def test_encoded_uplink_reaching_an_edge_raises():
 @pytest.mark.parametrize("case", ["fused_agg", "edge_fused", "root_crash",
                                   "resume_probe", "fleet_marker",
                                   "turboaggregate"])
-def test_unported_tree_options_raise_naming_their_item(setup, case):
+def test_unported_tree_options_raise_naming_their_item(setup, case,
+                                                       tmp_path):
     """The tree's options still out of scope raise NotImplementedError
-    naming their ROADMAP.md item: the fused edge ingest (7); a root
-    restart, an edge's resume probe, a relayed fleet marker and the
-    hierarchical masked tier (8)."""
+    naming their ROADMAP.md item: the fused edge ingest (7); the masked
+    tier's mid-reveal root crash point, resuming a root from a DP run's
+    WAL, a relayed fleet marker and the hierarchical masked tier (8).
+    Root restarts and the edge's resume probe run now
+    (tests/test_torch_recovery.py): their cases keep the refusals that
+    remain next to them."""
     item = "7" if case in ("fused_agg", "edge_fused") else "8"
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue A, item {item}"):
@@ -674,9 +678,12 @@ def test_unported_tree_options_raise_naming_their_item(setup, case):
                 1, hierarchy.EdgeTopology(edges=2, workers=8), fused=True,
                 device="cpu", job_id="th-edge-fused")
         elif case == "root_crash":
-            _run(setup, "th-root-crash", edges=2, chaos={
-                "seed": 0, "rules": [{"fault": "crash", "ranks": [0],
-                                      "rounds": [1, 2]}]})
+            _run(setup, "th-root-crash", edges=2, ckpt_dir="/nowhere",
+                 chaos={"seed": 0, "rules": [
+                     {"fault": "crash", "ranks": [0], "rounds": [1, 2],
+                      "after_uploads": -1}]})
+        elif case == "resume_probe":
+            _resume_dp_wal_root(setup, str(tmp_path))
         elif case == "turboaggregate":
             distributed_launch.main([
                 "--rank", "0", "--world_size", "11", "--device", "cpu",
@@ -684,14 +691,27 @@ def test_unported_tree_options_raise_naming_their_item(setup, case):
         else:
             edge = _edge(f"th-{case}")
             try:
-                if case == "resume_probe":
-                    edge._handle_resume_probe({})
-                else:
-                    edge._handle_downlink(
-                        MyMessage.MSG_TYPE_S2C_INIT_CONFIG,
-                        {MyMessage.MSG_ARG_KEY_TELEMETRY: {"job": "x"}})
+                edge._handle_downlink(
+                    MyMessage.MSG_TYPE_S2C_INIT_CONFIG,
+                    {MyMessage.MSG_ARG_KEY_TELEMETRY: {"job": "x"}})
             finally:
                 edge.finish()
+
+
+def _resume_dp_wal_root(setup, d):
+    """A tree root booted on a ckpt_dir whose WAL holds a DP pre-charge."""
+    from fedml_tpu_torch.core.wal import RoundWAL
+
+    w = RoundWAL(d + "/wal")
+    w.append("broadcast", sync=True, round=0)
+    w.append("precharge", sync=True, round=0, q=0.5, z=1.0)
+    w.close()
+    topo = hierarchy.EdgeTopology(edges=2, workers=8)
+    agg = hierarchy.HierFedAvgAggregator(
+        setup["data"], setup["task"], FedAvgConfig(**_cfg()), topo,
+        device="cpu")
+    hierarchy.HierFedAvgServerManager(agg, rank=0, size=11, ckpt_dir=d,
+                                      job_id="th-root-dp")
 
 
 # ----------------------------------------------------------------- launcher
