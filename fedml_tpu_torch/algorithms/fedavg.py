@@ -18,10 +18,22 @@ Every round times its host phases on ``self.tracer`` (obs/tracing
 ``RoundTracer``): ``pack`` (sampling, packing, the copy or the device
 gather), ``round`` (dispatching the fit and the aggregate; the card runs
 on after it), ``eval``. A ``telemetry`` bundle adds one record a round
-(clients, spans, the summed metrics and ``round_stats``, comm bytes) and
-feeds the spans to its tracer; with telemetry off nothing syncs and
-nothing is added to the round. The reference's goodput, privacy and pack
-blocks of that record need modules not ported yet and are left out.
+(clients, spans, the summed metrics and ``round_stats``, comm bytes, and a
+DP engine's ``privacy`` block) and feeds the spans to its tracer; with
+telemetry off nothing syncs and nothing is added to the round. The
+reference's goodput and pack blocks of that record need modules not
+ported yet and are left out.
+
+The key chain is the JAX engine's (utils/prng, host words): ``self.rng``
+starts at ``PRNGKey(seed)``, is split once for the init (the port draws
+its weights from its own generator, but the chain must match), then each
+round splits off a key and splits that three ways into (rng, kh, kp):
+``kh`` keys the per-client ``client_result_hook(net_k, net_global, key)``
+(vmapped over the cohort, ``split(kh, K)``), ``kp`` the
+``post_aggregate_hook(net, key)`` that ``_update_from_aggregate`` applies,
+the one server-side composition the round and the async flush share.
+DP-FedAvg rides these hooks (algorithms/fedavg_robust.py), and so its
+noise is the JAX package's own draw.
 
 Byzantine robustness (core/robust_agg.py, chaos/adversary.py):
 ``aggregator`` swaps the weighted mean for a robust estimator behind the
@@ -30,8 +42,13 @@ stacked client nets right after the batched fit, slot ``i`` playing worker
 rank ``i + 1``. An armed round reads its ``[K]`` reason codes back into
 ``self.quarantine`` (one sync a round); with all four options at their
 defaults the round runs the ops it ran before they existed.
-Mesh/SPMD round loops, prefetch pipelines and the other engine options
-are queued in ROADMAP.md (queue A, items 5-8); passing one raises.
+
+A ``cfg.churn_trace`` (chaos/churn.py) restricts each round's draw to the
+trace's available clients, so the cohort, and the batched fit's K, vary
+by round. ``run_async`` drives buffered-async updates on a virtual clock
+(core/async_buffer.VirtualClockAsyncRunner). Mesh/SPMD round loops,
+prefetch pipelines and the other engine options are queued in ROADMAP.md
+(queue A, items 5-8); passing one raises.
 """
 
 from __future__ import annotations
@@ -70,6 +87,7 @@ from fedml_tpu_torch.core.local import (
 from fedml_tpu_torch.core.sampling import prepare_sampling, sample_for
 from fedml_tpu_torch.device import resolve_device
 from fedml_tpu_torch.obs.tracing import RoundTracer
+from fedml_tpu_torch.utils import prng
 from fedml_tpu_torch.utils.tree import tree_weighted_mean
 
 log = logging.getLogger("fedml_tpu_torch.fedavg")
@@ -262,14 +280,12 @@ class FedAvgAPI:
                  telemetry=None, aggregator=None,
                  aggregator_params: dict | None = None,
                  sanitize: bool | float | None = None,
-                 adversary_plan=None, **unported):
+                 adversary_plan=None, client_result_hook=None,
+                 post_aggregate_hook=None, **unported):
         if unported:
             raise NotImplementedError(
                 f"FedAvgAPI options {sorted(unported)} are not ported yet: "
                 "ROADMAP.md queue A, items 5-8")
-        if config.churn_trace is not None:
-            raise NotImplementedError("churn_trace is not ported yet: "
-                                      "ROADMAP.md queue A, item 8")
         self.data = dataset
         self.task = task
         self.cfg = config
@@ -294,9 +310,17 @@ class FedAvgAPI:
         self.eval_fn = make_eval_fn(task)
         self._cohort_eval = make_cohort_eval_fn(task)
 
+        # (net_k, net_global, key) -> net_k, vmapped over the cohort; and
+        # (net, key) -> net after the aggregate (see module docstring)
+        self.client_result_hook = client_result_hook
+        self.post_aggregate_hook = post_aggregate_hook
+        # the JAX engine's key chain: PRNGKey(seed), one split for the init
+        self.rng = prng.split(prng.key(config.seed))[0]
         init = task.init(torch.Generator().manual_seed(config.seed),
                          dataset.train_x[:config.batch_size])
         self.net = {k: v.to(self.device) for k, v in init.items()}
+        # the server optimizer's state: none until FedOpt (item 9)
+        self.server_opt_state = ()
         self._test_cache = None
         self._eval_calls = 0
         self.history: list[dict] = []
@@ -383,9 +407,14 @@ class FedAvgAPI:
             ids = self._sampled_ids(round_idx)
             x, y, mask, nsamp = self._round_batch(round_idx, ids)
         with self.tracer.span("round"), float32_compute():
+            # one key a round, split three ways (the JAX round program's)
+            self.rng, rk = prng.split(self.rng)
+            _, kh, kp = prng.split(rk, 3)
             nets, metrics = self.local_update(self.net, x, y, mask)
             if self._adversary is not None:
                 nets = self._adversary(nets, self.net, round_idx)
+            if self.client_result_hook is not None:
+                nets = self._client_hook(nets, kh, len(ids))
             weights = agg_weights(nsamp, self.uniform_avg)
             reasons = None
             if self._needs_stacked:
@@ -394,10 +423,13 @@ class FedAvgAPI:
                     norm_mult=self._sanitize_mult)
             else:
                 avg = tree_weighted_mean(nets, weights)
+            new_net, self.server_opt_state = self._update_from_aggregate(
+                self.net, avg, self.server_opt_state, kp)
             metrics = {k: v.sum() for k, v in metrics.items()}
             if self._emit_stats:
-                metrics.update(round_stats(self.net, avg, nets, avg, nsamp))
-            self.net = avg
+                metrics.update(round_stats(self.net, new_net, nets, avg,
+                                           nsamp))
+            self.net = new_net
         if reasons is not None:
             # the round's one host read: its [K] codes into the ledger
             self.quarantine.record_codes(round_idx, reasons.cpu().numpy(),
@@ -410,12 +442,39 @@ class FedAvgAPI:
                 round_idx, clients=np.asarray(ids).tolist(),
                 spans=self._span_delta(spans_before),
                 metrics={k: float(v) for k, v in metrics.items()},
-                **self._quarantine_extra(round_idx))
+                **self._quarantine_extra(round_idx),
+                **self._privacy_extra())
             if self.telemetry.tracer is not None:
                 # close the trace envelope HERE: left open it would absorb
                 # inter-round idle and misreport per-round wall-clock
                 self.telemetry.tracer.finish_round()
         return metrics
+
+    def _client_hook(self, nets: dict, kh, k: int) -> dict:
+        """``client_result_hook`` on each client of the stacked cohort
+        (``torch.func.vmap``), client ``i`` keyed by ``split(kh, K)[i]``
+        (its uint32 words as an int64 tensor)."""
+        keys = torch.as_tensor(prng.split(kh, k).astype(np.int64),
+                               device=self.device)
+        net = self.net
+        return torch.func.vmap(
+            lambda n, key: self.client_result_hook(n, net, key))(nets, keys)
+
+    def _update_from_aggregate(self, net: dict, avg: dict,
+                               server_opt_state, post_key):
+        """The server update (the identity on the aggregate until FedOpt,
+        item 9) -> ``post_aggregate_hook(net, post_key)``: the ONE
+        server-side composition ``run_round`` and the async flush share.
+        Returns ``(new_net, server_opt_state)``."""
+        new_net = avg
+        if self.post_aggregate_hook is not None:
+            new_net = self.post_aggregate_hook(new_net, post_key)
+        return new_net, server_opt_state
+
+    def _privacy_extra(self) -> dict:
+        """The round record's optional ``privacy`` block: {} here;
+        FedAvgRobustAPI's accounted DP returns its accountant's."""
+        return {}
 
     def _span_delta(self, before: dict) -> dict:
         """This call's span seconds: current tracer round minus a snapshot
@@ -437,7 +496,10 @@ class FedAvgAPI:
         back, with no host read between them but an armed round's reason
         codes (each round's verdicts land in the ledger as run_round's
         do); per-round metrics stacked along axis 0. Needs
-        ``device_data=True``, as the reference's one-program block does."""
+        ``device_data=True``, as the reference's one-program block does.
+        It is a loop of ``run_round``, so a churn trace's varying cohort
+        needs no refusal here (the reference's scanned block refuses
+        one: its shapes are static)."""
         if not self.device_data:
             raise ValueError("run_rounds needs device_data=True")
         ms = [self.run_round(r)
@@ -498,15 +560,52 @@ class FedAvgAPI:
         return self.net
 
     # ------------------------------------------------------------------ state
-    def load_state(self, net: dict):
-        """Install a global model (a state dict, e.g. converted from the JAX
-        package's params by fedml_tpu_torch.convert) on the engine's
-        device."""
+    def load_state(self, net: dict, server_opt_state=(), rng=None):
+        """Install restored state, the reference's signature: a global
+        model (a state dict, e.g. converted from the JAX package's params
+        by fedml_tpu_torch.convert) on the engine's device, the server
+        optimizer's state (``()`` until FedOpt) and the key chain's words
+        (None keeps the current chain)."""
         if set(net) != set(self.net):
             raise ValueError(f"state keys {sorted(net)} do not match the "
                              f"model's {sorted(self.net)}")
         self.net = {k: torch.as_tensor(v).to(self.device, self.net[k].dtype)
                     for k, v in net.items()}
+        self.server_opt_state = server_opt_state
+        if rng is not None:
+            self.rng = np.asarray(rng, np.uint32).reshape(2).copy()
+
+    # ------------------------------------------------------------------ async
+    def run_async(self, num_updates: int, buffer_k: int,
+                  staleness="constant", staleness_bound: int | None = None,
+                  deadline_s: float | None = None,
+                  capacity: int | None = None, chaos_plan=None,
+                  adversary_plan=None, base_duration_s: float = 1.0):
+        """Buffered-async rounds on a virtual clock
+        (core/async_buffer.VirtualClockAsyncRunner): worker slots train
+        continuously against possibly-stale globals, the server aggregates
+        every ``buffer_k`` sanitized arrivals with staleness-discounted
+        weights through this engine's own gate / estimator /
+        ``_update_from_aggregate``, and admission rejects-and-requeues
+        updates staler than ``staleness_bound``. A chaos FaultPlan's
+        straggle / crash rules drive the virtual durations, so a seeded run
+        replays bit for bit. ``buffer_k`` = cohort with
+        ``staleness_bound=0`` is bitwise the ``run_round`` loop, model and
+        ledger.
+
+        Returns the runner (``.history`` per-update records, ``.stats()``
+        wall-clock / staleness / shed summary); the engine's net, key
+        chain and quarantine advance as if the updates had run
+        synchronously."""
+        from fedml_tpu_torch.core.async_buffer import VirtualClockAsyncRunner
+
+        runner = VirtualClockAsyncRunner(
+            self, buffer_k, staleness=staleness,
+            staleness_bound=staleness_bound, deadline_s=deadline_s,
+            capacity=capacity, chaos_plan=chaos_plan,
+            adversary_plan=adversary_plan, base_duration_s=base_duration_s)
+        runner.run(num_updates)
+        return runner
 
     # ------------------------------------------------------------------ eval
     def evaluate(self) -> dict:

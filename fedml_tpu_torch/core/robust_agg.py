@@ -54,6 +54,7 @@ import threading
 import numpy as np
 import torch
 
+from fedml_tpu_torch.utils.prng import _threefry2x32
 from fedml_tpu_torch.utils.tree import tree_weighted_mean
 
 # per-slot quarantine reason codes (int32 in the gate; names in ledgers),
@@ -356,26 +357,6 @@ def combine_edge_partials(partial_stack: dict, totals, global_state: dict):
 
 EVIDENCE_SKETCH_DIM = 64  # f32 scalars per client the sketch budget ships
 _SKETCH_SEED = 0x5EDC0FFE  # fixed: both runtimes and both packages draw it
-
-_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
-
-
-def _threefry2x32(key: tuple, x0: np.ndarray, x1: np.ndarray):
-    """Threefry-2x32 (20 rounds, Salmon et al.) of the counter words
-    ``(x0, x1)`` under ``key``, on uint32 arrays: the block function
-    behind ``jax.random``'s default generator."""
-    u32 = lambda v: np.asarray(v, dtype=np.uint32)
-    ks = (u32(key[0]), u32(key[1]),
-          u32(key[0]) ^ u32(key[1]) ^ u32(0x1BD11BDA))
-    x0, x1 = x0 + ks[0], x1 + ks[1]
-    for i in range(5):
-        for r in _THREEFRY_ROTATIONS[i % 2]:
-            x0 = x0 + x1
-            x1 = (x1 << u32(r)) | (x1 >> u32(32 - r))
-            x1 = x0 ^ x1
-        x0 = x0 + ks[(i + 1) % 3]
-        x1 = x1 + ks[(i + 2) % 3] + u32(i + 1)
-    return x0, x1
 
 
 @functools.lru_cache(maxsize=4)

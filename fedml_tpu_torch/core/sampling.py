@@ -3,8 +3,9 @@ numpy; bitwise equal to the reference).
 
 Reference semantics (FedAVGAggregator.client_sampling): a deterministic
 per-round subset, uniform without replacement, numpy seeded by
-(seed, round); full participation when every client is drawn. Churn-trace
-cohorts (chaos/churn.py) are queued in ROADMAP.md (queue A, item 8).
+(seed, round); full participation when every client is drawn. An active
+churn trace (chaos/churn.py) restricts the draw to the round's available
+clients (``sample_available``), so the cohort shrinks with the curve.
 """
 
 from __future__ import annotations
@@ -54,6 +55,32 @@ def _size_probs(sizes: np.ndarray):
     return p / p.sum()
 
 
+def sample_available(cfg, round_idx: int, trace, client_sizes=None
+                     ) -> np.ndarray:
+    """Churn-aware per-round draw: restrict the population to the trace's
+    scheduled-available cohort for this round's window, then run the SAME
+    seeded RandomState stream over the restricted index space. Returns
+    ``min(client_num_per_round, available)`` sorted ids — under a diurnal
+    trough the cohort legitimately shrinks; the trace's min-one floor
+    keeps it nonempty. Deterministic: availability draws live on
+    ChurnTrace's sha256 stream, the subset draw on sample_clients' numpy
+    stream, so churn composes with chaos/adversary plans without draw
+    coupling."""
+    avail = trace.available_clients(trace.window(round_idx),
+                                    cfg.client_num_in_total)
+    n = min(cfg.client_num_per_round, len(avail))
+    if n == len(avail):
+        return avail
+    p = None
+    if cfg.sampling == "size_weighted":
+        if client_sizes is None:
+            raise ValueError("size_weighted sampling needs the per-client "
+                             "sizes — pass prepare_sampling(cfg, data)")
+        p = _size_probs(np.asarray(client_sizes, np.float64)[avail])
+    idx = sample_clients(round_idx, len(avail), n, cfg.seed, p=p)
+    return np.sort(avail[idx]).astype(np.int64)
+
+
 def prepare_sampling(cfg, data) -> np.ndarray | None:
     """Construction-time half of the sampling dispatch: validate
     ``cfg.sampling`` and precompute per-client sizes for size_weighted."""
@@ -67,13 +94,15 @@ def prepare_sampling(cfg, data) -> np.ndarray | None:
 
 
 def sample_for(cfg, round_idx: int, client_sizes=None) -> np.ndarray:
-    """Per-round half of the dispatch (uniform | size_weighted)."""
+    """Per-round half of the dispatch (uniform | size_weighted); an active
+    ``cfg.churn_trace`` restricts every draw to the trace's
+    scheduled-available cohort for the round's window."""
     if cfg.sampling not in ("uniform", "size_weighted"):
         raise ValueError(f"unknown sampling {cfg.sampling!r} "
                          "(uniform | size_weighted)")
-    if getattr(cfg, "churn_trace", None) is not None:
-        raise NotImplementedError("churn-trace cohorts are not ported yet: "
-                                  "ROADMAP.md queue A, item 8")
+    trace = getattr(cfg, "churn_trace", None)
+    if trace is not None:
+        return sample_available(cfg, round_idx, trace, client_sizes)
     if cfg.sampling == "size_weighted":
         if client_sizes is None:
             raise ValueError("size_weighted sampling needs the per-client "

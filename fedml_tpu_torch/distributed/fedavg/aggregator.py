@@ -46,7 +46,7 @@ from fedml_tpu_torch.core.robust_agg import (
     make_robust_aggregator,
     make_verdict_estimator,
 )
-from fedml_tpu_torch.core.sampling import sample_clients
+from fedml_tpu_torch.core.sampling import sample_available, sample_clients
 from fedml_tpu_torch.device import resolve_device
 from fedml_tpu_torch.obs import comm_instrument as _obs
 
@@ -85,9 +85,6 @@ class FedAvgAggregator:
             raise ValueError(
                 f"sampling={cfg.sampling!r} is not wired for the "
                 "cross-process runtime; use uniform")
-        if cfg.churn_trace is not None:
-            raise NotImplementedError("churn_trace is not ported yet: "
-                                      "ROADMAP.md queue A, item 8")
         self.dataset, self.task, self.cfg = dataset, task, cfg
         self.device = resolve_device(device)
         self.worker_num = worker_num
@@ -108,6 +105,10 @@ class FedAvgAggregator:
         # buffered slots are arrival positions, not worker indices, and a
         # buffer may fold several waves of one rank into one aggregate
         self._async_meta: dict[int, tuple[int, int]] | None = None
+        # slot -> the bare staleness discount of an async flush (None on a
+        # sync round): an aggregate that replaces the sample-count half of
+        # the weight keeps the staleness half (DP's uniform average)
+        self._async_discounts: dict[int, float] | None = None
         # the standalone engine's init, so every party (and the standalone
         # oracle) starts from identical weights
         init = task.init(torch.Generator().manual_seed(cfg.seed),
@@ -152,11 +153,27 @@ class FedAvgAggregator:
         return pack_pytree(self.net, self.num_heads)
 
     # ------------------------------------------------------------- receive
-    def _stage_upload(self, wire_leaves) -> dict:
+    # Stage-on-arrival: each upload moves to the server's device as its
+    # frame arrives, instead of all K at the round barrier under the round
+    # lock. A subclass whose aggregate reworks every upload itself first
+    # (the robust clip) opts out and keeps the wire leaves until then.
+    _stage_uploads_on_arrival = True
+
+    def _stage_upload(self, wire_leaves):
         """The upload as a state dict on the server's device, copied there
         as it arrives (a synchronous copy: the stack at the barrier reads
-        it from the server's own thread)."""
+        it from the server's own thread); the wire leaves themselves when
+        the class opts out of staging."""
+        if not type(self)._stage_uploads_on_arrival:
+            return wire_leaves
         return unpack_pytree(self.net, wire_leaves, self.num_heads)
+
+    def _staged(self, upload) -> dict:
+        """An upload slot as a state dict on the server's device, staged
+        or not."""
+        if isinstance(upload, dict):
+            return upload
+        return unpack_pytree(self.net, upload, self.num_heads)
 
     def begin_round(self, round_idx: int) -> None:
         """Stamp the round uploads are now accepted for (called by the
@@ -196,19 +213,24 @@ class FedAvgAggregator:
         self.sample_num_dict[index] = sample_num
         self.flag_client_model_uploaded[index] = True
 
-    def load_buffered(self, entries, weights) -> None:
+    def load_buffered(self, entries, weights, discounts=None) -> None:
         """Populate the aggregation slots from an async buffer drain
         (server_manager async mode): slot i carries ``entries[i]``'s staged
         state with its staleness-DISCOUNTED weight, and the (rank, client)
         side table routes quarantine verdicts to the true worker rank. The
-        next ``aggregate()`` consumes and clears the slots as usual. With
-        constant discount the weights are bitwise the sample counts, which
-        is the weight half of the K=cohort sync-parity contract. (The
-        reference also keeps the bare discounts aside for its DP uniform
-        average, queued with DP.)"""
+        next ``aggregate()`` — the subclass's composition, so the robust
+        clip and noise apply to the buffered aggregate unchanged —
+        consumes and clears the slots as usual. With constant discount the
+        weights are bitwise the sample counts, which is the weight half of
+        the K=cohort sync-parity contract. ``discounts`` is the bare
+        per-slot staleness multiplier, kept aside for the DP uniform
+        average (fedavg_robust.py)."""
         self.model_dict.clear()
         self.sample_num_dict.clear()
         self._async_meta = {}
+        self._async_discounts = (None if discounts is None
+                                 else {i: float(d)
+                                       for i, d in enumerate(discounts)})
         for slot, (e, w) in enumerate(zip(entries, weights)):
             self.model_dict[slot] = e.payload
             self.sample_num_dict[slot] = float(w)
@@ -288,6 +310,18 @@ class FedAvgAggregator:
 
     # ------------------------------------------------------------ sampling
     def client_sampling(self, round_idx: int) -> np.ndarray:
+        trace = self.cfg.churn_trace
+        if trace is not None:
+            ids = sample_available(self.cfg, round_idx, trace)
+            k = self.cfg.client_num_per_round
+            if len(ids) < k:
+                # the cross-process cohort is one client per worker RANK —
+                # slots stay fully populated: in a trough the available
+                # cohort re-assigns clients to several ranks (cycle-pad,
+                # deterministic); rank-level scheduled-offline skipping is
+                # what shrinks the realized round
+                ids = np.resize(ids, k)
+            return ids
         return sample_clients(
             round_idx, self.cfg.client_num_in_total,
             self.cfg.client_num_per_round, self.cfg.seed)

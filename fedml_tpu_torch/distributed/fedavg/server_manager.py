@@ -41,8 +41,17 @@ rank immediately re-dispatched; K staged arrivals (or
 aggregator's usual composition. ``heartbeat_max_age_s`` arms
 heartbeat-driven cohort admission on BOTH modes.
 
-Churn traces, the fleet plane, fused ingest, DP recovery and goodput
-records are queued in ROADMAP.md (queue A, items 7-8); passing one raises.
+A ``churn_trace`` (chaos/churn.py ChurnTrace) arms RANK-level scheduled
+availability: a rank the trace marks away for the round's window is
+skipped silently at dispatch (no suspect bookkeeping, no reprobe churn)
+and leaves the barrier's denominator; only a rank the trace expects here
+rides the suspected-dead paths. A DP aggregator (distributed/
+fedavg_robust.py) checkpoints its noise key and RDP totals, and recovery
+re-charges its accountant from the WAL's ``precharge`` records past the
+commit, so a crash never under-reports ε.
+
+The fleet plane, fused ingest and goodput records are queued in
+ROADMAP.md (queue A, items 7-8); passing one raises.
 """
 
 from __future__ import annotations
@@ -60,10 +69,7 @@ from fedml_tpu_torch.comm.message import (
     codec_roundtrip,
 )
 from fedml_tpu_torch.data import dataset_source
-from fedml_tpu_torch.distributed.fedavg.aggregator import (
-    FedAvgAggregator,
-    refuse_unported,
-)
+from fedml_tpu_torch.distributed.fedavg.aggregator import FedAvgAggregator
 from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage
 from fedml_tpu_torch.obs import comm_instrument as _obs
 from fedml_tpu_torch.obs.tracing import TRACE_KEY
@@ -97,8 +103,24 @@ class FedAvgServerManager(ServerManager):
                  buffer_capacity: int | None = None,
                  heartbeat_max_age_s: float | None = None,
                  delta_broadcast: bool = False, churn_trace=None, **kw):
-        refuse_unported("FedAvgServerManager", {
-            "churn_trace": (churn_trace is not None, 8)})
+        # scheduled availability (chaos/churn.py ChurnTrace, or None): a
+        # rank the trace marks away for the current round's window is
+        # EXPECTED silent — skipped at dispatch with no send, no
+        # suspect/undeliverable bookkeeping, no reprobe or backoff churn —
+        # and subtracted from the barrier's denominator; only a rank the
+        # trace expects here rides the suspected-dead paths
+        self.churn_trace = churn_trace
+        self._offline_now: set[int] = set()
+        # ranks whose dispatch was skipped for scheduled offline — the
+        # flush-time reprobe re-dispatches them the moment the trace
+        # brings them back (async mode's "resume on the next arrival")
+        self._offline_skipped: set[int] = set()
+        self._idle_rounds = 0
+        self._idle_logged_round: int | None = None
+        if churn_trace is not None:
+            # pre-register the churn families at zero so a churn-driven
+            # run's export always carries them
+            _obs.ensure_churn_families()
         self.aggregator = aggregator
         self.round_num = aggregator.cfg.comm_round
         self.round_idx = 0
@@ -233,6 +255,9 @@ class FedAvgServerManager(ServerManager):
             self.wal = RoundWAL(wal_dir)
             self.wal.append("restart", sync=True,
                             epoch=self._restart_epoch)
+            # the aggregator journals its own durable records (a DP
+            # aggregator's pre-charge, fsync'd before its noise key draw)
+            self.aggregator.wal = self.wal
             _perf.ensure_restart_families()
             _perf.sync_server_restarts(self._restart_epoch)
             # quarantine verdicts ride the WAL as a forensic trail (the
@@ -281,8 +306,31 @@ class FedAvgServerManager(ServerManager):
     _DEAD_RANK_REPROBE_ROUNDS = 4
 
     def _update_alive_gauge(self) -> None:
-        """fed_ranks_alive from the undeliverable bookkeeping."""
-        _obs.set_ranks_alive(self.size - 1 - len(self._undeliverable))
+        """fed_ranks_alive from the undeliverable bookkeeping; scheduled-
+        offline ranks count as not alive alongside the undeliverable set,
+        so a diurnal trough never looks like an outage. World size may be
+        unknown on a partially-built instance (tests drive the admission
+        paths without the comm stack)."""
+        size = getattr(self, "size", None)
+        if size is not None:
+            dead = set(self._undeliverable) | self._offline_now
+            _obs.set_ranks_alive(size - 1 - len(dead))
+
+    def _scheduled_offline(self) -> set[int]:
+        """The churn trace's scheduled-offline rank set for the CURRENT
+        round's window (empty with no trace). Publishes the
+        fed_ranks_scheduled_offline gauge and refreshes fed_ranks_alive —
+        every skip / admission / watchdog path reads availability through
+        here so the gauges can never drift from the decisions."""
+        if self.churn_trace is None:
+            return set()
+        off = self.churn_trace.scheduled_offline_ranks(
+            self.round_idx, self.size)
+        if off != self._offline_now:
+            self._offline_now = off
+            _obs.set_ranks_scheduled_offline(len(off))
+            self._update_alive_gauge()
+        return off
 
     @staticmethod
     def _is_transport_error(e: BaseException) -> bool:
@@ -331,12 +379,20 @@ class FedAvgServerManager(ServerManager):
     def _ckpt_state_template(self) -> dict:
         """What a checkpoint holds (the reference's layout): the net, the
         server optimizer state (none in the port: FedOpt is item 9) and
-        the reference's ``PRNGKey(0)`` bits, which DP runs replace with
-        their noise key (DP is queued, item 8)."""
+        the reference's ``PRNGKey(0)`` bits, which a DP aggregator
+        replaces with its noise key (a resumed job continues the key
+        stream instead of replaying it), plus its cumulative RDP totals
+        (``dp_rdp``: epsilon() must cover the pre-restart rounds)."""
         import numpy as np
 
-        return {"net": self.aggregator.net, "server_opt_state": (),
-                "rng": np.zeros(2, np.uint32)}
+        st = {"net": self.aggregator.net, "server_opt_state": (),
+              "rng": np.asarray(getattr(self.aggregator, "_noise_rng",
+                                        np.zeros(2, np.uint32)),
+                                np.uint32)}
+        acct = getattr(self.aggregator, "accountant", None)
+        if acct is not None:
+            st["dp_rdp"] = np.asarray(acct._rdp)
+        return st
 
     def _maybe_resume(self) -> None:
         import json
@@ -358,6 +414,12 @@ class FedAvgServerManager(ServerManager):
             if hit is not None:
                 committed, state = hit
                 self.aggregator.net = state["net"]
+                if hasattr(self.aggregator, "_noise_rng"):
+                    self.aggregator._noise_rng = np.asarray(
+                        state["rng"], np.uint32).copy()
+                acct = getattr(self.aggregator, "accountant", None)
+                if "dp_rdp" in state and acct is not None:
+                    acct._rdp = np.asarray(state["dp_rdp"])
             # reload the persisted eval history + quarantine ledger so a
             # restarted process reports the SAME artifacts an
             # uninterrupted run would
@@ -391,18 +453,49 @@ class FedAvgServerManager(ServerManager):
           the dead server had ACCEPTED (sync ``upload`` / async buffer
           ``admit`` records — the payloads died with the process) is
           ledgered ``server_restart``, slot-exact;
+        - DP pre-charges past the committed round re-charge the
+          accountant (the noise MAY have been released pre-crash; ε must
+          never read lower than the charges incurred — the conservative
+          direction);
         - async dispatch-wave counters resume past their journaled
-          maxima, keeping the per-rank sampling chain monotonic.
-
-        A WAL with DP pre-charges (a DP run's) needs the accountant's
-        recovery, queued with DP (ROADMAP.md queue A, item 8): it raises."""
+          maxima, keeping the per-rank sampling chain monotonic."""
         if replay is None:
             return
-        if replay.of_kind("precharge"):
-            raise NotImplementedError(
-                "this WAL holds DP pre-charge records: recovering a DP "
-                "run's accountant and per-client ledgers is not ported "
-                "yet: ROADMAP.md queue A, item 8")
+        acct = getattr(self.aggregator, "accountant", None)
+        if acct is not None:
+            for rec in replay.of_kind("precharge"):
+                if int(rec.get("round", -1)) > committed:
+                    acct.step(float(rec["q"]), float(rec["z"]))
+                    log.warning("recovery: re-charged DP accountant for "
+                                "the pre-crash charge of round %d "
+                                "(q=%.6f, z=%.3f)", rec["round"],
+                                rec["q"], rec["z"])
+        # per-client ledgers rebuild from EVERY precharge record (the WAL
+        # is append-only for the run): the variable-key {client: rdp} map
+        # rides no checkpoint — the journaled client ids ARE its durable
+        # form. The in-flight round's record re-charges too, so per-client
+        # ε can over-count by one round per crash but never under-report
+        ledger = getattr(self.aggregator, "client_ledger", None)
+        if ledger is not None:
+            recharged = 0
+            for rec in replay.of_kind("precharge"):
+                clients = rec.get("clients")
+                if clients:
+                    ledger.charge([int(c) for c in clients],
+                                  float(rec["z"]))
+                    recharged += 1
+            if recharged:
+                from fedml_tpu_torch.obs import perf_instrument as _perf
+
+                s = ledger.summary()
+                _perf.set_client_epsilon(s["eps_client_max"],
+                                         s["eps_client_mean"],
+                                         s["clients_charged"])
+                log.warning("recovery: rebuilt per-client privacy "
+                            "ledgers from %d precharge record(s) — "
+                            "eps_client_max=%.6f over %d client(s)",
+                            recharged, s["eps_client_max"],
+                            s["clients_charged"])
         if self._async:
             for rank, w in replay.dispatch_waves().items():
                 self._dispatch_wave[rank] = w + 1
@@ -442,9 +535,12 @@ class FedAvgServerManager(ServerManager):
         from fedml_tpu_torch.core.wal import durable_write
 
         st = self._ckpt_state_template()
+        extra = {k: v for k, v in st.items()
+                 if k not in ("net", "server_opt_state", "rng")}
         save_round(self.ckpt_dir, self.round_idx, st["net"],
                    st["server_opt_state"], st["rng"],
                    history=self.aggregator.history,
+                   extra_state=extra or None,
                    num_heads=self.aggregator.num_heads)
         # the quarantine ledger rides the commit (atomic + fsync'd): a
         # restarted process must report the same ledger an uninterrupted
@@ -539,7 +635,7 @@ class FedAvgServerManager(ServerManager):
         if tr is not None:
             tr.begin_round(self.round_idx)
         for rank in range(1, self.size):
-            if rank in suspects:
+            if rank in suspects:  # heartbeat-suspect or scheduled-offline
                 continue
             msg = Message(msg_type, self.rank, rank)
             if delta is not None and self._rank_version.get(rank) == base_v:
@@ -577,12 +673,21 @@ class FedAvgServerManager(ServerManager):
         past the age threshold are excluded — no send, and the barrier
         does not wait for them (the aggregator's excluded set) — except on
         reprobe rounds, which re-invite them so a resumed rank rejoins;
-        its first frame resets the age and readmits it for good. Returns
-        the excluded (suspect) ranks."""
+        its first frame resets the age and readmits it for good. A rank
+        the churn trace says is away is EXPECTED silent: it never rides
+        the suspect path, but it is excluded all the same (no send, the
+        barrier does not wait). Returns the excluded ranks, suspect and
+        scheduled-offline."""
         suspects = _obs.suspect_ranks(
             range(1, self.size), self.heartbeat_max_age_s, self.round_idx,
             self._DEAD_RANK_REPROBE_ROUNDS)
-        self.aggregator.excluded = {r - 1 for r in suspects}
+        offline = self._scheduled_offline()
+        suspects -= offline
+        self.aggregator.excluded = {r - 1 for r in suspects | offline}
+        if offline:
+            log.debug("round %d: %d rank(s) scheduled-offline by the churn "
+                      "trace — skipped silently", self.round_idx,
+                      len(offline))
         if (self.heartbeat_max_age_s is not None
                 and self.round_idx % self._DEAD_RANK_REPROBE_ROUNDS == 0):
             # reprobe round: force a REAL send attempt to every silent rank
@@ -602,7 +707,7 @@ class FedAvgServerManager(ServerManager):
                         "rounds)", self.round_idx, sorted(suspects),
                         self.heartbeat_max_age_s,
                         self._DEAD_RANK_REPROBE_ROUNDS)
-        return suspects
+        return suspects | offline
 
     def send_init_msg(self):
         if self._async:
@@ -626,7 +731,17 @@ class FedAvgServerManager(ServerManager):
         (packed once per version) + the client its dispatch-wave counter
         samples. Heartbeat-suspect ranks are skipped (admission control) —
         the flush-time reprobe re-dispatches them once they may have
-        resumed."""
+        resumed. Scheduled-offline ranks (churn trace) are skipped
+        SILENTLY before the suspect check: the trace expects them away,
+        so they get no suspect bookkeeping and no reprobe churn — the
+        flush-time reprobe hands them fresh work the moment the trace
+        brings them back."""
+        if rank in self._scheduled_offline():
+            self._offline_skipped.add(rank)
+            self._record_shed("offline")
+            log.debug("async: rank %d scheduled-offline — dispatch skipped "
+                      "until the trace's next arrival", rank)
+            return
         suspects = _obs.suspect_ranks(
             range(1, self.size), self.heartbeat_max_age_s, self.round_idx,
             self._DEAD_RANK_REPROBE_ROUNDS)
@@ -811,7 +926,7 @@ class FedAvgServerManager(ServerManager):
                            np.float32)
         discounts = [float(d) for d in self._discount_np(stale)]
         weights = [e.nsamp * d for e, d in zip(entries, discounts)]
-        self.aggregator.load_buffered(entries, weights)
+        self.aggregator.load_buffered(entries, weights, discounts=discounts)
         for s in stale:
             _perf.record_update_staleness(float(s))
         now = time.monotonic()
@@ -933,8 +1048,27 @@ class FedAvgServerManager(ServerManager):
         ``round_timeout_s`` of total silence); both paths respect the
         WALL-CLOCK grace. Caller holds _round_lock."""
         now = time.monotonic()
+        offline = self._scheduled_offline()
         for rank in range(1, self.size):
             if rank in self._parked:
+                continue
+            if rank in offline:
+                # scheduled-offline: the trace says it's away, not dead —
+                # zero reprobe churn; the branch below picks it up the
+                # moment the trace brings it back
+                continue
+            if rank in self._offline_skipped:
+                # back from scheduled-offline: re-dispatch immediately,
+                # bypassing the age/grace checks — its silence was the
+                # trace's doing, not evidence of death
+                self._offline_skipped.discard(rank)
+                self._idle_logged_round = None  # an arrival ends the stretch
+                log.info("async: rank %d returned from scheduled-offline — "
+                         "re-dispatching", rank)
+                self._undeliverable.pop(rank, None)
+                self._update_alive_gauge()
+                self._awaiting.pop(rank, None)
+                self._dispatch_one(rank)
                 continue
             last = self._last_dispatch_version.get(rank)
             if not force and last is not None and \
@@ -1298,16 +1432,30 @@ class FedAvgServerManager(ServerManager):
 
     def _round_record_extra(self) -> dict:
         """Extra blocks a subclass rides on the telemetry round record
-        (the hierarchical root adds its ``hier`` block). Rounds emitted
-        after a restart carry the epoch (crash-recovery provenance)."""
+        (the hierarchical root adds its ``hier`` block). An aggregator
+        exposing ``privacy_record()`` (the DP defenses) gets its
+        cumulative ε@δ and mechanism parameters on every round; rounds
+        emitted after a restart carry the epoch (crash-recovery
+        provenance); a churn-driven run carries how many ranks the trace
+        held out this round and how many idle rounds it has taken."""
+        extra: dict = {}
+        pr = getattr(self.aggregator, "privacy_record", None)
+        if pr is not None:
+            block = pr()
+            if block:
+                extra["privacy"] = block
         if self._restart_epoch:
-            return {"server": {"restarts": self._restart_epoch,
-                               "restart_epoch": self._restart_epoch}}
-        return {}
+            extra["server"] = {"restarts": self._restart_epoch,
+                               "restart_epoch": self._restart_epoch}
+        if self.churn_trace is not None:
+            extra["churn"] = {"scheduled_offline": len(self._offline_now),
+                              "idle_rounds": self._idle_rounds}
+        return extra
 
     def _advance_round(self):
         """Aggregate what's collected, eval, and start the next round (or
         finish). Caller holds _round_lock."""
+        self._idle_logged_round = None  # real progress ends an idle stretch
         tel = self.telemetry
         if tel is not None:
             import numpy as np
@@ -1380,6 +1528,31 @@ class FedAvgServerManager(ServerManager):
                                 len(self._buffer))
                     self._flush_buffer()
                 else:
+                    offline = self._scheduled_offline()
+                    if offline and all(r in offline
+                                       for r in range(1, self.size)):
+                        # the WHOLE fleet is scheduled-offline: an idle
+                        # trough, not a stall — log once per stretch,
+                        # count it, and advance round_idx without folding
+                        # (availability windows are round-indexed; a
+                        # static round would freeze the trough's offline
+                        # set and deadlock). The reprobe after the advance
+                        # hands work to whoever the trace brought back.
+                        if self._idle_logged_round is None:
+                            log.info(
+                                "async: fleet idle — every rank is "
+                                "scheduled-offline by the churn trace; "
+                                "advancing idle rounds until the next "
+                                "arrival")
+                            self._idle_logged_round = self.round_idx
+                        _obs.record_round_idle()
+                        self._idle_rounds += 1
+                        self.round_idx += 1
+                        if self.round_idx >= self.round_num:
+                            self._finish_async()
+                            return
+                        self._async_reprobe(force=True)
+                        return
                     log.error("async: fleet idle %.1fs with an empty "
                               "buffer — reprobing silent ranks", idle_s)
                     self._async_reprobe(force=True)
@@ -1393,6 +1566,32 @@ class FedAvgServerManager(ServerManager):
                           self.round_idx, idle_s, missing)
                 return
             if not received:
+                offline = self._scheduled_offline()
+                if offline and all(r in offline for r in missing):
+                    # every missing rank is scheduled-offline: an idle
+                    # round, not a stall — log once per idle stretch,
+                    # count fed_rounds_idle_total, and advance WITHOUT
+                    # folding (availability windows are round-indexed, so
+                    # standing still would deadlock an all-offline
+                    # trough). The broadcast at the new round reaches
+                    # whoever the trace brought back.
+                    if self._idle_logged_round is None:
+                        log.info(
+                            "round %d: fleet idle — every missing rank "
+                            "is scheduled-offline by the churn trace; "
+                            "advancing idle rounds until the next "
+                            "arrival", self.round_idx)
+                        self._idle_logged_round = self.round_idx
+                    _obs.record_round_idle()
+                    self._idle_rounds += 1
+                    self.round_idx += 1
+                    if self.round_idx == self.round_num:
+                        self._broadcast_finish()
+                        return
+                    self._broadcast_model(
+                        MyMessage.MSG_TYPE_S2C_SYNC_MODEL_TO_CLIENT,
+                        self.aggregator.get_global_model_params())
+                    return
                 # elastic round with NOTHING to aggregate: re-broadcast the
                 # current global instead of folding an empty cohort — a
                 # recovered rank gets a fresh shot at the round. Clear the

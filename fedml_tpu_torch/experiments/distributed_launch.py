@@ -14,7 +14,10 @@ everything on 127.0.0.1 by default. Rank 0 prints the eval history as one
 JSON line when the job completes; the worker count must be
 client_num_per_round (one process per sampled client). With ``--edges E``
 ranks 1..E are edge aggregators and the workers follow them
-(distributed/fedavg/hierarchy.py).
+(distributed/fedavg/hierarchy.py). ``--algo fedavg_robust`` runs the
+robust / accounted-DP server (distributed/fedavg_robust.py) with
+``--defense_type``, ``--norm_bound``, ``--stddev`` and
+``--noise_multiplier``; every other ``--algo`` raises naming its item.
 
 Every rank runs on the CUDA device unless ``--device`` names another (the
 one flag the reference lacks: the port's device rule). The reference's
@@ -34,15 +37,10 @@ import time
 # default, ROADMAP.md queue A item). Each is parsed so a reference command
 # line runs unchanged at the defaults, and refused when set.
 _UNPORTED_FLAGS = {
-    "algo": ("--algo", str, "fedavg", 9),
     "server_optimizer": ("--server_optimizer", str, "sgd", 9),
     "server_lr": ("--server_lr", float, 1.0, 9),
     "server_momentum": ("--server_momentum", float, 0.9, 9),
     "fedprox_mu": ("--fedprox_mu", float, 0.1, 9),
-    "defense_type": ("--defense_type", str, "norm_diff_clipping", 9),
-    "norm_bound": ("--norm_bound", float, 30.0, 9),
-    "stddev": ("--stddev", float, 0.025, 9),
-    "noise_multiplier": ("--noise_multiplier", float, 1.0, 8),
     "secagg_threshold_t": ("--secagg_threshold_t", int, None, 8),
     "secagg_quant_scale": ("--secagg_quant_scale", float, 2.0 ** 16, 8),
     "secagg_max_abs": ("--secagg_max_abs", float, 4.0, 8),
@@ -55,8 +53,28 @@ _UNPORTED_FLAGS = {
 }
 
 
+# the algorithms this launcher runs; any other --algo raises naming
+# ROADMAP.md queue A item 9 (with --edges, turboaggregate names item 8)
+_ALGOS = ("fedavg", "fedavg_robust")
+
+
 def add_args(p: argparse.ArgumentParser):
     p.add_argument("--rank", type=int, required=True, help="0 = server")
+    p.add_argument("--algo", type=str, default="fedavg",
+                   help="fedavg | fedavg_robust (the robust / accounted-DP "
+                        "server); the reference's others are not ported "
+                        "yet (ROADMAP.md queue A, item 9)")
+    p.add_argument("--defense_type", type=str, default="norm_diff_clipping",
+                   help="--algo fedavg_robust: norm_diff_clipping | "
+                        "weak_dp | dp (accounted DP-FedAvg) | none")
+    p.add_argument("--norm_bound", type=float, default=30.0,
+                   help="the clip radius C")
+    p.add_argument("--stddev", type=float, default=0.025,
+                   help="weak_dp's noise standard deviation")
+    p.add_argument("--noise_multiplier", type=float, default=1.0,
+                   help="z for --defense_type dp: noise N(0, (z*C/m)^2) on "
+                        "the m-client uniform average, cumulative (eps, "
+                        "delta) by an RDP accountant")
     p.add_argument("--world_size", type=int, required=True,
                    help="client_num_per_round + 1")
     p.add_argument("--backend", type=str, default="grpc",
@@ -434,9 +452,28 @@ def init_role(args, data, task, cfg, backend_kw, telemetry=None,
                           staleness=args.staleness,
                           staleness_bound=args.staleness_bound,
                           buffer_deadline_s=args.buffer_deadline_s)
+        agg_kw["sum_assoc"] = args.sum_assoc
+        if args.algo == "fedavg_robust":
+            from fedml_tpu_torch.distributed.fedavg.server_manager import (
+                FedAvgServerManager,
+            )
+            from fedml_tpu_torch.distributed.fedavg_robust import (
+                FedAvgRobustAggregator,
+            )
+
+            agg = FedAvgRobustAggregator(
+                data, task, cfg, worker_num=args.world_size - 1,
+                defense_type=args.defense_type, norm_bound=args.norm_bound,
+                stddev=args.stddev, noise_multiplier=args.noise_multiplier,
+                device=device, **agg_kw)
+            return FedAvgServerManager(
+                agg, rank=0, size=args.world_size, backend=backend,
+                ckpt_dir=args.ckpt_dir, round_timeout_s=args.round_timeout_s,
+                heartbeat_max_age_s=args.heartbeat_max_age_s,
+                delta_broadcast=bool(args.delta_broadcast),
+                telemetry=telemetry, **srv_kw, **backend_kw)
         return init_server(data, task, cfg, args.world_size, backend,
-                           device=device,
-                           agg_kw=dict(agg_kw, sum_assoc=args.sum_assoc),
+                           device=device, agg_kw=agg_kw,
                            ckpt_dir=args.ckpt_dir,
                            round_timeout_s=args.round_timeout_s,
                            heartbeat_max_age_s=args.heartbeat_max_age_s,
@@ -463,10 +500,17 @@ def main(argv=None):
         raise NotImplementedError(
             "--edges with --algo turboaggregate (the hierarchical masked "
             "tier) is not ported yet: ROADMAP.md queue A, item 8")
+    if args.algo not in _ALGOS:
+        raise NotImplementedError(
+            f"--algo {args.algo} is not ported yet: ROADMAP.md queue A, "
+            "item 9")
     refuse_unported_flags(args)
     if args.rank == 0 and args.supervise:
         raise SystemExit(_supervise(args, argv))
     if args.edges:
+        if args.algo != "fedavg":
+            raise ValueError(f"--edges is wired for fedavg only (got "
+                             f"--algo {args.algo})")
         # the dense synchronous protocol is the tree's contract (the
         # flags of the other unported modes were refused just above)
         incompatible = [name for name, v in (

@@ -31,6 +31,15 @@ core/checkpoint.py):
     fed_ckpt_torn_total            torn checkpoint files skipped by
                                    restore_latest's fallback
 
+**Privacy metrics** (fed by core/privacy.charge_and_record, the DP
+defenses' one step-then-surface sequence):
+
+    fed_privacy_epsilon            (gauge) cumulative ε at the ledger's
+                                   reporting δ
+    fed_privacy_client_epsilon{stat}  per-client ε rollup: stat=max (the
+                                   worst client, the never-under-report
+                                   figure), mean, count (clients charged)
+
 The reference's compile observatory (``jax.monitoring`` listeners), its
 pipeline, sharded-server-state, fused-flush and secure-aggregation
 families are queued in ROADMAP.md (queue A, item 8; the compile
@@ -113,3 +122,26 @@ def ensure_restart_families() -> None:
     _counter("fed_server_restarts_total")
     REGISTRY.gauge("fed_restart_epoch")
     _counter("fed_ckpt_torn_total")
+
+
+# ---------------------------------------------------------------- privacy
+def set_privacy_epsilon(eps: float) -> None:
+    REGISTRY.gauge("fed_privacy_epsilon").set(float(eps))
+
+
+@lru_cache(maxsize=4)
+def _client_eps(stat: str):
+    return REGISTRY.gauge("fed_privacy_client_epsilon", stat=stat)
+
+
+def set_client_epsilon(eps_max: float, eps_mean: float, count: int) -> None:
+    _client_eps("max").set(float(eps_max))
+    _client_eps("mean").set(float(eps_mean))
+    _client_eps("count").set(float(count))
+
+
+def ensure_client_privacy_family() -> None:
+    """Pre-register the per-client ε gauge children at zero so a DP run's
+    export always carries the family (even before the first charge)."""
+    for stat in ("max", "mean", "count"):
+        _client_eps(stat)

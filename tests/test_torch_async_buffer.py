@@ -9,9 +9,12 @@ Tolerances: the staleness oracle bitwise the JAX package's, its torch twin
 within the reference's 1e-6; inside the port the degenerate mode (K = cohort, bound 0)
 bitwise the synchronous run, model, history and ledger; against the JAX
 package's async run within 1e-5. The engine's virtual-clock runner
-(``FedAvgAPI.run_async``) is queued, so the reference's engine-side tests
-are mirrored on the cross-process server. No test waits out a deadline of
-more than 0.5 s: the buffer deadline is driven through ``_deadline_fire``.
+(``FedAvgAPI.run_async``) mirrors the engine half of the reference's tests
+against the port's own sync loop (bitwise at K = cohort, bound 0, the key
+chain included) and the JAX runner (stats and ledgers equal, the model
+within 1e-5). No test waits out a deadline of more than 0.5 s: the
+server's buffer deadline is driven through ``_deadline_fire``, the
+runner's is virtual.
 """
 
 import os
@@ -22,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from fedml_tpu.algorithms.fedavg import FedAvgAPI as JaxFedAvgAPI
 from fedml_tpu.algorithms.fedavg import FedAvgConfig as JaxConfig
 from fedml_tpu.comm.message import pack_pytree as jax_pack
 from fedml_tpu.core import async_buffer as J
@@ -30,7 +34,7 @@ from fedml_tpu.data.synthetic import synthetic_images as jax_synthetic_images
 from fedml_tpu.distributed.fedavg import api as jax_api
 from fedml_tpu.models.linear import LogisticRegression as JaxLR
 from fedml_tpu_torch import convert
-from fedml_tpu_torch.algorithms import FedAvgConfig
+from fedml_tpu_torch.algorithms import FedAvgAPI, FedAvgConfig
 from fedml_tpu_torch.chaos import AdversaryPlan, FaultPlan
 from fedml_tpu_torch.comm.message import pack_pytree
 from fedml_tpu_torch.core import async_buffer as P
@@ -383,3 +387,166 @@ def test_heartbeat_admission_crash_window_excludes_then_readmits(setup):
     assert agg.history and agg.history[-1]["round"] == 6
     assert wall < 6 * 0.5 + 2.5, wall
     assert heartbeat_ages().get(2, 1e9) < 5.0
+
+
+# --------------------------------------------- the engine's async runner
+def _eng(s, rounds=3, per_round=4, **kw):
+    return FedAvgAPI(s["data"], s["task"],
+                     FedAvgConfig(**_cfg(rounds, per_round, freq=100)),
+                     device="cpu", **kw)
+
+
+def _jeng(s, rounds=3, per_round=4, **kw):
+    return JaxFedAvgAPI(s["jdata"], s["jtask"],
+                        JaxConfig(**_cfg(rounds, per_round, freq=100)), **kw)
+
+
+def _net_same(a: dict, b: dict) -> bool:
+    return all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _jax_close(port_net, jnet):
+    for a, b in zip(pack_pytree(port_net), jax.tree.leaves(jnet.params)):
+        np.testing.assert_allclose(a, np.asarray(b), **TOL_RUN)
+
+
+def _noise_hook(net, key):
+    from fedml_tpu_torch.core.robust import add_gaussian_noise
+
+    return add_gaussian_noise(key, net, 0.01)
+
+
+def _jax_noise_hook(net, key):
+    from fedml_tpu.core.local import NetState
+    from fedml_tpu.core.robust import add_gaussian_noise
+
+    return NetState(add_gaussian_noise(key, net.params, 0.01), net.extra)
+
+
+@pytest.mark.parametrize("hook", [None, "noise"])
+def test_engine_async_k_cohort_bound0_bitwise_the_sync_loop(setup, hook):
+    """K = cohort with bound 0 is bitwise three run_rounds (the model, the
+    key chain), a post-aggregate noise hook included (the flush draws the
+    sync round's key); within 1e-5 of the JAX runner."""
+    kw = {} if hook is None else {"post_aggregate_hook": _noise_hook}
+    sync = _eng(setup, **kw)
+    for r in range(3):
+        sync.run_round(r)
+    eng = _eng(setup, **kw)
+    runner = eng.run_async(3, buffer_k=4, staleness="constant",
+                           staleness_bound=0)
+    assert _net_same(sync.net, eng.net)
+    assert np.array_equal(sync.rng, eng.rng)
+    st = runner.stats()
+    assert st["staleness_max"] == 0 and st["shed"]["stale"] == 0
+    jeng = _jeng(setup, **({} if hook is None
+                           else {"post_aggregate_hook": _jax_noise_hook}))
+    jr = jeng.run_async(3, buffer_k=4, staleness="constant",
+                        staleness_bound=0)
+    _jax_close(eng.net, jeng.net)
+    assert st == jr.stats()
+
+
+def test_engine_async_gated_k_cohort_matches_sync_model_and_ledger(setup):
+    # a tight norm gate quarantines natural outliers -> non-vacuous ledgers
+    kw = dict(aggregator="median", sanitize=0.9)
+    sync = _eng(setup, **kw)
+    for r in range(3):
+        sync.run_round(r)
+    eng = _eng(setup, **kw)
+    eng.run_async(3, buffer_k=4, staleness="constant", staleness_bound=0)
+    assert _net_same(sync.net, eng.net)
+    assert sync.quarantine.canonical() == eng.quarantine.canonical()
+    assert len(sync.quarantine.canonical()) > 0
+
+
+def _straggle(delay_s=2.0, rank=2, seed=7, jax_=False):
+    from fedml_tpu.chaos import FaultPlan as JaxFaultPlan
+
+    spec = {"seed": seed, "rules": [
+        {"fault": "straggle", "src": [rank], "delay_s": delay_s}]}
+    return (JaxFaultPlan if jax_ else FaultPlan).from_json(spec)
+
+
+def test_engine_async_straggler_beats_the_sync_barrier_and_replays(setup):
+    """A 2 s straggler: 6 updates land sooner on the virtual clock than
+    the sync barrier's 6 rounds, staleness is exercised, a second run under
+    the same plan replays bitwise (model, ledger, staleness ledger), and
+    the JAX runner's stats and ledger are the port's."""
+    kw = dict(aggregator="median", sanitize=0.9)
+    runs = []
+    for _ in range(2):
+        eng = _eng(setup, rounds=6, **kw)
+        runs.append((eng, eng.run_async(6, buffer_k=3, staleness="exp:0.3",
+                                        chaos_plan=_straggle())))
+    (ea, ra), (eb, rb) = runs
+    assert ra.version == 6
+    assert ra.clock < P.sync_virtual_wallclock(_straggle(), 4, 6)
+    assert ra.stats()["staleness_max"] >= 1
+    assert _net_same(ea.net, eb.net)
+    assert ea.quarantine.canonical() == eb.quarantine.canonical()
+    assert ra.stats() == rb.stats() and ra.history == rb.history
+    je = _jeng(setup, rounds=6, **kw)
+    jr = je.run_async(6, buffer_k=3, staleness="exp:0.3",
+                      chaos_plan=_straggle(jax_=True))
+    assert ra.stats() == jr.stats()
+    assert [h["staleness"] for h in ra.history] == \
+        [h["staleness"] for h in jr.history]
+    assert ea.quarantine.canonical() == je.quarantine.canonical()
+    _jax_close(ea.net, je.net)
+
+
+def test_engine_admission_bound_rejects_and_requeues(setup):
+    eng = _eng(setup, rounds=5)
+    runner = eng.run_async(5, buffer_k=3, staleness="constant",
+                           staleness_bound=1,
+                           chaos_plan=_straggle(delay_s=3.5))
+    st = runner.stats()
+    assert st["updates"] == 5            # progress despite rejections
+    assert st["shed"]["stale"] > 0       # the bound actually fired
+    assert st["staleness_max"] <= 1      # nothing staler was ever folded
+
+
+def test_engine_nonfinite_arrival_never_enters_the_buffer(setup):
+    eng = _eng(setup, rounds=4)
+    runner = P.VirtualClockAsyncRunner(
+        eng, buffer_k=3, staleness="poly:0.5",
+        adversary_plan=AdversaryPlan.from_json(
+            {"seed": 5, "rules": [{"attack": "nan", "ranks": [2],
+                                   "rounds": [1, 3]}]}))
+    orig = runner.buffer.add
+
+    def checked_add(entry):
+        assert all(bool(torch.isfinite(v).all())
+                   for v in entry.payload.values()), \
+            "a non-finite arrival reached the buffer"
+        return orig(entry)
+
+    runner.buffer.add = checked_add
+    runner.run(4)
+    assert runner.shed_counts["nonfinite"] > 0
+    assert any(e[1] == 2 and e[2] == "nonfinite"
+               for e in eng.quarantine.canonical())
+    assert all(bool(torch.isfinite(v).all()) for v in eng.net.values())
+
+
+def test_engine_deadline_flushes_a_partial_buffer(setup):
+    # only one slot is faster than the deadline: every flush is
+    # deadline-driven and partial
+    plan = FaultPlan.from_json({"seed": 7, "rules": [
+        {"fault": "straggle", "src": [2, 3, 4], "delay_s": 9.0}]})
+    eng = _eng(setup, rounds=2)
+    runner = eng.run_async(2, buffer_k=4, staleness="poly:0.5",
+                           chaos_plan=plan, deadline_s=2.0)
+    assert runner.version == 2
+    assert all(h["k"] < 4 for h in runner.history), runner.history
+
+
+def test_engine_async_keeps_the_references_refusals(setup):
+    with pytest.raises(ValueError, match="client_result_hook"):
+        _eng(setup, client_result_hook=lambda n, g, k: n).run_async(
+            1, buffer_k=4)
+    with pytest.raises(ValueError, match="adversary_plan"):
+        _eng(setup, adversary_plan=AdversaryPlan.from_json(
+            {"seed": 1, "rules": [{"attack": "nan", "ranks": [1]}]})
+             ).run_async(1, buffer_k=4)

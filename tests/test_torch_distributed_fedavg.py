@@ -389,39 +389,45 @@ def test_launcher_runs_the_wire_flags(tmp_path):
 
 
 # Options whose own protocol is ported now (checkpoints, crash recovery,
-# buffered-async rounds, heartbeat admission) keep their case, each with
-# the composition that still raises: resuming a DP run's WAL, the
-# mid-reveal crash point of the secure tier, and the rank-level churn trace
-# the async dispatch and heartbeat paths consult (all item 8).
-_CHURN = object()
+# DP recovery, buffered-async rounds, heartbeat admission, rank-level churn
+# traces) keep their case, each with the composition that still raises:
+# the mid-reveal crash point of the secure tier (item 8) or fused ingest
+# (item 7).
 _OPTION_CASES = {
-    "ckpt_dir": lambda d: dict(ckpt_dir=_dp_wal(d)),
+    "ckpt_dir": lambda d: dict(ckpt_dir=_dp_wal(d), fused_agg=True),
     "chaos_plan": lambda d: dict(ckpt_dir=str(d), chaos_plan=FaultPlan.from_json(
         {"seed": 0, "rules": [{"fault": "crash", "ranks": [0],
                                "rounds": [1, 2], "after_uploads": -1}]})),
     "shard_server_state": lambda d: dict(shard_server_state=True),
     "partition_rules": lambda d: dict(partition_rules=[]),
-    "async_buffer_k": lambda d: dict(async_buffer_k=2, churn_trace=_CHURN),
+    "async_buffer_k": lambda d: dict(async_buffer_k=2, fused_agg=True),
     "staleness": lambda d: dict(async_buffer_k=2, staleness="poly:0.5",
-                                churn_trace=_CHURN),
+                                fused_agg=True),
     "staleness_bound": lambda d: dict(async_buffer_k=2, staleness_bound=1,
-                                      churn_trace=_CHURN),
+                                      fused_agg=True),
     "buffer_deadline_s": lambda d: dict(async_buffer_k=2,
                                         buffer_deadline_s=1.0,
-                                        churn_trace=_CHURN),
+                                        fused_agg=True),
     "buffer_capacity": lambda d: dict(async_buffer_k=2, buffer_capacity=4,
-                                      churn_trace=_CHURN),
+                                      fused_agg=True),
     "heartbeat_max_age_s": lambda d: dict(heartbeat_max_age_s=1.0,
-                                          churn_trace=_CHURN),
+                                          fused_agg=True),
     "edges": lambda d: dict(edges=2, fused_agg=True),
     "fused_agg": lambda d: dict(fused_agg=True),
-    "churn_trace": lambda d: dict(churn_trace=_CHURN),
+    "churn_trace": lambda d: dict(churn_trace=_churn_trace(),
+                                  fused_agg=True),
 }
+
+
+def _churn_trace():
+    from fedml_tpu_torch.chaos.churn import ChurnTrace
+
+    return ChurnTrace(seed=1, rank_base=0.5, rank_amplitude=0.5, period=4)
 
 
 def _dp_wal(d) -> str:
     """A ckpt_dir whose WAL holds a DP pre-charge (a DP run's crash
-    artifact): resuming it needs the accountant's recovery."""
+    artifact)."""
     from fedml_tpu_torch.core.wal import RoundWAL
 
     w = RoundWAL(str(d / "wal"))
@@ -461,11 +467,11 @@ def test_robust_run_simulated_options_run(setup, option):
 
 
 # --ckpt_dir, --async_buffer_k and --supervise run now: each case pairs
-# the flag with a flag still refused (the DP noise multiplier, the fleet
-# plane, the metrics endpoint: item 8), so nothing starts
+# the flag with a flag still refused (the fleet plane, the metrics
+# endpoint: item 8), so nothing starts
 @pytest.mark.parametrize("flag", [
     ["--algo", "fedopt"], ["--edges", "2", "--algo", "turboaggregate"],
-    ["--ckpt_dir", "/tmp/x", "--noise_multiplier", "0.5"],
+    ["--ckpt_dir", "/tmp/x", "--fleet_job", "x"],
     ["--async_buffer_k", "2", "--fleet", "1"], ["--fused_agg", "1"],
     ["--shard_server_state", "1"],
     ["--supervise", "1", "--ckpt_dir", "/tmp/x", "--metrics_port", "9"],

@@ -663,12 +663,13 @@ def test_unported_tree_options_raise_naming_their_item(setup, case,
                                                        tmp_path):
     """The tree's options still out of scope raise NotImplementedError
     naming their ROADMAP.md item: the fused edge ingest (7); the masked
-    tier's mid-reveal root crash point, resuming a root from a DP run's
-    WAL, a relayed fleet marker and the hierarchical masked tier (8).
-    Root restarts and the edge's resume probe run now
-    (tests/test_torch_recovery.py): their cases keep the refusals that
-    remain next to them."""
-    item = "7" if case in ("fused_agg", "edge_fused") else "8"
+    tier's mid-reveal root crash point, a relayed fleet marker and the
+    hierarchical masked tier (8). Root restarts, the edge's resume probe
+    and resuming a root from a DP run's WAL run now
+    (tests/test_torch_recovery.py, test_tree_root_resumes_a_dp_runs_wal):
+    their cases keep the refusals that remain next to them."""
+    item = "7" if case in ("fused_agg", "edge_fused", "resume_probe") \
+        else "8"
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue A, item {item}"):
         if case == "fused_agg":
@@ -683,7 +684,8 @@ def test_unported_tree_options_raise_naming_their_item(setup, case,
                      {"fault": "crash", "ranks": [0], "rounds": [1, 2],
                       "after_uploads": -1}]})
         elif case == "resume_probe":
-            _resume_dp_wal_root(setup, str(tmp_path))
+            _run(setup, "th-resume-fused", edges=2, fused_agg=True,
+                 ckpt_dir=_dp_wal_dir(str(tmp_path)))
         elif case == "turboaggregate":
             distributed_launch.main([
                 "--rank", "0", "--world_size", "11", "--device", "cpu",
@@ -698,20 +700,34 @@ def test_unported_tree_options_raise_naming_their_item(setup, case,
                 edge.finish()
 
 
-def _resume_dp_wal_root(setup, d):
-    """A tree root booted on a ckpt_dir whose WAL holds a DP pre-charge."""
+def _dp_wal_dir(d) -> str:
+    """A ckpt_dir whose WAL holds a DP pre-charge (a DP run's crash
+    artifact): an open round 0, no checkpoint."""
     from fedml_tpu_torch.core.wal import RoundWAL
 
     w = RoundWAL(d + "/wal")
     w.append("broadcast", sync=True, round=0)
     w.append("precharge", sync=True, round=0, q=0.5, z=1.0)
     w.close()
+    return d
+
+
+def test_tree_root_resumes_a_dp_runs_wal(setup, tmp_path):
+    """A tree root booted on a DP run's WAL: its aggregator keeps no
+    accountant, so the pre-charge is ignored (the reference's rule) and
+    the open round re-runs behind the resume probe."""
     topo = hierarchy.EdgeTopology(edges=2, workers=8)
     agg = hierarchy.HierFedAvgAggregator(
         setup["data"], setup["task"], FedAvgConfig(**_cfg()), topo,
         device="cpu")
-    hierarchy.HierFedAvgServerManager(agg, rank=0, size=11, ckpt_dir=d,
-                                      job_id="th-root-dp")
+    srv = hierarchy.HierFedAvgServerManager(
+        agg, rank=0, size=11, ckpt_dir=_dp_wal_dir(str(tmp_path)),
+        job_id="th-root-dp")
+    try:
+        assert srv._resume_round == 0 and srv.round_idx == 0
+    finally:
+        srv.com_manager.stop_receive_message()
+        srv.wal.close()
 
 
 # ----------------------------------------------------------------- launcher

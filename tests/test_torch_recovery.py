@@ -661,17 +661,39 @@ def test_jax_server_resumes_a_port_servers_ckpt_dir(setup, no_orbax,
 
 
 def test_dp_wal_resume_raises_naming_its_item(setup, tmp_path):
+    """A DP run's WAL (an open round with its pre-charge, no checkpoint
+    yet) no longer raises: the DP aggregator's accountant is re-charged
+    for the pre-charge past the (absent) commit and the open round re-runs
+    behind the resume probe; a plain aggregator, which has no accountant,
+    ignores the record, as the reference's does."""
+    from fedml_tpu_torch.core.privacy import DPAccountant
+    from fedml_tpu_torch.distributed.fedavg_robust import (
+        FedAvgRobustAggregator,
+    )
+
     w = RoundWAL(os.path.join(str(tmp_path), "wal"))
     w.append("broadcast", sync=True, round=0)
     w.append("precharge", sync=True, round=0, q=0.375, z=1.0)
     w.close()
-    agg = FedAvgAggregator(setup["data"], setup["task"],
-                           FedAvgConfig(**_cfg()), worker_num=3,
-                           device="cpu")
-    with pytest.raises(NotImplementedError, match=r"queue A, item 8"):
-        FedAvgServerManager(agg, rank=0, size=4, ckpt_dir=str(tmp_path),
-                            **backend_kwargs("LOOPBACK", "tr-dp", 0,
-                                             "127.0.0.1", 1))
+    for i, agg in enumerate((
+            FedAvgRobustAggregator(setup["data"], setup["task"],
+                                   FedAvgConfig(**_cfg()), worker_num=3,
+                                   defense_type="dp", device="cpu"),
+            FedAvgAggregator(setup["data"], setup["task"],
+                             FedAvgConfig(**_cfg()), worker_num=3,
+                             device="cpu"))):
+        srv = FedAvgServerManager(agg, rank=0, size=4,
+                                  ckpt_dir=str(tmp_path),
+                                  **backend_kwargs("LOOPBACK", f"tr-dp{i}",
+                                                   0, "127.0.0.1", 1))
+        try:
+            assert srv._resume_round == 0
+            if i == 0:
+                assert agg.epsilon() == DPAccountant().step(
+                    0.375, 1.0).epsilon(1e-5)
+        finally:
+            srv.com_manager.stop_receive_message()
+            srv.wal.close()
 
 
 # --------------------------------------------------------- resume protocol
