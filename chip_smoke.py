@@ -69,8 +69,10 @@ Phases, in order:
            the lossy tiers finite with empty quarantines. A seeded fault
            plan (drop, corrupt, duplicate, delay) twice on delta-int8: equal
            fault and quarantine ledgers, no duplicate folded twice. One
-           traced dense run: each round's spans by rank, its history the
-           untraced run's, its frames grown only by the trace parameter
+           traced dense run: each round's spans by rank, its frames grown
+           only by the trace parameter. cuDNN deterministic for the phase,
+           so the second chaos run and the traced run are held bitwise to
+           the first and to the untraced run
   robust   Byzantine-robust aggregation at main's configuration, not cut:
            (a) every estimator behind the gate (median, trimmed mean, krum,
            multi-krum, geometric median), the pairwise mean, the evidence
@@ -163,6 +165,26 @@ Phases, in order:
            repeat (the noise stream continued, not replayed), ε equal or
            above by at most the one round the pre-charge contract allows,
            the recovery ms
+  observe  the run-health and round-economics layer (fedml_tpu_torch/obs)
+           at main's configuration, not cut, cuDNN deterministic for the
+           phase: (a) 3 engine rounds under Telemetry(log_dir, http_port=0,
+           memwatch, health) beside 3 unarmed rounds from the same
+           weights, interleaved: the model bits bitwise equal; each record's
+           goodput block (exclusive duty buckets summing to the wall,
+           FLOPs/s from the counted forward, MFU against the card's bf16
+           peak), pack and mem blocks; each round's duty split and the
+           armed round's wall beside the unarmed one's (telemetry's cost);
+           memwatch's device_peak_bytes equal to
+           torch.cuda.max_memory_allocated() read at the same point;
+           /metrics and /healthz scraped once (status ok); (b) the fleet
+           plane over loopback, flat (10 ranks) and under hier's 5 x 2 tree,
+           2 rounds each beside a plane-off run: /fleetz rows for every
+           rank (the tree's workers through their edges' folded blobs),
+           digest bytes a rank a round within the 1,024 B budget, the
+           server rounds' duty-only goodput blocks, the model bits bitwise
+           the plane-off run's; (c) Telemetry.profile around one engine
+           round: a non-empty torch.profiler trace with the round's CUDA
+           kernels
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -193,7 +215,7 @@ from fedml_tpu_torch.ops import loader
 fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
 PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
-          "wire", "robust", "hier", "recover", "harden")
+          "wire", "robust", "hier", "recover", "harden", "observe")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -1031,7 +1053,7 @@ def _launch_job(argv, out_dir):
     import os
 
     env = {**os.environ, "PYTHONPATH": str(out_dir.parent)}
-    procs, files = [], []
+    procs, files, rcs = [], [], None
     t0 = time.time()
     try:
         for r in (0, 1, 2):
@@ -1054,11 +1076,31 @@ def _launch_job(argv, out_dir):
                 p.wait()
         for f in files:
             f.close()
+        if rcs is None:  # timed out or failed to start: where each stood
+            for r in (0, 1, 2):
+                log = (out_dir / f"rank{r}.err").read_text()
+                print(f"distributed: (d) rank {r}'s log ends:\n{log[-1500:]}")
     errs = [(out_dir / f"rank{r}.err").read_text() for r in (0, 1, 2)]
     if rcs != [0, 0, 0]:
         raise AssertionError(f"launcher ranks exited {rcs}; rank 0's log "
                              f"ends: {errs[0][-2000:]}")
     return (out_dir / "rank0.out").read_text(), errs, t0, t_end
+
+
+def _launch_argv():
+    """(d)'s launcher job: MAIN_CFG's data and model, 2 clients a round,
+    over the bundled MQTT broker on a free port."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    return ["--world_size", "3", "--backend", "mqtt", "--broker_port",
+            str(port), "--serve_broker", "1", "--dataset", "femnist",
+            "--model", "cnn", "--batch_size", str(MAIN_CFG["batch_size"]),
+            "--lr", str(MAIN_CFG["lr"]), "--comm_round", str(LAUNCH_ROUNDS),
+            "--client_num_in_total", str(MAIN_CFG["client_num_in_total"]),
+            "--frequency_of_the_test", "1", "--seed", "0"]
 
 
 def _log_time(log, text):
@@ -1259,17 +1301,8 @@ def phase_distributed(report):
 
     # (d) 1 server + 2 client processes over MQTT against the in-process
     # loopback run of the same configuration (the launcher's float32 data)
-    with socket.socket() as s:
-        s.bind(("127.0.0.1", 0))
-        port = s.getsockname()[1]
-    argv = ["--world_size", "3", "--backend", "mqtt", "--broker_port",
-            str(port), "--serve_broker", "1", "--dataset", "femnist",
-            "--model", "cnn", "--batch_size", str(MAIN_CFG["batch_size"]),
-            "--lr", str(MAIN_CFG["lr"]), "--comm_round", str(LAUNCH_ROUNDS),
-            "--client_num_in_total", str(MAIN_CFG["client_num_in_total"]),
-            "--frequency_of_the_test", "1", "--seed", "0"]
     with tempfile.TemporaryDirectory(dir=Path(__file__).resolve().parent) as d:
-        out, errs, t_launch, t_exit = _launch_job(argv, Path(d))
+        out, errs, t_launch, t_exit = _launch_job(_launch_argv(), Path(d))
     history = json.loads(out.strip().splitlines()[-1])
     fdata = load_dataset("femnist", seed=0)
     want = run_simulated(fdata, cnn(), FedAvgConfig(
@@ -1539,6 +1572,29 @@ def _trace_rounds(tel, rounds):
 
 
 def phase_wire(report):
+    # the chaos pair and the traced run repeat runs that must be the same
+    # bits: with cuDNN's default algorithms the card's fits do not repeat
+    # (hier's finding), so the phase asks for deterministic ones
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        _wire(report)
+    finally:
+        torch.backends.cudnn.deterministic = was
+
+
+def _same_run(label, a, b, phase):
+    """Two runs of one job (repeats, not two tiers): params bitwise and
+    histories equal, or fail naming the gap."""
+    na, nb = _cpu_state(a["agg"].net), _cpu_state(b["agg"].net)
+    gap = max(float((na[k] - nb[k]).abs().max()) for k in nb)
+    same = _bitwise(na, nb) and a["agg"].history == b["agg"].history
+    print(f"{phase}: {label}: bitwise {same} (params max |diff| {gap:.3e})")
+    if not same:
+        raise AssertionError(f"{label}: not bitwise (max |diff| {gap:.3e})")
+
+
+def _wire(report):
     from fedml_tpu_torch import chaos
     from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
     from fedml_tpu_torch.data import load_dataset
@@ -1643,7 +1699,7 @@ def phase_wire(report):
     print(f"wire: chaos: the two fault ledgers are equal ({len(a['ledger'])} "
           f"faults), so are the quarantine ledgers; every fold's sample "
           f"weight is its distinct uploads'")
-    _agree("chaos run 1 vs run 0", gaps(b, a), ROUND_TOLS, phase="wire")
+    _same_run("chaos run 1 vs run 0", b, a, "wire")
 
     # one traced dense run
     tel = Telemetry(trace=True)
@@ -1664,8 +1720,7 @@ def phase_wire(report):
         if len(ranks) != K or not all({"unpack", "local_fit", "pack"}
                                       <= set(v) for v in ranks.values()):
             raise AssertionError(f"trace round {r}: ranks {ranks}")
-    _agree("traced dense run vs the untraced one", gaps(traced, dense),
-           ROUND_TOLS, phase="wire")
+    _same_run("traced dense run vs the untraced one", traced, dense, "wire")
     grown = (traced["up"] + traced["down"] - dense["up"] - dense["down"])
     print(f"wire: tracing grew the run's {traced['frames']:.0f} frames by "
           f"{grown:.0f} B in all ({grown / traced['frames']:.0f} B a frame)")
@@ -3182,6 +3237,242 @@ def phase_harden(report):
         torch.backends.cudnn.deterministic = was
     if any(fa.LAUNCHES.values()):
         raise AssertionError(f"flash kernels launched by the harden phase: "
+                             f"{fa.LAUNCHES}")
+
+
+# observe: 3 engine rounds armed and unarmed, 2 rounds a fleet run
+OBSERVE_ROUNDS = 3
+OBSERVE_FLEET_ROUNDS = 2
+# the CNN's forward, FLOPs a sample, as FlopCounterMode counts it (every
+# tap of the padded convolutions; utils/flops.py)
+CNN_FWD_FLOPS = 24_599_552
+
+
+def _observe_engine(data, cfg, start):
+    """(a): the engine armed with the live bundle beside an unarmed one."""
+    import shutil
+    import tempfile
+    import urllib.request
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.obs import Telemetry, goodput
+    from fedml_tpu_torch.utils.flops import forward_flops
+
+    d = tempfile.mkdtemp(prefix="smoke-observe-")
+    tel = Telemetry(log_dir=d, http_port=0, memwatch=True, health=True)
+    plain = FedAvgAPI(data, _cnn_task(), cfg, device_data=True)
+    armed = FedAvgAPI(data, _cnn_task(), cfg, device_data=True,
+                      telemetry=tel)
+    plain.load_state(start)
+    armed.load_state(start)
+    walls = {"plain": [], "armed": []}
+    # the allocator's peak so far is the process's (earlier phases, the
+    # set-up): each armed round starts a fresh one, so its record's
+    # device_peak_bytes is that round's own
+    process_peak = torch.cuda.max_memory_allocated()
+    resident = []
+    for r in range(OBSERVE_ROUNDS):
+        for name, api in (("plain", plain), ("armed", armed)):
+            if name == "armed":
+                torch.cuda.synchronize()
+                resident.append(torch.cuda.memory_allocated())
+                torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            api.run_round(r)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    # memwatch's peak and the allocator's, read back to back: the same
+    # allocator key under memwatch's gpu:<i> label
+    block = tel.memwatch.sample()
+    peak = torch.cuda.max_memory_allocated()
+    scraped = {p: urllib.request.urlopen(tel.httpd.url(p), timeout=10)
+               .read().decode() for p in ("/metrics", "/healthz")}
+    tel.close()
+    with open(f"{d}/events.jsonl") as f:
+        recs = [r for r in map(json.loads, f) if r.get("kind") == "round"]
+    shutil.rmtree(d, ignore_errors=True)
+    same = _bitwise(_cpu_state(plain.net), _cpu_state(armed.net))
+    variant = f"round_b{cfg.max_batches}"
+    fwd = forward_flops(armed.task, armed.net, data.train_x[:1])
+    want = 3.0 * CNN_FWD_FLOPS * cfg.client_num_per_round \
+        * cfg.max_batches * cfg.batch_size
+    cost = goodput.variant_cost(variant)
+    print(f"observe: (a) model bits armed vs unarmed after "
+          f"{OBSERVE_ROUNDS} rounds: bitwise {same}; forward {fwd:.0f} "
+          f"FLOPs a sample; {variant}: {cost['flops'] / 1e9:.4f} GFLOP a "
+          f"round (3 x forward x {cfg.client_num_per_round} x "
+          f"{cfg.max_batches} x {cfg.batch_size} = {want / 1e9:.4f})")
+    out = dict(bitwise=same, fwd_flops=fwd, round_flops=cost["flops"],
+               walls_plain_s=walls["plain"], walls_armed_s=walls["armed"],
+               process_peak_bytes=process_peak, resident_bytes=resident,
+               rounds=[])
+    # a round's peak holds at least what was resident when it began and
+    # the cohort's stacked copy of the model (K x the parameters' bytes)
+    stack_bytes = cfg.client_num_per_round * sum(
+        v.numel() * v.element_size() for v in armed.net.values())
+    for r, rec in enumerate(recs):
+        gp, pk, mem = rec["goodput"], rec["pack"], rec["mem"]
+        total = sum(gp["buckets"].values())
+        # compute = the host's dispatch (the round span) + the wait for
+        # the card after it
+        dispatch = rec["spans"]["round"]
+        wait = gp["buckets"]["compute"] - dispatch
+        print(f"observe: (a) round {r}: dispatch (round span) "
+              f"{dispatch:.4f} s, wait for the card {wait:.4f} s, pack "
+              f"{rec['spans']['pack']:.4f} s: dispatch "
+              f"{dispatch / gp['wall_s']:.4f} of the wall")
+        print(f"observe: (a) round {r}: wall armed {walls['armed'][r]:.4f} "
+              f"s, unarmed {walls['plain'][r]:.4f} s; goodput wall "
+              f"{gp['wall_s']:.4f} s, buckets " + ", ".join(
+                  f"{b} {gp['buckets'][b]:.4f}" for b in goodput.BUCKETS)
+              + " s; duty " + ", ".join(
+                  f"{b} {gp['duty'][b]:.4f}" for b in goodput.BUCKETS)
+              + f"; {gp.get('flops_per_s', 0) / 1e12:.4f} TFLOP/s, mfu "
+              f"{gp.get('mfu')}; pack {pk}; mem {mem}")
+        out["rounds"].append(dict(goodput=gp, pack=pk, mem=mem,
+                                  dispatch_s=dispatch, wait_s=wait))
+        if abs(total - gp["wall_s"]) > 1e-5 or "mfu" not in gp \
+                or not gp.get("flops_per_s") or gp["variant"] != variant:
+            raise AssertionError(f"round {r}: goodput {gp}")
+        print(f"observe: (a) round {r}: device peak "
+              f"{mem['device_peak_bytes']} B = resident at its start "
+              f"{resident[r]} B + {mem['device_peak_bytes'] - resident[r]} "
+              f"B (the cohort's stacked model alone {stack_bytes} B)")
+        if pk["bucket_B"] != cfg.max_batches or \
+                mem.get("device_peak_bytes", 0) < resident[r] + stack_bytes:
+            raise AssertionError(f"round {r}: pack {pk}, mem {mem}, "
+                                 f"resident {resident[r]}, stack "
+                                 f"{stack_bytes}")
+    hz = json.loads(scraped["/healthz"])
+    print(f"observe: (a) memwatch device_peak_bytes {block['device_peak_bytes']}"
+          f" vs torch.cuda.max_memory_allocated() {peak} (the last armed "
+          f"round's; the process's before the rounds {process_peak}); "
+          f"/metrics "
+          f"{len(scraped['/metrics'])} B, /healthz status {hz['status']}, "
+          f"round {hz['round']}, alerts {hz['alerts']}")
+    out.update(device_peak_bytes=block["device_peak_bytes"],
+               max_memory_allocated=peak, healthz=hz["status"])
+    if not same or fwd != CNN_FWD_FLOPS or cost["flops"] != want:
+        raise AssertionError(f"(a): bitwise {same}, forward {fwd}, cost "
+                             f"{cost}")
+    if block["device_peak_bytes"] != peak or hz["status"] != "ok" or \
+            "fed_goodput_mfu" not in scraped["/metrics"] or \
+            len(recs) != OBSERVE_ROUNDS:
+        raise AssertionError(f"(a): peak {block['device_peak_bytes']} vs "
+                             f"{peak}, healthz {hz}, {len(recs)} records")
+    return out
+
+
+def _observe_fleet(data, cfg):
+    """(b): the fleet plane, flat and under the tree, beside plane-off runs
+    of the same jobs."""
+    import urllib.request
+
+    from fedml_tpu_torch.obs import Telemetry
+    from fedml_tpu_torch.obs.fleet import DIGEST_BYTE_BUDGET
+    from fedml_tpu_torch.obs.metrics import REGISTRY
+
+    def telemetry_bytes():
+        return float(REGISTRY.snapshot().get("comm_bytes_total", {}).get(
+            "codec=json,direction=telemetry", 0.0))
+
+    cfg = dataclasses.replace(cfg, comm_round=OBSERVE_FLEET_ROUNDS)
+    K, out = cfg.client_num_per_round, {}
+    for topo, kw in (("flat", {}), ("tree", {"edges": HIER_EDGES})):
+        off = _hier_run(data, cfg, f"smoke-observe-{topo}-off", **kw)
+        before = telemetry_bytes()
+        tel = Telemetry(fleet=True, http_port=0, memwatch=False)
+        on = _hier_run(data, cfg, f"smoke-observe-{topo}-on", telemetry=tel,
+                       **kw)
+        fz = json.loads(urllib.request.urlopen(
+            tel.httpd.url("/fleetz"), timeout=10).read())
+        recs = [r for r in tel.events.sink.records
+                if r.get("kind") == "round"]
+        tel.close()
+        nbytes = telemetry_bytes() - before
+        ranks = sorted(int(r) for r in fz["ranks"])
+        world = 1 + K + (HIER_EDGES if kw else 0)
+        per_digest = nbytes / max(fz["digests_total"], 1)
+        same = _bitwise(off["nets"][-1], on["nets"][-1])
+        duty = [r["goodput"]["duty"] for r in recs]
+        print(f"observe: (b) {topo}: /fleetz ranks {ranks}, digests "
+              f"{fz['digests_total']} ({nbytes:.0f} B, {per_digest:.1f} B a "
+              f"digest, budget {DIGEST_BYTE_BUDGET}), rollup {fz['rollup']};"
+              f" server duty by round {duty}; walls plane on "
+              + ", ".join(f"{w:.3f}" for w in on["walls"]) + " s, off "
+              + ", ".join(f"{w:.3f}" for w in off["walls"])
+              + f" s; model bits vs plane off: bitwise {same}")
+        out[topo] = dict(ranks=ranks, digests=fz["digests_total"],
+                         digest_bytes=per_digest, duty=duty, bitwise=same,
+                         walls_on_s=on["walls"], walls_off_s=off["walls"])
+        # every rank a row: the flat run's ten workers report directly, the
+        # tree's through their edge's folded blob (rank 0's own row too)
+        if ranks != list(range(world)) or not same or \
+                per_digest > DIGEST_BYTE_BUDGET or \
+                len(recs) != cfg.comm_round or any(
+                    "flops_per_s" in r["goodput"] or abs(sum(
+                        r["goodput"]["buckets"].values())
+                        - r["goodput"]["wall_s"]) > 1e-5 for r in recs):
+            raise AssertionError(f"(b) {topo}: ranks {ranks}, bitwise "
+                                 f"{same}, {per_digest} B a digest, "
+                                 f"records {recs}")
+    return out
+
+
+def _observe_profile(data, cfg, start):
+    """(c): Telemetry.profile around one engine round."""
+    import glob
+    import os
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.obs import Telemetry
+
+    api = FedAvgAPI(data, _cnn_task(), cfg, device_data=True)
+    api.load_state(start)
+    d = tempfile.mkdtemp(prefix="smoke-profile-")
+    tel = Telemetry()
+    with tel.profile(d):
+        api.run_round(0)
+        torch.cuda.synchronize()
+    tel.close()
+    files = glob.glob(os.path.join(d, "*.pt.trace.json"))
+    size = sum(os.path.getsize(f) for f in files)
+    events = []
+    for name in files:
+        with open(name) as f:
+            events += json.load(f).get("traceEvents", [])
+    shutil.rmtree(d, ignore_errors=True)
+    kernels = sum(1 for e in events if e.get("cat") == "kernel")
+    print(f"observe: (c) profile(): {len(files)} trace file(s), {size} B, "
+          f"{len(events)} events, {kernels} CUDA kernel events")
+    if len(files) != 1 or not size or not kernels:
+        raise AssertionError(f"(c): {files}, {size} B, {kernels} kernels")
+    return dict(trace_bytes=size, events=len(events), kernels=kernels)
+
+
+def phase_observe(report):
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
+    from fedml_tpu_torch.data import load_dataset
+
+    fa.reset_launches()
+    data = load_dataset("femnist", seed=0, uint8_pixels=True)
+    cfg = FedAvgConfig(comm_round=OBSERVE_ROUNDS, frequency_of_the_test=100,
+                       **MAIN_CFG)
+    start = _cpu_state(_initial_state(data, cfg))
+    rec = report["observe"] = {}
+    # armed against unarmed and plane on against off are bitwise claims
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rec["engine"] = _observe_engine(data, cfg, start)
+        rec["fleet"] = _observe_fleet(data, cfg)
+        rec["profile"] = _observe_profile(data, cfg, start)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched by the observe phase: "
                              f"{fa.LAUNCHES}")
 
 

@@ -19,10 +19,14 @@ Every round times its host phases on ``self.tracer`` (obs/tracing
 gather), ``round`` (dispatching the fit and the aggregate; the card runs
 on after it), ``eval``. A ``telemetry`` bundle adds one record a round
 (clients, spans, the summed metrics and ``round_stats``, comm bytes, and a
-DP engine's ``privacy`` block) and feeds the spans to its tracer; with
-telemetry off nothing syncs and nothing is added to the round. The
-reference's goodput and pack blocks of that record need modules not
-ported yet and are left out.
+DP engine's ``privacy`` block, the ``agg`` server-plane block, the
+``pack`` block — batch depth, padding share and packed bytes — and the
+``goodput`` block: the wall split into exclusive duty buckets, FLOPs/s and
+MFU, obs/goodput.py) and feeds the spans to its tracer. Its one sync is
+the wait for the card on the round's outputs before they are floated
+(goodput's ``compute`` bucket); the round's FLOP count is taken once per
+variant (utils/flops.py). With telemetry off nothing syncs, nothing is
+counted and nothing is added to the round.
 
 The key chain is the JAX engine's (utils/prng, host words): ``self.rng``
 starts at ``PRNGKey(seed)``, is split once for the init (the port draws
@@ -65,6 +69,7 @@ import torch
 from fedml_tpu_torch.core import optim
 from fedml_tpu_torch.core.client_data import (
     FederatedData,
+    IndexBatch,
     batch_global,
     pack_client_indices,
     pack_clients,
@@ -86,11 +91,18 @@ from fedml_tpu_torch.core.local import (
 )
 from fedml_tpu_torch.core.sampling import prepare_sampling, sample_for
 from fedml_tpu_torch.device import resolve_device
+from fedml_tpu_torch.obs import goodput as _goodput
+from fedml_tpu_torch.obs import perf_instrument as _perf
 from fedml_tpu_torch.obs.tracing import RoundTracer
 from fedml_tpu_torch.utils import prng
 from fedml_tpu_torch.utils.tree import tree_weighted_mean
 
 log = logging.getLogger("fedml_tpu_torch.fedavg")
+
+
+def _tree_bytes(tree: dict) -> int:
+    """Bytes of a state dict's tensors."""
+    return sum(v.numel() * v.element_size() for v in tree.values())
 
 
 def agg_weights(nsamp: torch.Tensor, uniform: bool) -> torch.Tensor:
@@ -324,9 +336,26 @@ class FedAvgAPI:
         self._test_cache = None
         self._eval_calls = 0
         self.history: list[dict] = []
+        # per-round pack accounting, written at pack time and popped into
+        # the telemetry round record (only while telemetry is on)
+        self._pack_stats: dict[int, dict] = {}
+        # server-plane sizing + per-round aggregation bytes
+        # (perf_instrument: fed_server_state_bytes{placement} /
+        # fed_agg_bytes_total{mode}); one device: replicated
+        per_dev = _tree_bytes(self.net)  # + the server opt state: none
+        self._state_placement = "replicated"
+        self._agg_bytes_round = per_dev * config.client_num_per_round
+        _perf.set_server_state_bytes(self._state_placement, per_dev)
+        # rides every telemetry round record
+        self._agg_record = {
+            "mode": self._state_placement,
+            "server_state_bytes_per_device": int(per_dev),
+            "bytes_per_round": int(self._agg_bytes_round),
+        }
         # telemetry: an obs.Telemetry bundle, or None (no extra work)
         self.telemetry = telemetry
         self._emit_stats = telemetry is not None and telemetry.round_stats
+        self._costed: set[str] = set()  # variants whose FLOPs are cached
         # pack/round/eval host spans; with a tracing-enabled Telemetry
         # bundle the same spans also feed its single-rank timeline
         self.tracer = RoundTracer(
@@ -380,17 +409,51 @@ class FedAvgAPI:
         kw = dict(max_batches=self.num_batches, seed=cfg.seed,
                   round_idx=round_idx)
         if self.device_data:
-            ib = pad_index_batches(
-                pack_client_indices(self.data, ids, cfg.batch_size, **kw),
-                self.num_batches)
+            ib = pack_client_indices(self.data, ids, cfg.batch_size, **kw)
+            b_needed = ib.idx.shape[1]
+            ib = pad_index_batches(ib, self.num_batches)
+            self._record_pack_stats(round_idx, b_needed, ib)
             mask = self._put(ib.mask)
             x, y = _gather_rows(self._dev_x, self._dev_y,
                                 self._put(ib.idx).long(), mask)
             return x, y, mask, self._put(ib.num_samples)
-        cb = pad_batches(pack_clients(self.data, ids, cfg.batch_size, **kw),
-                         self.num_batches)
+        cb = pack_clients(self.data, ids, cfg.batch_size, **kw)
+        b_needed = cb.num_batches
+        cb = pad_batches(cb, self.num_batches)
+        self._record_pack_stats(round_idx, b_needed, cb)
         return (self._put(cb.x), self._put(cb.y), self._put(cb.mask),
                 self._put(cb.num_samples))
+
+    def _record_pack_stats(self, round_idx: int, b_needed: int,
+                           batch) -> None:
+        """One round's pack accounting: the dispatched batch depth, the
+        natural depth the cohort needed, the fraction of batch slots that
+        are pure padding, and the packed host bytes — the numbers that show
+        whether a skewed population is paying for its largest client every
+        round."""
+        if self.telemetry is None:
+            return  # nobody will pop it — don't grow the dict forever
+        if isinstance(batch, IndexBatch):
+            K, B = batch.idx.shape[0], batch.idx.shape[1]
+            nbytes = batch.idx.nbytes + batch.mask.nbytes
+        else:
+            K, B = batch.x.shape[0], batch.x.shape[1]
+            nbytes = batch.x.nbytes + batch.y.nbytes + batch.mask.nbytes
+        used = float(np.sum(np.ceil(
+            np.asarray(batch.num_samples) / self.cfg.batch_size)))
+        slots = float(K * B)
+        self._pack_stats[round_idx] = {
+            "bucket_B": int(B), "b_needed": int(b_needed),
+            "budget_B": int(self.num_batches),
+            "pad_frac": round(1.0 - used / slots, 4) if slots else 0.0,
+            "bytes": int(nbytes),
+        }
+
+    def _pack_extra(self, round_idx: int) -> dict:
+        """The optional ``pack`` block a telemetry round record carries —
+        absent when nothing was recorded."""
+        ps = self._pack_stats.pop(round_idx, None)
+        return {"pack": ps} if ps else {}
 
     # ------------------------------------------------------------------ round
     def run_round(self, round_idx: int) -> dict:
@@ -400,6 +463,7 @@ class FedAvgAPI:
         tensors (no host read unless a telemetry bundle asks for its
         record)."""
         if self.telemetry is not None:
+            t_wall = time.perf_counter()
             spans_before = dict(self.tracer.rounds[-1])
             if self.telemetry.tracer is not None:
                 self.telemetry.tracer.begin_round(round_idx)
@@ -430,6 +494,7 @@ class FedAvgAPI:
                 metrics.update(round_stats(self.net, new_net, nets, avg,
                                            nsamp))
             self.net = new_net
+        _perf.record_agg_bytes(self._state_placement, self._agg_bytes_round)
         if reasons is not None:
             # the round's one host read: its [K] codes into the ledger
             self.quarantine.record_codes(round_idx, reasons.cpu().numpy(),
@@ -437,11 +502,19 @@ class FedAvgAPI:
         if self.telemetry is not None:
             # floating the metrics syncs on the round's outputs — a cost the
             # caller opted into by passing telemetry; the off path returns
-            # the device tensors untouched
+            # the device tensors untouched (no sync, dispatch still overlaps)
+            wait = self._goodput_wait()
+            spans = self._span_delta(spans_before)
+            pack_extra = self._pack_extra(round_idx)
             self.telemetry.emit_round(
                 round_idx, clients=np.asarray(ids).tolist(),
-                spans=self._span_delta(spans_before),
+                spans=spans,
                 metrics={k: float(v) for k, v in metrics.items()},
+                agg=self._agg_record,
+                **self._goodput_extra(
+                    time.perf_counter() - t_wall, spans,
+                    compute_wait_s=wait, pack_extra=pack_extra),
+                **pack_extra,
                 **self._quarantine_extra(round_idx),
                 **self._privacy_extra())
             if self.telemetry.tracer is not None:
@@ -475,6 +548,54 @@ class FedAvgAPI:
         """The round record's optional ``privacy`` block: {} here;
         FedAvgRobustAPI's accounted DP returns its accountant's."""
         return {}
+
+    # ------------------------------------------------------ round economics
+    def _variant_name(self, B=None) -> str:
+        """The reference's jit variant name for this dispatch,
+        ``round_b{B}`` (float32: no precision tag), under which the round's
+        FLOP count is cached (obs/goodput.py)."""
+        return f"round_b{int(self.num_batches if B is None else B)}"
+
+    def _goodput_wait(self) -> float:
+        """Wait for the card to finish this round's work and return the
+        wait — the device-compute backpressure the round loop pays, goodput's
+        ``compute`` share beyond the dispatch. Telemetry paths only: they
+        were about to sync on the same outputs anyway (emit floats them),
+        so the off path stays sync-free. 0 on the CPU."""
+        if self.device.type != "cuda":
+            return 0.0
+        t0 = time.perf_counter()
+        torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
+    def _variant_flops(self, variant: str, B: int) -> None:
+        """Count the round variant's FLOPs once (utils/flops.py: 3x one
+        forward a sample, over every slot of the cohort's K x B x bs
+        batch, padded slots included as the reference's round program
+        counts them) and cache them under ``variant``."""
+        if variant in self._costed:
+            return
+        from fedml_tpu_torch.utils.flops import forward_flops
+
+        self._costed.add(variant)
+        fwd = forward_flops(self.task, self.net, self.data.train_x[:1])
+        _goodput.record_variant_cost(
+            variant, None if fwd is None else
+            3.0 * fwd * self.cfg.client_num_per_round * B
+            * self.cfg.batch_size)
+
+    def _goodput_extra(self, wall_s, spans, *, compute_wait_s: float = 0.0,
+                       pack_extra=None) -> dict:
+        """The ``goodput`` block one round record carries (obs/goodput.py):
+        exclusive duty-cycle buckets of this round's wall plus FLOPs/s and
+        MFU from the variant's FLOP count."""
+        B = ((pack_extra or {}).get("pack") or {}).get("bucket_B")
+        variant = self._variant_name(B=B)
+        self._variant_flops(variant, self.num_batches if B is None else B)
+        buckets = _goodput.buckets_from_spans(
+            wall_s, spans, compute_wait_s=compute_wait_s)
+        return {"goodput": _goodput.round_goodput(
+            wall_s, buckets, variant=variant, n_devices=1)}
 
     def _span_delta(self, before: dict) -> dict:
         """This call's span seconds: current tracer round minus a snapshot

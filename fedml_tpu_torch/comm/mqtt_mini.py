@@ -176,9 +176,40 @@ class MiniMqttClient:
                 log.error("mqtt: connection to broker lost: %s", e)
 
     def close(self) -> None:
+        """DISCONNECT, half-close, drain, close. A socket closed with
+        unread bytes in its receive buffer (the broker's PUBACKs for the
+        last QoS-1 publishes) sends a TCP reset, and the reset makes the
+        broker's kernel discard the PUBLISH frames it has not read yet: a
+        burst published just before close() lost its tail. Shutting the
+        write side down instead lets the broker read every frame up to the
+        DISCONNECT and close its end; this side reads to that EOF (or for
+        2 s at most) before closing, so nothing is left unread."""
+        import time
+
+        drain_s = 2.0
         self._alive = False
         try:
             self._send(_packet(DISCONNECT, 0, b""))
+            self._sock.shutdown(socket.SHUT_WR)
+        except OSError:
+            pass
+        deadline = time.monotonic() + drain_s
+        if threading.current_thread() is not self._thread:
+            # the reader keeps reading until the broker's EOF
+            self._thread.join(timeout=drain_s)
+        if not self._thread.is_alive() or \
+                threading.current_thread() is self._thread:
+            try:
+                while True:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    self._sock.settimeout(left)
+                    if not self._sock.recv(65536):
+                        break
+            except OSError:
+                pass
+        try:
             self._sock.close()
         except OSError:
             pass
@@ -194,6 +225,9 @@ class MiniMqttBroker:
         self._retained: dict[str, bytes] = {}  # topic -> last retained payload
         self._socks: list[socket.socket] = []
         self._lock = threading.Lock()
+        # one writer a socket: fan-outs from several publishers' threads
+        # reach one subscriber's socket at once (see _send)
+        self._wlocks: dict[socket.socket, threading.Lock] = {}
         self._alive = True
         self._thread = threading.Thread(target=self._accept_loop, daemon=True)
         self._thread.start()
@@ -209,8 +243,17 @@ class MiniMqttBroker:
             threading.Thread(target=self._serve, args=(conn,), daemon=True).start()
 
     def _send(self, sock: socket.socket, data: bytes) -> None:
+        """Write one whole packet to ``sock``, one writer at a time. Each
+        publisher's connection has its own thread, and two of them fanning
+        out to the same subscriber at once interleaved their ``sendall``
+        chunks once a packet outgrew the socket buffer (two clients'
+        model uploads to the server): the subscriber read a garbled
+        stream and waited on a bogus length for good."""
+        with self._lock:
+            wlock = self._wlocks.setdefault(sock, threading.Lock())
         try:
-            sock.sendall(data)
+            with wlock:
+                sock.sendall(data)
         except OSError:
             self._drop(sock)
 
@@ -220,6 +263,7 @@ class MiniMqttBroker:
                 subs.discard(sock)
             if sock in self._socks:
                 self._socks.remove(sock)
+            self._wlocks.pop(sock, None)
         try:
             sock.close()
         except OSError:

@@ -21,8 +21,10 @@ pairwise association — with an aggregator, through the two-phase
 evidence/verdict composition (``make_verdict_estimator``). The server runs
 the same ``gated_aggregate`` as the engine over the same stacked state
 layout, so the two runtimes' quarantine ledgers agree entry for entry.
-Sharded server state (item 12) and fused ingest (item 7) are queued in
-ROADMAP.md, queue A; passing one raises.
+The aggregation families (fed_agg_bytes_total, fed_flush_seconds,
+fed_agg_stack_bytes, fed_server_state_bytes: obs/perf_instrument.py) are
+fed from every flush. Sharded server state (item 12) and fused ingest
+(item 7) are queued in ROADMAP.md, queue A; passing one raises.
 """
 
 from __future__ import annotations
@@ -49,6 +51,7 @@ from fedml_tpu_torch.core.robust_agg import (
 from fedml_tpu_torch.core.sampling import sample_available, sample_clients
 from fedml_tpu_torch.device import resolve_device
 from fedml_tpu_torch.obs import comm_instrument as _obs
+from fedml_tpu_torch.obs import perf_instrument as _perf
 
 log = logging.getLogger("fedml_tpu_torch.distributed.fedavg")
 
@@ -118,6 +121,10 @@ class FedAvgAggregator:
         self.num_heads = num_heads_of(task.module)
         self._model_nbytes = sum(v.numel() * v.element_size()
                                  for v in self.net.values())
+        # the server plane's per-device bytes (the model; the server
+        # optimizer state is none until FedOpt, item 9), one device:
+        # replicated
+        _perf.set_server_state_bytes("replicated", self._model_nbytes)
         self.eval_fn = make_eval_fn(task)
         self._test_cache = None
         self.history: list[dict] = []
@@ -278,6 +285,9 @@ class FedAvgAggregator:
         with float32_compute():
             avg, _, reasons = gated_aggregate(stacked, self.net, weights,
                                               **self._gagg_kw)
+        # bytes folded this round: an elastic partial aggregation may stack
+        # fewer than worker_num uploads — count the realized cohort
+        _perf.record_agg_bytes("replicated", self._model_nbytes * len(ranks))
         reasons = reasons.cpu().numpy()
         if reasons.any():
             if self._async_meta is not None:
@@ -303,6 +313,8 @@ class FedAvgAggregator:
         self.model_dict.clear()
         self.sample_num_dict.clear()
         flush_s = time.perf_counter() - t0
+        _perf.record_flush_seconds(flush_s)
+        _perf.set_agg_stack_bytes("stacked", self._model_nbytes * len(ranks))
         self._last_flush = {"fused": False, "flush_s": round(flush_s, 6),
                             "stack_bytes": int(self._model_nbytes
                                                * len(ranks))}

@@ -31,9 +31,10 @@ by the wave (a requeued dispatch within one global version draws fresh
 batches) and the wave and client index are echoed on the upload. Crash
 recovery: the server's restart epoch is adopted from any s2c frame that
 carries it and echoed on every upload, and a recovered server's resume
-probe is answered with this rank's last round and wave. The reference's
-fleet digests (item 8) are queued in ROADMAP.md, queue A: a rank asked for
-one raises.
+probe is answered with this rank's last round and wave. The fleet plane
+(obs/fleet.py) is zero-config here, like tracing: the first frame carrying
+the server's ``__telemetry`` marker arms a ``DigestEmitter``, which times
+this rank's phases and rides one digest on every upload after it.
 """
 
 from __future__ import annotations
@@ -48,12 +49,10 @@ from fedml_tpu_torch.comm.managers import ClientManager
 from fedml_tpu_torch.comm.message import Message
 from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage
 from fedml_tpu_torch.distributed.fedavg.trainer import DistributedTrainer
+from fedml_tpu_torch.obs.fleet import TELEMETRY_KEY, DigestEmitter, attach_digest
 from fedml_tpu_torch.obs.tracing import TRACE_KEY, ClientSpanBuffer
 
 log = logging.getLogger("fedml_tpu_torch.distributed.fedavg")
-
-# downlink keys of protocols this slice does not run -> their ROADMAP item
-_UNPORTED_DOWNLINK = {MyMessage.MSG_ARG_KEY_TELEMETRY: 8}
 
 
 class FedAvgClientManager(ClientManager):
@@ -116,6 +115,10 @@ class FedAvgClientManager(ClientManager):
         self._held = None
         self._held_version: int | None = None
         self._trace_buf: ClientSpanBuffer | None = None  # lazy: see module doc
+        # fleet digest emitter: created the first time a frame carries the
+        # __telemetry marker. None = plane off = the uplink is
+        # byte-identical.
+        self._digest: DigestEmitter | None = None
         # crash-recovery session tag (adopted from the server, echoed on
         # uploads) and the last async dispatch wave (kept for the probe)
         self._restart_epoch = 0
@@ -230,11 +233,6 @@ class FedAvgClientManager(ClientManager):
             msg.add_params(MyMessage.MSG_ARG_KEY_MODEL_PARAMS, wire_leaves)
 
     def _sync_and_train(self, msg_params):
-        for key, item in _UNPORTED_DOWNLINK.items():
-            if key in msg_params:
-                raise NotImplementedError(
-                    f"rank {self.rank}: the server sent {key!r}, a protocol "
-                    f"not ported yet: ROADMAP.md queue A, item {item}")
         # trust the server's round counter (keeps stragglers aligned after an
         # elastic partial aggregation skipped them)
         self.round_idx = int(msg_params.get(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx))
@@ -260,8 +258,25 @@ class FedAvgClientManager(ClientManager):
                 self._trace_buf = ClientSpanBuffer(self.rank)
             buf = self._trace_buf
             buf.on_broadcast(blob)
-        span = buf.span if buf is not None else \
-            (lambda _name: contextlib.nullcontext())
+        # fleet plane marker: the server's collector is armed — start
+        # digesting (lazy, like the trace buffer)
+        dig = None
+        tmark = msg_params.get(TELEMETRY_KEY)
+        if isinstance(tmark, dict):
+            if self._digest is None:
+                self._digest = DigestEmitter(self.rank)
+            dig = self._digest
+            dig.on_downlink(tmark)
+
+        @contextlib.contextmanager
+        def span(name):
+            # compose the (independent) trace span and digest phase
+            # timers — either plane can be on without the other
+            with (buf.span(name) if buf is not None
+                  else contextlib.nullcontext()):
+                with (dig.phase(name) if dig is not None
+                      else contextlib.nullcontext()):
+                    yield
         global_leaves = self._global_leaves(msg_params)
         # the held base: what every delta tier encodes against, and the
         # next round-delta broadcast reconstructs from
@@ -308,6 +323,8 @@ class FedAvgClientManager(ClientManager):
                  time.perf_counter() - t0)
         if buf is not None:  # span buffer + clock stamps ride the uplink
             msg.add_params(TRACE_KEY, buf.upload_blob())
+        if dig is not None:  # the fleet digest rides the same frame
+            attach_digest(msg, dig.digest(self.round_idx, wave=wave))
         self._send_upload(msg)
 
     def _send_upload(self, msg):

@@ -50,10 +50,14 @@ the tier's upload), and ``run_simulated_hierarchical`` boots a fresh root
 through checkpoint + WAL while the edges and workers run on; the recovered
 root probes every rank, and an edge answers with its last-seen round.
 
-Not ported yet (ROADMAP.md queue A): the edges' fused ingest (item 7), the
-fleet digests an edge relays and folds and the hierarchical masked tier
-with its reveal crash point (item 8). Each raises where it would be asked
-for.
+The fleet plane (obs/fleet.py): an edge relays the root's ``__telemetry``
+marker to its workers (it rebuilds their frames), keeps the latest digest
+of each child, and forwards ONE folded blob on its partial (its own digest,
+the block's under ``block``), so the root's ingress stays O(edges).
+
+Not ported yet (ROADMAP.md queue A): the edges' fused ingest (item 7) and
+the hierarchical masked tier with its reveal crash point (item 8.5). Each
+raises where it would be asked for.
 """
 
 from __future__ import annotations
@@ -88,6 +92,7 @@ from fedml_tpu_torch.distributed.fedavg.aggregator import (
 from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage
 from fedml_tpu_torch.distributed.fedavg.server_manager import FedAvgServerManager
 from fedml_tpu_torch.obs import comm_instrument as _obs
+from fedml_tpu_torch.obs import perf_instrument as _perf
 from fedml_tpu_torch.obs.tracing import TRACE_KEY
 
 log = logging.getLogger("fedml_tpu_torch.distributed.hierarchy")
@@ -254,10 +259,7 @@ class HierFedAvgAggregator(FedAvgAggregator):
         with float32_compute():
             avg, total_w = combine_edge_partials(stacked, totals, self.net)
         self.fanin_history.append(len(edges))
-        # the reference also counts the staged bytes here
-        # (perf_instrument.record_agg_bytes): the port's perf_instrument
-        # carries only the async and restart families yet, ROADMAP.md
-        # queue A item 8
+        _perf.record_agg_bytes("replicated", self._model_nbytes * len(edges))
         # the verdicts go into the ledger under the COHORT-SLOT rank
         # (slot + 1), a flat server's attribution
         for e in edges:
@@ -315,6 +317,12 @@ class FedAvgEdgeManager(DistributedManager):
         self._evidence_sent = False
         self._staged: tuple | None = None  # (stacked, global) for phase 3
         self._last_partial: tuple | None = None  # retransmit cache
+        # fleet plane: the root's downlink marker arms the lazy digest
+        # emitter; the children's uplink digests fold into ONE blob on
+        # this edge's partial
+        self._fleet_marker: dict | None = None
+        self._digest = None
+        self._child_digests: dict[int, dict] = {}
         ts = kw.pop("timeout_s", None)
         self.round_timeout_s = round_timeout_s
         super().__init__(rank, topology.world_size, backend,
@@ -355,11 +363,6 @@ class FedAvgEdgeManager(DistributedManager):
     def _handle_downlink(self, msg_type: str, msg_params) -> None:
         """Root -> edge: hold the model, fan the same frame type out to
         this block's workers, each with its own client assignment."""
-        if MyMessage.MSG_ARG_KEY_TELEMETRY in msg_params:
-            raise NotImplementedError(
-                f"edge {self.edge_idx}: the root sent a fleet marker; the "
-                "edge's fleet relay is not ported yet: ROADMAP.md queue A, "
-                "item 8")
         with self._lock:
             self._round = int(msg_params[MyMessage.MSG_ARG_KEY_ROUND])
             self._global = list(
@@ -372,6 +375,18 @@ class FedAvgEdgeManager(DistributedManager):
             self._evidence_sent = False
             self._staged = None
             self._last_partial = None
+            # fleet marker: the edge REBUILDS worker frames, so the
+            # marker must be relayed explicitly (like every other
+            # side-band key) or the workers never start digesting
+            tmark = msg_params.get(MyMessage.MSG_ARG_KEY_TELEMETRY)
+            self._fleet_marker = tmark if isinstance(tmark, dict) else None
+            self._child_digests = {}
+            if self._fleet_marker is not None:
+                if self._digest is None:
+                    from fedml_tpu_torch.obs.fleet import DigestEmitter
+
+                    self._digest = DigestEmitter(self.rank)
+                self._digest.on_downlink(self._fleet_marker)
         for i, slot in enumerate(self._slots):
             msg = Message(msg_type, self.rank,
                           self.topology.worker_rank(slot))
@@ -379,6 +394,9 @@ class FedAvgEdgeManager(DistributedManager):
             msg.add_params(MyMessage.MSG_ARG_KEY_CLIENT_INDEX,
                            self._clients[i])
             msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self._round)
+            if self._fleet_marker is not None:
+                msg.add_params(MyMessage.MSG_ARG_KEY_TELEMETRY,
+                               self._fleet_marker)
             self.send_message(msg)
 
     def _handle_child_upload(self, msg_params) -> None:
@@ -387,6 +405,12 @@ class FedAvgEdgeManager(DistributedManager):
         with self._lock:
             if self._round is None:
                 return
+            # fleet digest: collected on ARRIVAL, before any round/dedup
+            # gate — even a stale or late upload proves the rank is alive,
+            # and the fold keeps only the latest blob per child
+            dig = msg_params.get(MyMessage.MSG_ARG_KEY_TELEMETRY)
+            if isinstance(dig, dict):
+                self._child_digests[sender] = dig
             tag = msg_params.get(MyMessage.MSG_ARG_KEY_ROUND, self._round)
             if int(tag) != self._round:
                 _obs.record_stale_upload("stale")
@@ -467,6 +491,17 @@ class FedAvgEdgeManager(DistributedManager):
         msg.add_params(MyMessage.MSG_ARG_KEY_EDGE_CLIENTS,
                        list(self._clients))
         msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self._round)
+        if self._fleet_marker is not None and self._digest is not None:
+            # the folded blob: this edge's own digest + its block's child
+            # digests under "block" — ONE side-band payload per edge frame.
+            # Built here (not cached) so a verdict-retry retransmit carries
+            # fresh liveness; the model payload is still the cached
+            # bit-identical partial.
+            from fedml_tpu_torch.obs.fleet import attach_digest
+
+            blob = self._digest.digest(self._round)
+            blob["block"] = list(self._child_digests.values())
+            attach_digest(msg, blob)
         self._forwarded = True
         self.send_message(msg)
 
@@ -662,11 +697,11 @@ class HierFedAvgServerManager(FedAvgServerManager):
         block's client assignments and the round tag, with the flat
         broadcast's crash and journal choreography (the between-commits
         point fires BEFORE any frame leaves; the round opening is
-        journaled so recovery knows round r was in flight). The
-        reference's fleet marker rides here too: not ported yet
-        (ROADMAP.md queue A, item 8). Nothing in the tree reads a stashed
+        journaled so recovery knows round r was in flight), the fleet
+        marker and the goodput stamps. Nothing in the tree reads a stashed
         broadcast (its uplinks are dense), so none is kept."""
         self._maybe_crash("broadcast")
+        self._goodput_round_start()
         if self.wal is not None:
             self.wal.append("broadcast", sync=True, round=self.round_idx)
         self._uploads_this_round = 0
@@ -695,9 +730,11 @@ class HierFedAvgServerManager(FedAvgServerManager):
             msg.add_params(MyMessage.MSG_ARG_KEY_ROUND, self.round_idx)
             if tr is not None:
                 msg.add_params(TRACE_KEY, tr.broadcast_ctx(rank))
+            self._add_fleet_marker(msg)
             self.send_message(msg)
         if tr is not None:
             tr.end_broadcast()
+        self._goodput_broadcast_end()
         # broadcast out, zero partials accepted — the after_uploads=0 point
         self._maybe_crash("post_broadcast")
 
@@ -800,8 +837,14 @@ class HierFedAvgServerManager(FedAvgServerManager):
                             "(round %s, now %d)", sender, msg_round,
                             self.round_idx)
                 return
+            if self.telemetry is not None:
+                # the last counted arrival closes this round's wire_wait
+                self._gp_last_arrival_t = time.monotonic()
             if self._dtracer is not None:
                 self._dtracer.on_upload(sender, msg_params.get(TRACE_KEY))
+            if self._fleet is not None:
+                self._fleet.ingest(
+                    msg_params.get(MyMessage.MSG_ARG_KEY_TELEMETRY))
             samples = msg_params.get(MyMessage.MSG_ARG_KEY_EDGE_SAMPLES)
             already = bool(self.aggregator.flag_client_model_uploaded.get(
                 sender - 1))

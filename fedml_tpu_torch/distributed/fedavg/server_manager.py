@@ -50,8 +50,13 @@ fedavg_robust.py) checkpoints its noise key and RDP totals, and recovery
 re-charges its accountant from the WAL's ``precharge`` records past the
 commit, so a crash never under-reports ε.
 
-The fleet plane, fused ingest and goodput records are queued in
-ROADMAP.md (queue A, items 7-8); passing one raises.
+With a ``Telemetry(fleet=True)`` bundle every broadcast and async dispatch
+carries the fleet marker (``__telemetry``), the ranks piggyback digests on
+their uploads and the server ingests each before any gate (obs/fleet.py);
+off, no frame carries the key. Sync rounds and async flushes carry a
+duty-only ``goodput`` block (the server runs no device round program of
+its own: wire wait, aggregation flush and the rest of the wall,
+obs/goodput.py). Fused ingest is queued in ROADMAP.md (queue A, item 7).
 """
 
 from __future__ import annotations
@@ -72,6 +77,7 @@ from fedml_tpu_torch.data import dataset_source
 from fedml_tpu_torch.distributed.fedavg.aggregator import FedAvgAggregator
 from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage
 from fedml_tpu_torch.obs import comm_instrument as _obs
+from fedml_tpu_torch.obs import goodput as _goodput
 from fedml_tpu_torch.obs.tracing import TRACE_KEY
 
 log = logging.getLogger("fedml_tpu_torch.distributed.fedavg")
@@ -210,6 +216,9 @@ class FedAvgServerManager(ServerManager):
         # thread) can fail concurrently.
         self._undeliverable: dict[int, int] = {}
         self._round_ids: list[int] = []
+        # round-economics stamps (monotonic seconds; telemetry only)
+        self._gp_bcast_start_t = self._gp_bcast_end_t = None
+        self._gp_last_arrival_t = self._gp_prev_flush_t = None
         # obs.Telemetry: per-round event records (sampled ids, aggregate/eval
         # span timings, update norm, comm byte/message deltas). None = no
         # extra work.
@@ -218,6 +227,10 @@ class FedAvgServerManager(ServerManager):
         # Telemetry bundle opted in (trace_dir / trace=True). None = no
         # __trace params on any frame — the wire is byte-identical.
         self._dtracer = telemetry.tracer if telemetry is not None else None
+        # fleet observability plane (obs/fleet.py): present only when the
+        # bundle armed a collector (Telemetry(fleet=True)). None = no
+        # __telemetry marker on any frame — the wire is byte-identical.
+        self._fleet = getattr(telemetry, "fleet", None)
         if telemetry is not None:
             import dataclasses
 
@@ -330,6 +343,11 @@ class FedAvgServerManager(ServerManager):
             self._offline_now = off
             _obs.set_ranks_scheduled_offline(len(off))
             self._update_alive_gauge()
+            if self._fleet is not None:
+                # the fleet rows' avail column: rank 0 owns the trace, so
+                # it stamps the rows directly (an away rank sends no
+                # digests to say so itself)
+                self._fleet.note_avail(off, self.size)
         return off
 
     @staticmethod
@@ -595,6 +613,7 @@ class FedAvgServerManager(ServerManager):
         every rank under ``msg_type`` — the shared body of send_init_msg
         and the round-advance sync (they must not diverge)."""
         self._maybe_crash("broadcast")
+        self._goodput_round_start()
         if self.wal is not None:
             # journal the round opening BEFORE any frame leaves: recovery
             # must know round r was in flight even if the crash lands
@@ -660,9 +679,11 @@ class FedAvgServerManager(ServerManager):
                                self._restart_epoch)
             if tr is not None:  # trace context rides the header scalars
                 msg.add_params(TRACE_KEY, tr.broadcast_ctx(rank))
+            self._add_fleet_marker(msg)
             self.send_message(msg)
         if tr is not None:
             tr.end_broadcast()
+        self._goodput_broadcast_end()
         # after_uploads=0: mid-round with the broadcast OUT but zero
         # uploads accepted — distinct from None (between commits, before
         # any frame of the round leaves)
@@ -783,6 +804,9 @@ class FedAvgServerManager(ServerManager):
         # reconstructing it server-side from the counter would misattribute
         # a delayed upload once a reprobe puts two dispatches in flight
         msg.add_params(MyMessage.MSG_ARG_KEY_DISPATCH_WAVE, wave)
+        # the sync broadcast's marker: without it an async fleet would
+        # never fold a digest
+        self._add_fleet_marker(msg)
         self._awaiting[rank] = wave
         self.send_message(msg)
         if rank in self._undeliverable:
@@ -798,6 +822,12 @@ class FedAvgServerManager(ServerManager):
         from fedml_tpu_torch.core.async_buffer import BufferedUpdate
 
         sender = int(msg_params[Message.MSG_ARG_KEY_SENDER])
+        if self._fleet is not None:
+            # fleet digest ingest happens before every gate: a shed or
+            # stale upload still proves what its rank was doing (the
+            # fleet view is liveness telemetry, not fold accounting)
+            self._fleet.ingest(
+                msg_params.get(MyMessage.MSG_ARG_KEY_TELEMETRY))
         if self._draining or self.round_idx >= self.round_num:
             # post-FINISH drain: absorb (and discard) the uploads that
             # were in flight when the job completed, then stop the loop —
@@ -947,12 +977,21 @@ class FedAvgServerManager(ServerManager):
                              for n, o in zip(global_params, old_leaves))
                 hist = self.aggregator.history
                 q = self.aggregator.quarantine.for_round(version)
+                spans = dict(self._tracer.rounds[-1])
+                # async round economics: a flush's wall is the time since
+                # the previous flush (no broadcast barrier); the
+                # buffer-fill window is its wire wait
+                prev_flush = self._gp_prev_flush_t
+                self._gp_prev_flush_t = time.monotonic()
                 tel.emit_round(
                     version, clients=[e.client for e in entries],
-                    spans=dict(self._tracer.rounds[-1]),
+                    spans=spans,
                     metrics={"update_norm": float(np.sqrt(upd_sq)),
                              "num_samples": float(sum(e.nsamp
                                                       for e in entries))},
+                    **({} if prev_flush is None else self._goodput_extra(
+                        spans, wire_wait_s=fill_s,
+                        wall_s=self._gp_prev_flush_t - prev_flush)),
                     evals=(hist[-1] if hist
                            and hist[-1].get("round") == version else None),
                     **{"async": {
@@ -1372,12 +1411,18 @@ class FedAvgServerManager(ServerManager):
                             sender, msg_round, self.round_idx)
                 return
             tel = self.telemetry
+            if tel is not None:
+                # the last counted arrival closes this round's wire_wait
+                self._gp_last_arrival_t = time.monotonic()
             if self._dtracer is not None:
                 # arrival time + clock sample + the piggybacked client
                 # span buffer (None from an untraced peer is fine — the
                 # arrival alone keeps slack computable)
                 self._dtracer.on_upload(int(sender),
                                         msg_params.get(TRACE_KEY))
+            if self._fleet is not None:
+                self._fleet.ingest(
+                    msg_params.get(MyMessage.MSG_ARG_KEY_TELEMETRY))
             # proof of possession: an upload tagged round v means the
             # sender decoded broadcast v — the delta-downlink warm set
             self._rank_version[int(sender)] = int(msg_round)
@@ -1429,6 +1474,56 @@ class FedAvgServerManager(ServerManager):
             if not self.aggregator.check_whether_all_receive():
                 return
             self._advance_round()
+
+    # ----------------------------------------------------- round economics
+    def _goodput_round_start(self) -> None:
+        """Stamp the round's start (its wall runs from here) and reset the
+        last arrival; telemetry only."""
+        if self.telemetry is not None:
+            self._gp_bcast_start_t = time.monotonic()
+            self._gp_last_arrival_t = None
+
+    def _goodput_broadcast_end(self) -> None:
+        """Stamp the broadcast's end: wire_wait runs from here to the last
+        counted arrival."""
+        if self.telemetry is not None:
+            self._gp_bcast_end_t = time.monotonic()
+
+    def _add_fleet_marker(self, msg) -> None:
+        """The fleet enablement marker (obs/fleet.py) on a broadcast or
+        dispatch frame: it tells the rank to piggyback digests on its
+        uploads; absent with the plane off, so the wire stays
+        byte-identical. A churn-armed server stamps avail, echoed by the
+        rank's digests — a frame only reaches scheduled-online ranks,
+        hence the constant."""
+        if self._fleet is None:
+            return
+        marker = self._fleet.marker()
+        if self.churn_trace is not None:
+            marker = {**marker, "avail": 1.0}
+        msg.add_params(MyMessage.MSG_ARG_KEY_TELEMETRY, marker)
+
+    def _goodput_extra(self, spans: dict, wire_wait_s=None,
+                       wall_s=None) -> dict:
+        """The server round's ``goodput`` block (obs/goodput.py): wall from
+        the broadcast stamp (sync) or the caller (async flush), wire_wait
+        from broadcast end to the last counted arrival unless given,
+        agg_flush from the aggregate span. The server dispatches no device
+        round program, so the block is duty-cycle-only (relative goodput);
+        the device-side figures live on the engine. {} when the stamps are
+        missing (a restart mid-round)."""
+        if wall_s is None:
+            t0 = self._gp_bcast_start_t
+            if t0 is None:
+                return {}
+            wall_s = time.monotonic() - t0
+        if wire_wait_s is None:
+            bce, arr = self._gp_bcast_end_t, self._gp_last_arrival_t
+            wire_wait_s = (max(0.0, arr - bce)
+                           if bce is not None and arr is not None else 0.0)
+        buckets = _goodput.buckets_from_spans(
+            wall_s, spans, wire_wait_s=wire_wait_s)
+        return {"goodput": _goodput.round_goodput(wall_s, buckets)}
 
     def _round_record_extra(self) -> dict:
         """Extra blocks a subclass rides on the telemetry round record
@@ -1483,6 +1578,7 @@ class FedAvgServerManager(ServerManager):
                 spans=spans,
                 metrics={"update_norm": float(np.sqrt(upd_sq)),
                          "num_samples": n_samples},
+                **self._goodput_extra(spans),
                 evals=(hist[-1] if hist
                        and hist[-1].get("round") == self.round_idx else None),
                 **({"critical_path": cp} if cp else {}),

@@ -46,9 +46,6 @@ _UNPORTED_FLAGS = {
     "secagg_max_abs": ("--secagg_max_abs", float, 4.0, 8),
     "shard_server_state": ("--shard_server_state", int, 0, 12),
     "partition_rules": ("--partition_rules", str, None, 12),
-    "metrics_port": ("--metrics_port", int, None, 8),
-    "fleet": ("--fleet", int, 0, 8),
-    "fleet_job": ("--fleet_job", str, "", 8),
     "fused_agg": ("--fused_agg", int, 0, 7),
 }
 
@@ -201,6 +198,33 @@ def add_args(p: argparse.ArgumentParser):
                         "sampled ids, span timings, update norm, comm "
                         "byte/message counters) and a Prometheus text dump "
                         "at exit")
+    p.add_argument("--metrics_port", "--metrics-port", dest="metrics_port",
+                   type=int, default=None, metavar="PORT",
+                   help="every rank: serve live /metrics (Prometheus text) "
+                        "+ /healthz (JSON run health) over HTTP. Each rank "
+                        "binds PORT + rank so one flag covers a single-host "
+                        "launch; PORT 0 binds an ephemeral port per rank "
+                        "(logged, and in rank 0's run header). Rank 0 "
+                        "serves the full health verdict (obs/health.py "
+                        "rule table + memory telemetry); client ranks "
+                        "serve their process registry")
+    p.add_argument("--fleet", type=int, default=0,
+                   help="arm the fleet observability plane (obs/fleet.py):"
+                        " every uplink piggybacks a compact per-rank digest "
+                        "(round/wave, counter deltas, phase-timing sketch, "
+                        "ε, memory) and rank 0 serves the merged per-rank "
+                        "view as /fleetz. Implies telemetry on rank 0; "
+                        "without an explicit --metrics_port rank 0 binds an "
+                        "ephemeral HTTP port (logged + in the run header) "
+                        "and client ranks run no HTTP server — the in-band "
+                        "rollup is their export path. Every rank also arms "
+                        "a crash flight recorder (dumps under "
+                        "<telemetry-dir|ckpt-dir>/flightrec)")
+    p.add_argument("--fleet_job", "--fleet-job", dest="fleet_job",
+                   type=str, default="",
+                   help="optional job label namespacing the fleet rollup "
+                        "metric families (the reserved 'job' label on "
+                        "fed_fleet_*)")
     p.add_argument("--trace-dir", "--trace_dir", dest="trace_dir",
                    type=str, default=None,
                    help="rank 0: enable cross-rank distributed tracing "
@@ -489,6 +513,63 @@ def init_role(args, data, task, cfg, backend_kw, telemetry=None,
                        **backend_kw)
 
 
+def _live_telemetry(args):
+    """Rank 0's ``Telemetry`` bundle and a client rank's bare metrics
+    server, from the launch flags: (telemetry or None, server or None).
+
+    ``--metrics_port N``: rank r binds N + r (0 = ephemeral everywhere).
+    Rank 0's endpoint rides its Telemetry bundle (health rules + memwatch
+    implied); client ranks serve a bare registry endpoint. With ``--fleet``
+    and NO explicit ``--metrics_port``, rank 0 still binds an ephemeral
+    port (so /fleetz exists; logged + run header) but client ranks run no
+    HTTP server — the in-band rollup is their export path. ``--fleet`` also
+    arms the crash flight recorder on every rank (rank 0's via its
+    Telemetry when a log dir exists)."""
+    rank_port = (args.metrics_port + (args.rank if args.metrics_port else 0)
+                 if args.metrics_port is not None else None)
+    fleet_on = bool(args.fleet)
+    log = logging.getLogger("fedml_tpu_torch.launch")
+    telemetry = metrics_server = None
+    if args.rank == 0 and (args.telemetry_dir or args.trace_dir or fleet_on
+                           or rank_port is not None):
+        from fedml_tpu_torch.obs import Telemetry
+
+        # --trace-dir alone implies telemetry: the event log (with the
+        # critical-path round records) lands next to trace.json;
+        # --metrics_port alone gets an in-memory event log (the live
+        # endpoints are the output)
+        telemetry = Telemetry(log_dir=args.telemetry_dir or args.trace_dir,
+                              trace_dir=args.trace_dir,
+                              http_port=(0 if rank_port is None and fleet_on
+                                         else rank_port),
+                              fleet=fleet_on, fleet_job=args.fleet_job)
+        if telemetry.http_port is not None:
+            log.info("live endpoints: http://127.0.0.1:%d/metrics "
+                     "(+ /healthz%s)", telemetry.http_port,
+                     ", /fleetz" if fleet_on else "")
+    elif args.rank != 0 and rank_port is not None:
+        from fedml_tpu_torch.obs import start_metrics_server
+
+        metrics_server = start_metrics_server(port=rank_port)
+        log.info("live endpoints: http://127.0.0.1:%d/metrics (+ /healthz)",
+                 metrics_server.port)
+    if fleet_on:
+        import os
+
+        from fedml_tpu_torch.obs.flightrec import (
+            active_recorder,
+            install_flight_recorder,
+            install_sigterm_dump,
+        )
+
+        base = args.telemetry_dir or args.ckpt_dir
+        if args.rank != 0 and base and active_recorder() is None:
+            install_flight_recorder(rank=args.rank,
+                                    out_dir=os.path.join(base, "flightrec"))
+        install_sigterm_dump()
+    return telemetry, metrics_server
+
+
 def main(argv=None):
     args = add_args(argparse.ArgumentParser(
         "fedml_tpu_torch.distributed")).parse_args(argv)
@@ -603,14 +684,7 @@ def main(argv=None):
     else:
         backend_kw.update(job_id="launch")
 
-    telemetry = None
-    if args.rank == 0 and (args.telemetry_dir or args.trace_dir):
-        from fedml_tpu_torch.obs.telemetry import Telemetry
-
-        # --trace-dir alone implies telemetry: the event log (with the
-        # critical-path round records) lands next to trace.json
-        telemetry = Telemetry(log_dir=args.telemetry_dir or args.trace_dir,
-                              trace_dir=args.trace_dir)
+    telemetry, metrics_server = _live_telemetry(args)
     mgr = init_role(args, data, task, cfg, backend_kw, telemetry=telemetry,
                     device=device)
     try:
@@ -620,6 +694,15 @@ def main(argv=None):
     finally:
         if telemetry is not None:
             telemetry.close()
+        if metrics_server is not None:
+            metrics_server.close()
+        if args.fleet and args.rank != 0:
+            # rank 0's close dump rides telemetry.close(); client and edge
+            # ranks flush their ring here so a clean run leaves the full
+            # per-rank post-mortem set
+            from fedml_tpu_torch.obs.flightrec import dump_active
+
+            dump_active("close")
         if broker is not None:
             broker.close()
     if args.chaos_plan:

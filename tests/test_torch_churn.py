@@ -9,8 +9,8 @@ Tolerances: cohorts (sizes and ids) bitwise the JAX package's; inside the
 port, replays bitwise and the tree bitwise its flat pairwise twin; runs
 against the JAX package's within 1e-5, ledgers and churn records equal.
 The reference's quorum test (test_quorum_trough_never_fires_crash_fires_
-once) needs the health rules, queued with the fleet layers. No test waits
-out a deadline: the chosen rank trace never holds a whole round out.
+once) is mirrored in tests/test_torch_health.py. No test waits out a
+deadline: the chosen rank trace never holds a whole round out.
 """
 
 import jax
@@ -271,6 +271,7 @@ def _bare_manager(trace, size=5, round_idx=0):
     mgr._shed_counts = {}
     mgr._awaiting = {}
     mgr._dispatch_wave = {}
+    mgr._fleet = None
     return mgr
 
 

@@ -467,14 +467,15 @@ def test_robust_run_simulated_options_run(setup, option):
 
 
 # --ckpt_dir, --async_buffer_k and --supervise run now: each case pairs
-# the flag with a flag still refused (the fleet plane, the metrics
-# endpoint: item 8), so nothing starts
+# the flag with a flag still refused (sharded state: item 12, the server
+# optimizer: item 9, secure aggregation: item 8), so nothing starts
 @pytest.mark.parametrize("flag", [
     ["--algo", "fedopt"], ["--edges", "2", "--algo", "turboaggregate"],
-    ["--ckpt_dir", "/tmp/x", "--fleet_job", "x"],
-    ["--async_buffer_k", "2", "--fleet", "1"], ["--fused_agg", "1"],
-    ["--shard_server_state", "1"],
-    ["--supervise", "1", "--ckpt_dir", "/tmp/x", "--metrics_port", "9"],
+    ["--ckpt_dir", "/tmp/x", "--partition_rules", "x"],
+    ["--async_buffer_k", "2", "--server_optimizer", "adam"],
+    ["--fused_agg", "1"], ["--shard_server_state", "1"],
+    ["--supervise", "1", "--ckpt_dir", "/tmp/x", "--secagg_threshold_t",
+     "1"],
 ], ids=lambda f: f[0])
 def test_unported_launcher_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A, item"):

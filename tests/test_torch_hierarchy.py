@@ -663,13 +663,14 @@ def test_unported_tree_options_raise_naming_their_item(setup, case,
                                                        tmp_path):
     """The tree's options still out of scope raise NotImplementedError
     naming their ROADMAP.md item: the fused edge ingest (7); the masked
-    tier's mid-reveal root crash point, a relayed fleet marker and the
-    hierarchical masked tier (8). Root restarts, the edge's resume probe
-    and resuming a root from a DP run's WAL run now
-    (tests/test_torch_recovery.py, test_tree_root_resumes_a_dp_runs_wal):
-    their cases keep the refusals that remain next to them."""
-    item = "7" if case in ("fused_agg", "edge_fused", "resume_probe") \
-        else "8"
+    tier's mid-reveal root crash point and the hierarchical masked tier
+    (8). Root restarts, the edge's resume probe, resuming a root from a DP
+    run's WAL and the relayed fleet marker run now
+    (tests/test_torch_recovery.py, test_tree_root_resumes_a_dp_runs_wal,
+    tests/test_torch_fleet.py): their cases keep the refusals that remain
+    next to them (the fleet marker's: the fused edge, item 7)."""
+    item = "7" if case in ("fused_agg", "edge_fused", "resume_probe",
+                           "fleet_marker") else "8"
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue A, item {item}"):
         if case == "fused_agg":
@@ -691,13 +692,14 @@ def test_unported_tree_options_raise_naming_their_item(setup, case,
                 "--rank", "0", "--world_size", "11", "--device", "cpu",
                 "--edges", "2", "--algo", "turboaggregate"])
         else:
-            edge = _edge(f"th-{case}")
+            from fedml_tpu_torch.obs import Telemetry
+
+            tel = Telemetry(fleet=True)
             try:
-                edge._handle_downlink(
-                    MyMessage.MSG_TYPE_S2C_INIT_CONFIG,
-                    {MyMessage.MSG_ARG_KEY_TELEMETRY: {"job": "x"}})
+                _run(setup, "th-fleet-fused", edges=2, fused_agg=True,
+                     telemetry=tel)
             finally:
-                edge.finish()
+                tel.close()
 
 
 def _dp_wal_dir(d) -> str:

@@ -587,6 +587,41 @@ def test_supervised_restart_rebinds_over_grpc(setup, oracles, tmp_path):
     assert _wal(tmp_path).restart_epochs == 2
 
 
+def test_supervised_restart_over_mqtt_finishes_every_client(
+        setup, oracles, tmp_path, monkeypatch):
+    """One supervised restart over MQTT (the bundled broker): the mid-round
+    crash ends bitwise the uninterrupted run, and every client receives the
+    recovered server's FINISH. The clients get 20 s to finish after the
+    server does (the supervisor's own join waits 60 s, what a lost FINISH
+    would cost)."""
+    import time
+
+    from fedml_tpu_torch.comm.mqtt_mini import MiniMqttBroker
+    from fedml_tpu_torch.distributed.fedavg import api
+
+    clients = []
+    supervise = api.run_supervised_simulated
+
+    def run(server, cls, points, build):
+        clients.extend(cls)
+        return supervise(server, cls, points, build, join_timeout=20.0)
+
+    monkeypatch.setattr(api, "run_supervised_simulated", run)
+    broker = MiniMqttBroker()
+    try:
+        t0 = time.monotonic()
+        agg = _port(setup, "tr-mqtt", _crash_rules(1, 2), backend="MQTT",
+                    broker_port=broker.port, ckpt_dir=str(tmp_path),
+                    round_timeout_s=30.0)
+        wall = time.monotonic() - t0
+    finally:
+        broker.close()
+    assert all(c._finished.is_set() for c in clients) and len(clients) == 3
+    assert wall < 25.0
+    assert _same_bits(agg, oracles["4"])
+    assert _wal(tmp_path).restart_epochs == 2
+
+
 def test_recovery_seconds_histogram_observed(setup, tmp_path):
     count = lambda: sum(  # noqa: E731
         v.get("count", 0) for v in REGISTRY.snapshot().get(

@@ -274,10 +274,26 @@ def test_telemetry_close_writes_trace_and_event_log(sim_setup, tmp_path):
                                 dict(fleet=True)],
                          ids=lambda kw: next(iter(kw)))
 def test_telemetry_unported_layers_raise(kw):
-    with pytest.raises(NotImplementedError, match=r"queue A, item 8"):
-        Telemetry(**kw)
+    """These layers raised until the run-health layer was ported (the name
+    is kept): each now arms exactly the layers the JAX package's bundle
+    arms for the same arguments."""
+    from fedml_tpu.obs.telemetry import Telemetry as JaxTelemetry
+
+    mine, ref = Telemetry(**kw), JaxTelemetry(**kw)
+    try:
+        for layer in ("httpd", "memwatch", "health", "fleet"):
+            assert (getattr(mine, layer) is None) == \
+                (getattr(ref, layer) is None), layer
+        assert (mine.http_port is None) == (ref.http_port is None)
+    finally:
+        mine.close()
+        ref.close()
 
 
-def test_telemetry_profile_raises():
-    with pytest.raises(NotImplementedError, match=r"queue A, item 8"):
-        Telemetry().profile("/nonexistent")
+def test_telemetry_profile_raises(tmp_path):
+    """``profile()`` raised until its torch.profiler bridge was ported
+    (the name is kept): it now writes a trace file on the CPU."""
+    with Telemetry().profile(str(tmp_path)):
+        torch.ones(8) @ torch.ones(8)
+    traces = list(tmp_path.glob("*.pt.trace.json"))
+    assert len(traces) == 1 and traces[0].stat().st_size > 0
