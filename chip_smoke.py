@@ -185,6 +185,29 @@ Phases, in order:
            the plane-off run's; (c) Telemetry.profile around one engine
            round: a non-empty torch.profiler trace with the round's CUDA
            kernels
+  secure   masked secure aggregation over GF(2^31-1) (core/secure_agg.py,
+           algorithms/turboaggregate.py, distributed/turboaggregate.py) at
+           main's configuration, not cut, cuDNN deterministic for the
+           phase, no kernel of its own (plain int64 torch ops on the card):
+           (a) a TurboAggregateAPI round and a FedAvgAPI round from the
+           same weights within K * 0.5 / 2^16 (+ K float32 ulps of the
+           mean); one client's mask_update on the card bitwise the same
+           call on the CPU; the ms of mask_update per client, of one PRG
+           expansion, of the fold per arrival (host and card) and of
+           unmask + decode per round; (b) the flat masked tier over
+           loopback, 2 rounds each: a dense run beside a clean masked run
+           (round walls, root ingress bytes a round, the share of a round
+           spent masking), a client crashed in round 1 by a seeded plan
+           (the round's aggregate against the exact survivor-weighted
+           mean of the survivors' cleartext vectors, on the host in
+           float64, within the quantization bound; the reveal's recovery
+           seconds), and a round shed below t + 1 and re-broadcast
+           (ledgered secagg_shed; the retry bitwise the clean run if the
+           fits repeat); (c) the 5 x 2 tree (t = 1), host fold and fused
+           ingest, bitwise the flat clean run if the fits repeat; (d) DP on
+           the masked path, 2 rounds: ε equal to a host DPAccountant, the
+           noise drawn on the card. Deadlines are driven (on_timeout once
+           every upload that can arrive has), never waited out
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -215,7 +238,8 @@ from fedml_tpu_torch.ops import loader
 fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
 PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
-          "wire", "robust", "hier", "recover", "harden", "observe")
+          "wire", "robust", "hier", "recover", "harden", "observe",
+          "secure")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -3473,6 +3497,425 @@ def phase_observe(report):
         torch.backends.cudnn.deterministic = was
     if any(fa.LAUNCHES.values()):
         raise AssertionError(f"flash kernels launched by the observe phase: "
+                             f"{fa.LAUNCHES}")
+
+
+# secure: 2 rounds a loopback job; the crash and shed plans hit round 1
+SECURE_ROUNDS = 2
+SECURE_SCALE = 2.0 ** 16
+SECURE_CRASH = {"seed": 3, "rules": [
+    {"fault": "crash", "ranks": [4], "rounds": [1, 2]}]}
+# 8 of 10 uploads lost once in round 1: 2 survivors < t + 1 = 3
+SECURE_SHED = {"seed": 2, "rules": [
+    {"fault": "drop", "direction": "send", "src": [1, 2, 3, 4, 5, 6, 7, 8],
+     "dst": [0], "rounds": [1, 2], "max_per_link": 1}]}
+SECURE_DP = dict(defense_type="dp", norm_bound=1.0, noise_multiplier=1.1)
+# the watchdog is armed (the elastic path needs a deadline) and driven
+SECURE_DEADLINE_S = 600.0
+
+
+def _secure_stalled(s, plan, opened):
+    """Would a masked server's deadline fire now? Every upload that can
+    still arrive this round has: the rest are crashed (undeliverable) or
+    dropped on this attempt of the round."""
+    if s._finished.is_set() or s._phase != "uploads":
+        return False
+    r = s.round_idx
+    if r >= s.round_num or not opened.get(r):
+        return False
+    flags = s.aggregator.flag_client_model_uploaded
+    if all(flags.values()):
+        return False
+    dropped = {}
+    for e in plan.ledger.for_round(r, ("drop",)):
+        if e["direction"] == "send" and e["dst"] == 0:
+            dropped[e["src"]] = dropped.get(e["src"], 0) + 1
+    return all(up or (i + 1) in s._undeliverable
+               or dropped.get(i + 1, 0) >= opened[r]
+               for i, up in flags.items())
+
+
+@contextlib.contextmanager
+def _secure_driven():
+    """Every TASecureServerManager run inside under a chaos plan has its
+    deadline driven: a thread calls on_timeout once the round is stalled
+    (_secure_stalled), so no round waits out SECURE_DEADLINE_S. A run
+    with no plan installed gets no thread, as the dense runs get none."""
+    import threading
+    from unittest import mock
+
+    from fedml_tpu_torch import chaos
+    from fedml_tpu_torch.distributed import turboaggregate as ta
+
+    run = ta.TASecureServerManager.run
+
+    def driven(self):
+        plan = chaos.active_plan()
+        if plan is None:
+            return run(self)
+        opened, stop = {}, threading.Event()
+        begin = self.aggregator.begin_round
+
+        def counted(r):
+            opened[int(r)] = opened.get(int(r), 0) + 1
+            return begin(r)
+
+        self.aggregator.begin_round = counted
+
+        def drive():
+            while not stop.wait(0.002) and not self._finished.is_set():
+                with self._round_lock:
+                    fire = _secure_stalled(self, plan, opened)
+                if fire:
+                    self.on_timeout(SECURE_DEADLINE_S)
+
+        t = threading.Thread(target=drive, daemon=True)
+        t.start()
+        try:
+            return run(self)
+        finally:
+            stop.set()
+            t.join()
+
+    with mock.patch.object(ta.TASecureServerManager, "run", driven):
+        yield
+
+
+def _uplink_bytes():
+    from fedml_tpu_torch.obs.metrics import REGISTRY
+
+    fam = REGISTRY.snapshot().get("comm_bytes_total", {})
+    return sum(v for k, v in fam.items() if "direction=uplink" in k)
+
+
+def _secure_run(data, cfg, job, dense=False, **kw):
+    """A 2-round loopback job (masked, or the dense run_simulated with
+    ``dense``): the aggregator, each aggregate's new model on the CPU, the
+    round walls, the root's ingress bytes, and per client upload the host
+    ms of its masking (the vector, mask_update and the shares, to numpy)
+    with the cleartext (round, slot, vector, samples) it masked."""
+    from unittest import mock
+
+    from fedml_tpu_torch.distributed import turboaggregate as ta
+    from fedml_tpu_torch.distributed.fedavg import run_simulated
+    from fedml_tpu_torch.distributed.fedavg.aggregator import FedAvgAggregator
+    from fedml_tpu_torch.obs.metrics import REGISTRY
+
+    stamps, nets, masks = [], [], []
+    # the masked tiers (flat and tree) share the decode-side tail
+    cls, name = ((FedAvgAggregator, "aggregate") if dense
+                 else (ta.TAAggregator, "_finish_aggregate"))
+    finish, wire = getattr(cls, name), ta.SecureTrainer.wire_leaves
+    fold, unmask = ta.TAAggregator.add_local_trained_result, \
+        ta.TAAggregator.aggregate
+    server = {"fold_ms": [], "aggregate_ms": []}
+
+    def fold_timed(self, *a, **k):
+        t0 = time.perf_counter()
+        out = fold(self, *a, **k)
+        server["fold_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def aggregate_timed(self):
+        t0 = time.perf_counter()
+        out = unmask(self)
+        server["aggregate_ms"].append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def stamped(self, *a):
+        out = finish(self, *a)
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+        nets.append(_cpu_state(self.net))
+        return out
+
+    def timed(self):
+        t0 = time.perf_counter()
+        out = wire(self)
+        dt = time.perf_counter() - t0
+        masks.append(dict(round=self._fit_round, slot=self.slot,
+                          n=self._fit_n, ms=dt * 1e3,
+                          vec=self._vector().cpu()))
+        return out
+
+    before = _uplink_bytes()
+    with mock.patch.object(cls, name, stamped), \
+            mock.patch.object(ta.SecureTrainer, "wire_leaves", timed), \
+            mock.patch.object(ta.TAAggregator, "add_local_trained_result",
+                              fold_timed), \
+            mock.patch.object(ta.TAAggregator, "aggregate", aggregate_timed), \
+            _secure_driven():
+        t0 = time.perf_counter()
+        if dense:
+            agg = run_simulated(data, _cnn_task(), cfg, job_id=job, **kw)
+        else:
+            agg = ta.run_simulated(data, _cnn_task(), cfg, job_id=job, **kw)
+    rounds = max(len(nets), 1)
+    return dict(agg=agg, nets=nets, masks=masks, server=server,
+                walls=[b - a for a, b in zip([t0] + stamps, stamps)],
+                ingress=(_uplink_bytes() - before) / rounds,
+                rounds=REGISTRY.snapshot().get("fed_secagg_rounds_total",
+                                               {}))
+
+
+def _secure_engine(data, cfg, start):
+    """(a): the masked engine round against the dense one, mask_update on
+    the card against the CPU, and the pieces' times."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateAPI
+    from fedml_tpu_torch.core import secure_agg as sa
+    from fedml_tpu_torch.utils.tree import tree_vectorize
+
+    K = cfg.client_num_per_round
+    masked = TurboAggregateAPI(data, _cnn_task(), cfg, device_data=True)
+    plain = FedAvgAPI(data, _cnn_task(), cfg, device_data=True)
+    # each engine's round 0 twice from the seed's weights, interleaved:
+    # the first of each pays the process's cold start
+    walls = {"masked": [], "plain": []}
+    for _ in range(2):
+        for name, api in (("masked", masked), ("plain", plain)):
+            api.load_state(start)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            api.run_round(0)
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+    eps32 = float(np.finfo(np.float32).eps)
+    gaps, bounds = {}, {}
+    for k in plain.net:
+        p_k = plain.net[k].double()
+        gaps[k] = float((masked.net[k].double() - p_k).abs().max())
+        bounds[k] = K * 0.5 / SECURE_SCALE + K * eps32 * float(
+            p_k.abs().max())
+    worst = max(gaps[k] / bounds[k] for k in gaps)
+    print("secure: (a) engine round 0 masked vs FedAvg from the same "
+          "weights: max |diff| by tensor "
+          + ", ".join(f"{k} {gaps[k]:.3e}" for k in gaps)
+          + f" (bound K*0.5/2^16 + K ulps: worst at {worst:.3f} of it); "
+          "walls (cold, warm) masked "
+          + ", ".join(f"{w:.3f}" for w in walls["masked"]) + " s, plain "
+          + ", ".join(f"{w:.3f}" for w in walls["plain"]) + " s")
+    if worst > 1.0:
+        raise AssertionError(f"(a): masked vs plain {gaps} past {bounds}")
+    # one client's upload: the same call on the card and on the CPU
+    cfg_sa = masked.secagg
+    vec = tree_vectorize(masked.net).double()
+    n = int(vec.numel())
+    on_card = sa.mask_update(vec, 0.1, 3, cfg.seed, 5, cfg_sa)
+    on_cpu = sa.mask_update(vec.cpu(), 0.1, 3, cfg.seed, 5, cfg_sa)
+    same = bool(np.array_equal(on_card, on_cpu))
+    print(f"secure: (a) mask_update of a {n}-element vector on the card "
+          f"bitwise the CPU's: {same}")
+    if not same:
+        raise AssertionError("(a): mask_update on the card is not the "
+                             "CPU's")
+    # the server's fold on the card against its numpy oracle, K arrivals
+    acc = host = None
+    for _ in range(K):
+        acc = sa.fold_masked_device(acc, on_card)
+        host = sa.fold_masked(host, on_cpu)
+    fold_same = bool(np.array_equal(acc.cpu().numpy(), host))
+    print(f"secure: (a) {K} arrivals folded on the card bitwise the host "
+          f"fold: {fold_same}")
+    if not fold_same:
+        raise AssertionError("(a): the card's fold is not the host fold")
+    seeds = {i: sa.self_mask_seed(cfg.seed, 5, i) for i in range(K)}
+    t = dict(
+        prg_ms=_time_ms(lambda: sa.prg_expand(seeds[0], n)),
+        mask_ms=_time_ms(lambda: sa.mask_update_tensor(
+            vec, 0.1, 3, cfg.seed, 5, cfg_sa), reps=5, inner=2),
+        mask_to_host_ms=_host_ms(lambda: sa.mask_update(
+            vec, 0.1, 3, cfg.seed, 5, cfg_sa), 5),
+        fold_card_ms=_time_ms(lambda: sa.fold_masked_device(acc, on_card)),
+        fold_host_ms=_host_ms(lambda: sa.fold_masked(on_cpu, on_cpu), 5),
+        unmask_decode_ms=_time_ms(lambda: sa.unmask_sum(
+            acc, range(K), [], seeds, {}, cfg_sa), reps=5, inner=2))
+    print("secure: (a) times: one PRG expansion "
+          f"{t['prg_ms']:.3f} ms; mask_update a client {t['mask_ms']:.3f} ms"
+          f" on the card ({t['mask_to_host_ms']:.3f} ms host wall with the "
+          f"{n * 8} B copy to numpy); fold an arrival "
+          f"{t['fold_card_ms']:.3f} ms on the card (host->card copy "
+          f"included), {t['fold_host_ms']:.3f} ms on the host; unmask + "
+          f"decode a round {t['unmask_decode_ms']:.3f} ms")
+    return dict(gaps=gaps, bound_ratio=worst, walls_s=walls,
+                mask_bitwise=same, fold_bitwise=fold_same, vector=n, **t)
+
+
+def _secure_flat(data, cfg, repeatable):
+    """(b): dense vs masked over loopback, a crashed client recovered,
+    a round shed and re-run."""
+    from fedml_tpu_torch import chaos
+    from fedml_tpu_torch.distributed.turboaggregate import (
+        _batch_cap,
+        cohort_sample_counts,
+    )
+    from fedml_tpu_torch.obs.telemetry import Telemetry
+
+    dense = _secure_run(data, cfg, "smoke-sec-dense", dense=True)
+    clean = _secure_run(data, cfg, "smoke-sec-clean")
+    share = [sum(m["ms"] for m in clean["masks"] if m["round"] == r) / 1e3
+             / w for r, w in enumerate(clean["walls"])]
+    print(f"secure: (b) loopback round walls dense "
+          + ", ".join(f"{w:.3f}" for w in dense["walls"]) + " s, masked "
+          + ", ".join(f"{w:.3f}" for w in clean["walls"]) + " s; root "
+          f"ingress a round dense {dense['ingress']:.0f} B, masked "
+          f"{clean['ingress']:.0f} B ({clean['ingress'] / dense['ingress']:.3f}"
+          "x); masking a client "
+          f"{statistics.median(m['ms'] for m in clean['masks']):.3f} ms "
+          "(host wall on its rank's thread, median), the clients' masking "
+          "summed over a round against its wall "
+          + ", ".join(f"{x:.3f}" for x in share) + "; the server's fold "
+          "of an arrival on its device, host wall with the copy, "
+          f"{statistics.median(clean['server']['fold_ms']):.3f} ms (median),"
+          " its aggregate (seeds, unmask, decode, reweight) "
+          + ", ".join(f"{x:.3f}" for x in clean["server"]["aggregate_ms"])
+          + " ms a round")
+    if clean["agg"].quarantine.canonical():
+        raise AssertionError(f"(b): clean ledger "
+                             f"{clean['agg'].quarantine.canonical()}")
+    # a client crashed in round 1: the aggregate against the exact
+    # survivor-weighted mean of the survivors' cleartext vectors
+    tel = Telemetry()
+    crash = _secure_run(data, cfg, "smoke-sec-crash", telemetry=tel,
+                        round_timeout_s=SECURE_DEADLINE_S,
+                        chaos_plan=chaos.FaultPlan.from_json(SECURE_CRASH))
+    tel.close()
+    sec = [r.get("secagg", {}) for r in tel.events.sink.records
+           if r.get("kind") == "round"]
+    ups = [m for m in crash["masks"] if m["round"] == 1]
+    ns = np.asarray([m["n"] for m in ups], np.float64)
+    want = sum(m["vec"].numpy() * n for m, n in zip(ups, ns)) / ns.sum()
+    from fedml_tpu_torch.utils.tree import tree_vectorize
+
+    got = tree_vectorize(crash["nets"][-1]).double().numpy()
+    _, counts = cohort_sample_counts(1, cfg, data, _batch_cap(data, cfg))
+    bound = (len(ups) * 0.5 / SECURE_SCALE * sum(counts) / ns.sum()
+             + float(np.finfo(np.float32).eps) * float(np.abs(want).max()))
+    gap = float(np.abs(got - want).max())
+    led = crash["agg"].quarantine.canonical()
+    print(f"secure: (b) rank 4 crashed in round 1: {len(ups)} survivors, "
+          f"the aggregate vs the survivor-weighted mean in float64 "
+          f"{gap:.3e} (bound {bound:.3e}); records {sec}; ledger {led}; "
+          "round walls " + ", ".join(f"{w:.3f}" for w in crash["walls"])
+          + " s")
+    recovery_s = sec[1].get("recovery_s") if len(sec) > 1 else None
+    if (len(ups) != cfg.client_num_per_round - 1 or gap > bound
+            or [s.get("outcome") for s in sec] != ["full", "recovered"]
+            or [(e[0], e[1], e[2]) for e in led]
+            != [(1, 4, "secagg_dropout")]):
+        raise AssertionError(f"(b): crash round off: gap {gap} bound "
+                             f"{bound}, records {sec}, ledger {led}")
+    # a round shed below t + 1 and re-broadcast
+    shed = _secure_run(data, cfg, "smoke-sec-shed",
+                       round_timeout_s=SECURE_DEADLINE_S,
+                       chaos_plan=chaos.FaultPlan.from_json(SECURE_SHED))
+    sled = shed["agg"].quarantine.canonical()
+    gaps = [max(float((a[k] - b[k]).abs().max()) for k in a)
+            for a, b in zip(shed["nets"], clean["nets"])]
+    bits = [_bitwise(a, b) for a, b in zip(shed["nets"], clean["nets"])]
+    print(f"secure: (b) round 1 shed (2 survivors < t + 1 = 3) and re-run: "
+          f"ledger {[(e[0], e[1], e[2]) for e in sled]}; params vs the "
+          "clean run by round " + ", ".join(f"{g:.3e}" for g in gaps)
+          + f", bitwise {bits}; walls "
+          + ", ".join(f"{w:.3f}" for w in shed["walls"]) + " s")
+    if ({(e[0], e[2]) for e in sled} != {(1, "secagg_shed")}
+            or sorted(e[1] for e in sled) != list(range(1, 9))):
+        raise AssertionError(f"(b): shed ledger {sled}")
+    if (repeatable and not all(bits)) or max(gaps) > TOL_ROUND:
+        raise AssertionError(f"(b): shed run vs clean {gaps} {bits}")
+    return dict(walls_dense_s=dense["walls"], walls_masked_s=clean["walls"],
+                server_fold_ms=clean["server"]["fold_ms"],
+                server_aggregate_ms=clean["server"]["aggregate_ms"],
+                ingress_dense_b=dense["ingress"],
+                ingress_masked_b=clean["ingress"],
+                mask_client_ms=[m["ms"] for m in clean["masks"]],
+                mask_share=share, crash_gap=gap, crash_bound=bound,
+                recovery_s=recovery_s, walls_crash_s=crash["walls"],
+                walls_shed_s=shed["walls"], clean=clean)
+
+
+def _secure_tree(data, cfg, clean, repeatable):
+    """(c): the 5 x 2 masked tree (t = 1: a 2-slot block holds t + 1)
+    against the flat clean run."""
+    run = _secure_run(data, cfg, "smoke-sec-tree", edges=HIER_EDGES,
+                      threshold_t=1)
+    bits = [_bitwise(a, b) for a, b in zip(run["nets"], clean["nets"])]
+    gaps = [max(float((a[k] - b[k]).abs().max()) for k in a)
+            for a, b in zip(run["nets"], clean["nets"])]
+    fan = run["agg"].fanin_history
+    print("secure: (c) tree 5 x 2: params vs the flat run by round "
+          + ", ".join(f"{g:.3e}" for g in gaps)
+          + f", bitwise {bits}; fan-in {fan}; root ingress a round "
+          f"{run['ingress']:.0f} B; walls "
+          + ", ".join(f"{w:.3f}" for w in run["walls"]) + " s")
+    if (fan != [HIER_EDGES] * SECURE_ROUNDS
+            or run["agg"].quarantine.canonical()):
+        raise AssertionError(f"(c): fan-in {fan}")
+    if (repeatable and not all(bits)) or max(gaps) > TOL_ROUND:
+        raise AssertionError(f"(c): tree vs flat {gaps}")
+    return dict(bitwise=bits, gaps=gaps, walls_s=run["walls"],
+                ingress_b=run["ingress"])
+
+
+def _secure_dp(data, cfg):
+    """(d): DP on the masked path, 2 rounds: ε against a host accountant,
+    the noise drawn on the card."""
+    from unittest import mock
+
+    from fedml_tpu_torch.core.privacy import DPAccountant
+    from fedml_tpu_torch.utils import prng
+
+    draws, normal = [], prng.normal_torch
+
+    def seen(k, shape, device):
+        t0 = time.perf_counter()
+        out = normal(k, shape, device)
+        torch.cuda.synchronize()
+        draws.append((str(out.device), (time.perf_counter() - t0) * 1e3))
+        return out
+
+    with mock.patch.object(prng, "normal_torch", seen):
+        run = _secure_run(data, cfg, "smoke-sec-dp", **SECURE_DP)
+    q = cfg.client_num_per_round / cfg.client_num_in_total
+    want = DPAccountant().step(q, SECURE_DP["noise_multiplier"],
+                               rounds=SECURE_ROUNDS).epsilon(1e-5)
+    got = run["agg"].accountant.epsilon(1e-5)
+    print(f"secure: (d) DP on the masked path: eps {got:.6f} vs a host "
+          f"accountant's {want:.6f}; noise draws {draws}; walls "
+          + ", ".join(f"{w:.3f}" for w in run["walls"]) + " s; per-client "
+          f"ledger {run['agg'].client_ledger.summary()}")
+    if (abs(got - want) > 1e-9 * max(1.0, want)
+            or len(draws) != SECURE_ROUNDS
+            or any(not d.startswith("cuda") for d, _ in draws)):
+        raise AssertionError(f"(d): eps {got} vs {want}, draws {draws}")
+    return dict(eps=got, eps_host=want, noise_draws=draws,
+                walls_s=run["walls"])
+
+
+def phase_secure(report):
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
+    from fedml_tpu_torch.data import load_dataset
+
+    fa.reset_launches()
+    data = load_dataset("femnist", seed=0, uint8_pixels=True)
+    cfg = FedAvgConfig(comm_round=SECURE_ROUNDS, frequency_of_the_test=100,
+                       **MAIN_CFG)
+    start = _cpu_state(_initial_state(data, cfg))
+    rec = report["secure"] = {}
+    # the bitwise claims (tree = flat, retry = clean) need repeating fits
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rec["engine"] = _secure_engine(data, cfg, start)
+        rep = _fit_repeatable(data, cfg, start, label="secure: (b)")
+        flat = _secure_flat(data, cfg, rep)
+        rec["tree"] = _secure_tree(data, cfg, flat.pop("clean"), rep)
+        rec["flat"] = flat
+        rec["dp"] = _secure_dp(data, cfg)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched by the secure phase: "
                              f"{fa.LAUNCHES}")
 
 

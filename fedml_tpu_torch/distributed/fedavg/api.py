@@ -274,18 +274,13 @@ def run_simulated(
 def server_crash_points(ckpt_dir) -> list:
     """The installed chaos plan's rank-0 crash schedule (``[(round,
     after_uploads)]``, empty without a plan), checked against what the
-    supervision loop can run: recovery needs ``ckpt_dir``, and the
-    reference's mid-reveal point (``after_uploads=-1``) needs the secure
-    aggregation tier (ROADMAP.md queue A, item 8)."""
+    supervision loop can run: recovery needs ``ckpt_dir``. The mid-reveal
+    point (``after_uploads=-1``) fires only on the masked tier
+    (distributed/turboaggregate.py), which has a reveal fan-out."""
     from fedml_tpu_torch import chaos as _chaos
 
     active = _chaos.active_plan()
     points = active.server_crash_points() if active is not None else []
-    if any(after is not None and int(after) == -1 for _, after in points):
-        raise NotImplementedError(
-            "the mid-reveal server crash point (after_uploads=-1) needs the "
-            "secure aggregation tier, not ported yet: ROADMAP.md queue A, "
-            "item 8")
     if points and ckpt_dir is None:
         raise ValueError(
             "a chaos crash rule naming rank 0 (server restart) needs "

@@ -55,9 +55,10 @@ marker to its workers (it rebuilds their frames), keeps the latest digest
 of each child, and forwards ONE folded blob on its partial (its own digest,
 the block's under ``block``), so the root's ingress stays O(edges).
 
-Not ported yet (ROADMAP.md queue A): the edges' fused ingest (item 7) and
-the hierarchical masked tier with its reveal crash point (item 8.5). Each
-raises where it would be asked for.
+The hierarchical masked tier (secure aggregation with edge-local reveal
+recovery) builds on these classes in distributed/turboaggregate.py. Not
+ported yet (ROADMAP.md queue A): the edges' fused ingest of the dense tier
+(item 7), which raises where it would be asked for.
 """
 
 from __future__ import annotations

@@ -1157,11 +1157,11 @@ class FedAvgServerManager(ServerManager):
         leaves), an integer dies MID-ROUND once that many uploads of the
         round were accepted (``0`` = broadcast out, nothing accepted yet;
         their WAL records already fsync'd, their payloads about to die
-        with the process). Only the head of the plan is consulted; the
-        supervision driver pops it per boot, so a recovered server does
-        not re-crash on the same point. The reference's ``-1`` point (the
-        secure tier's reveal fan-out) is queued with secure aggregation;
-        the supervision driver refuses it (``api.server_crash_points``)."""
+        with the process), and ``-1`` dies at the masked tier's reveal
+        fan-out (distributed/turboaggregate.py), the recovery state
+        machine's most dangerous window. Only the head of the plan is
+        consulted; the supervision driver pops it per boot, so a recovered
+        server does not re-crash on the same point."""
         if not self._crash_plan:
             return
         rnd, after = self._crash_plan[0]
@@ -1175,6 +1175,11 @@ class FedAvgServerManager(ServerManager):
             # journaled — the upload hook can't express it (it only runs
             # after an accept)
             why = "mid-round after 0 uploads"
+        elif point == "reveal" and after is not None and int(after) == -1 \
+                and self.round_idx == int(rnd):
+            # after_uploads = -1: die at the secagg reveal fan-out (the
+            # fold must recover as a shed, never half-recovered)
+            why = "mid-reveal"
         elif point == "upload" and after is not None and int(after) >= 1 \
                 and self.round_idx == int(rnd) \
                 and self._uploads_this_round >= int(after):

@@ -17,7 +17,12 @@ ranks 1..E are edge aggregators and the workers follow them
 (distributed/fedavg/hierarchy.py). ``--algo fedavg_robust`` runs the
 robust / accounted-DP server (distributed/fedavg_robust.py) with
 ``--defense_type``, ``--norm_bound``, ``--stddev`` and
-``--noise_multiplier``; every other ``--algo`` raises naming its item.
+``--noise_multiplier``; ``--algo turboaggregate`` the masked secure tier
+(distributed/turboaggregate.py: ``--secagg_threshold_t``,
+``--secagg_quant_scale``, ``--secagg_max_abs``, ``--defense_type dp`` for
+DP on the masked path, flat or with ``--edges``; ``--fused_agg`` is
+accepted there as the reference's spelling: the masked fold always runs
+on the server's device); every other ``--algo`` raises naming its item.
 
 Every rank runs on the CUDA device unless ``--device`` names another (the
 one flag the reference lacks: the port's device rule). The reference's
@@ -41,9 +46,6 @@ _UNPORTED_FLAGS = {
     "server_lr": ("--server_lr", float, 1.0, 9),
     "server_momentum": ("--server_momentum", float, 0.9, 9),
     "fedprox_mu": ("--fedprox_mu", float, 0.1, 9),
-    "secagg_threshold_t": ("--secagg_threshold_t", int, None, 8),
-    "secagg_quant_scale": ("--secagg_quant_scale", float, 2.0 ** 16, 8),
-    "secagg_max_abs": ("--secagg_max_abs", float, 4.0, 8),
     "shard_server_state": ("--shard_server_state", int, 0, 12),
     "partition_rules": ("--partition_rules", str, None, 12),
     "fused_agg": ("--fused_agg", int, 0, 7),
@@ -51,16 +53,17 @@ _UNPORTED_FLAGS = {
 
 
 # the algorithms this launcher runs; any other --algo raises naming
-# ROADMAP.md queue A item 9 (with --edges, turboaggregate names item 8)
-_ALGOS = ("fedavg", "fedavg_robust")
+# ROADMAP.md queue A item 9
+_ALGOS = ("fedavg", "fedavg_robust", "turboaggregate")
 
 
 def add_args(p: argparse.ArgumentParser):
     p.add_argument("--rank", type=int, required=True, help="0 = server")
     p.add_argument("--algo", type=str, default="fedavg",
                    help="fedavg | fedavg_robust (the robust / accounted-DP "
-                        "server); the reference's others are not ported "
-                        "yet (ROADMAP.md queue A, item 9)")
+                        "server) | turboaggregate (masked secure "
+                        "aggregation); the reference's others are not "
+                        "ported yet (ROADMAP.md queue A, item 9)")
     p.add_argument("--defense_type", type=str, default="norm_diff_clipping",
                    help="--algo fedavg_robust: norm_diff_clipping | "
                         "weak_dp | dp (accounted DP-FedAvg) | none")
@@ -72,6 +75,24 @@ def add_args(p: argparse.ArgumentParser):
                    help="z for --defense_type dp: noise N(0, (z*C/m)^2) on "
                         "the m-client uniform average, cumulative (eps, "
                         "delta) by an RDP accountant")
+    # masked secure aggregation (--algo turboaggregate)
+    p.add_argument("--secagg_threshold_t", "--secagg-threshold-t",
+                   dest="secagg_threshold_t", type=int, default=None,
+                   help="turboaggregate: Shamir threshold t — decoding "
+                        "any round needs >= t+1 surviving cohort slots; "
+                        "below that the round sheds + re-broadcasts "
+                        "(default: min(2, cohort-1))")
+    p.add_argument("--secagg_quant_scale", "--secagg-quant-scale",
+                   dest="secagg_quant_scale", type=float, default=2**16,
+                   help="turboaggregate: fixed-point scale quantizing "
+                        "updates into GF(2^31-1); construction refuses "
+                        "cohorts that would wrap the field "
+                        "(collectives/finite_field.assert_field_capacity)")
+    p.add_argument("--secagg_max_abs", "--secagg-max-abs",
+                   dest="secagg_max_abs", type=float, default=4.0,
+                   help="turboaggregate: promised bound on any masked "
+                        "update coordinate (the field-capacity guard's "
+                        "max|w|); DP mode uses --norm_bound instead")
     p.add_argument("--world_size", type=int, required=True,
                    help="client_num_per_round + 1")
     p.add_argument("--backend", type=str, default="grpc",
@@ -281,10 +302,10 @@ def add_args(p: argparse.ArgumentParser):
                         "verdict frames, edges fold only the survivors). "
                         "Workers are ranks E+1..world_size-1; the per-edge "
                         "block size (workers/edges) must be a power of "
-                        "two. 0 = flat (default). Not with --algo "
-                        "turboaggregate (the hierarchical masked tier: "
-                        "ROADMAP.md queue A, item 8) or --fused_agg "
-                        "(item 7)")
+                        "two. 0 = flat (default). With --algo "
+                        "turboaggregate: the hierarchical masked tier "
+                        "(edge-local reveal recovery, one unmasked field "
+                        "partial an edge)")
     p.add_argument("--sum_assoc", "--sum-assoc", dest="sum_assoc",
                    type=str, default="auto", choices=["auto", "pairwise"],
                    help="rank 0: weighted-mean summation association. "
@@ -311,16 +332,26 @@ def add_args(p: argparse.ArgumentParser):
     for dest, (flag, kind, default, item) in _UNPORTED_FLAGS.items():
         # the reference takes most of these in both spellings
         names = [flag] + ([flag.replace("_", "-")] if "_" in flag else [])
+        help_ = (f"not ported yet (ROADMAP.md queue A, item {item}); "
+                 f"raises unless left at {default!r}")
+        if dest == "fused_agg":
+            help_ = ("--algo turboaggregate: accepted (the masked fold "
+                     "always runs on the server's device); elsewhere "
+                     + help_)
         p.add_argument(*names, dest=dest, type=kind, default=default,
-                       help=f"not ported yet (ROADMAP.md queue A, item "
-                            f"{item}); raises unless left at {default!r}")
+                       help=help_)
     return p
 
 
 def refuse_unported_flags(args) -> None:
     """Raise NotImplementedError for the first reference flag set off its
-    default, naming its ROADMAP.md item."""
+    default, naming its ROADMAP.md item. ``--fused_agg`` under ``--algo
+    turboaggregate`` is the reference's spelling of the masked tier's
+    device-resident fold, which the port always runs: accepted, not the
+    dense tier's item 7."""
     for dest, (flag, _, default, item) in _UNPORTED_FLAGS.items():
+        if dest == "fused_agg" and args.algo == "turboaggregate":
+            continue
         if getattr(args, dest) != default:
             raise NotImplementedError(
                 f"{flag}={getattr(args, dest)!r} is not ported yet: "
@@ -412,6 +443,111 @@ def _supervise(args, argv) -> int:
                     rc, restarts, args.supervise)
 
 
+def refuse_turboaggregate_compositions(args) -> None:
+    """The masked secure tier's refusal matrix (the reference's flags, in
+    its order): every unsupported composition is a loud ValueError on
+    every rank (ranks share argv). ``--fused_agg`` and ``--edges`` are
+    compositions, not refusals."""
+    incompatible = [name for name, v in (
+        ("--shard_server_state",
+         getattr(args, "shard_server_state", 0) or None),
+        ("--async_buffer_k", getattr(args, "async_buffer_k", None)),
+        ("--update_codec", None if getattr(args, "update_codec", None)
+         in (None, "dense") else args.update_codec),
+        ("--sparsify_ratio", getattr(args, "sparsify_ratio", None)),
+        ("--aggregator", getattr(args, "aggregator", None)),
+        ("--byzantine_f", getattr(args, "byzantine_f", None)),
+        ("--delta_broadcast",
+         getattr(args, "delta_broadcast", 0) or None),
+        ("--heartbeat_max_age_s",
+         getattr(args, "heartbeat_max_age_s", None)),
+        ("--sum_assoc", None if getattr(args, "sum_assoc", "auto")
+         == "auto" else args.sum_assoc),
+        # a masked upload carries no model-space structure an adversary
+        # plan could perturb meaningfully
+        ("--adversary_plan", getattr(args, "adversary_plan", None)),
+    ) if v is not None]
+    if incompatible:
+        raise ValueError(
+            f"--algo turboaggregate (masked secure aggregation) does "
+            f"not compose with {incompatible}: masked field vectors "
+            "aggregate mod p — there is no server plane to shard, no "
+            "per-update structure for codecs or robust estimators, "
+            "and the synchronous cohort is the protocol")
+
+
+def _secagg_kw(args) -> dict:
+    return dict(threshold_t=args.secagg_threshold_t,
+                quant_scale=args.secagg_quant_scale,
+                defense_type=("dp" if args.defense_type == "dp" else "none"),
+                norm_bound=args.norm_bound,
+                secagg_max_abs=args.secagg_max_abs)
+
+
+def _turbo_rank(args, data, task, cfg, backend, device, telemetry,
+                backend_kw):
+    """This rank's manager on the masked secure tier, flat or (``--edges``)
+    hierarchical: rank 0 the server or root, 1..E the edges, the rest
+    SecureTrainer clients whose server is rank 0 or their edge."""
+    from fedml_tpu_torch.distributed.turboaggregate import (
+        HierTAAggregator,
+        HierTASecureServerManager,
+        SecureTrainer,
+        TAAggregator,
+        TASecureClientManager,
+        TASecureEdgeManager,
+        TASecureServerManager,
+    )
+
+    secagg_kw = _secagg_kw(args)
+    if args.edges:
+        from fedml_tpu_torch.distributed.fedavg.hierarchy import EdgeTopology
+
+        topo = EdgeTopology(edges=args.edges,
+                            workers=args.world_size - 1 - args.edges)
+        if args.rank == 0:
+            agg = HierTAAggregator(
+                data, task, cfg, topo,
+                noise_multiplier=args.noise_multiplier, device=device,
+                **secagg_kw)
+            return HierTASecureServerManager(
+                agg, rank=0, size=args.world_size, backend=backend,
+                ckpt_dir=args.ckpt_dir,
+                round_timeout_s=args.round_timeout_s,
+                telemetry=telemetry, **backend_kw)
+        if args.rank <= args.edges:
+            # edge watchdog at HALF the root deadline, as on the dense
+            # tier: block-local reveal or shed resolves first
+            return TASecureEdgeManager(
+                args.rank, topo, cfg, backend=backend,
+                round_timeout_s=(args.round_timeout_s / 2.0
+                                 if args.round_timeout_s else None),
+                device=device, **secagg_kw, **backend_kw)
+        slot = topo.slot_of(args.rank)
+        trainer = SecureTrainer(
+            args.rank, data, task, cfg, slot=slot,
+            peers=list(topo.slots_of_edge(topo.edge_of_slot(slot))),
+            device=device, **secagg_kw)
+        return TASecureClientManager(
+            trainer, rank=args.rank, size=args.world_size, backend=backend,
+            server_rank=topo.edge_rank(topo.edge_of_slot(slot)),
+            **backend_kw)
+    if args.rank == 0:
+        agg = TAAggregator(
+            data, task, cfg, worker_num=args.world_size - 1,
+            noise_multiplier=args.noise_multiplier, device=device,
+            **secagg_kw)
+        return TASecureServerManager(
+            agg, rank=0, size=args.world_size, backend=backend,
+            ckpt_dir=args.ckpt_dir, round_timeout_s=args.round_timeout_s,
+            telemetry=telemetry, **backend_kw)
+    trainer = SecureTrainer(args.rank, data, task, cfg, device=device,
+                            **secagg_kw)
+    return TASecureClientManager(trainer, rank=args.rank,
+                                 size=args.world_size, backend=backend,
+                                 **backend_kw)
+
+
 def _tree_rank(args, data, task, cfg, backend, device, agg_kw, telemetry,
                backend_kw):
     """This rank's manager in the hierarchical topology: rank 0 the root,
@@ -459,6 +595,10 @@ def init_role(args, data, task, cfg, backend_kw, telemetry=None,
     from fedml_tpu_torch.distributed.fedavg.api import init_client, init_server
 
     backend = args.backend.upper()
+    if args.algo == "turboaggregate":
+        refuse_turboaggregate_compositions(args)
+        return _turbo_rank(args, data, task, cfg, backend, device,
+                           telemetry, backend_kw)
     # robust aggregation: the aggregator's options, as the reference wires
     # them (--byzantine_f only reaches an --aggregator)
     agg_kw: dict = {}
@@ -577,21 +717,22 @@ def main(argv=None):
         level=logging.INFO,
         format=f"%(asctime)s rank{args.rank} %(name)s %(levelname)s %(message)s",
     )
-    if args.edges and args.algo == "turboaggregate":
-        raise NotImplementedError(
-            "--edges with --algo turboaggregate (the hierarchical masked "
-            "tier) is not ported yet: ROADMAP.md queue A, item 8")
     if args.algo not in _ALGOS:
         raise NotImplementedError(
             f"--algo {args.algo} is not ported yet: ROADMAP.md queue A, "
             "item 9")
+    if args.algo == "turboaggregate":
+        # the reference's matrix comes first: its flags refuse with its
+        # words even where the port has not ported the flag itself
+        refuse_turboaggregate_compositions(args)
     refuse_unported_flags(args)
     if args.rank == 0 and args.supervise:
         raise SystemExit(_supervise(args, argv))
-    if args.edges:
+    if args.edges and args.algo != "turboaggregate":
         if args.algo != "fedavg":
-            raise ValueError(f"--edges is wired for fedavg only (got "
-                             f"--algo {args.algo})")
+            raise ValueError(f"--edges is wired for fedavg and "
+                             f"turboaggregate only (got --algo "
+                             f"{args.algo})")
         # the dense synchronous protocol is the tree's contract (the
         # flags of the other unported modes were refused just above)
         incompatible = [name for name, v in (
@@ -650,7 +791,11 @@ def main(argv=None):
         raise ValueError(f"--world_size {args.world_size} leaves no worker "
                          f"ranks after {args.edges} edges + 1 server")
     worker_slot = args.rank - 1 - args.edges
-    if args.rank != 0 and worker_slot >= 0 and n_workers == n_total:
+    if (args.rank != 0 and worker_slot >= 0 and n_workers == n_total
+            and args.algo != "turboaggregate"):
+        # turboaggregate excluded: SecureTrainer's pre-normalized weight
+        # needs every cohort member's sample count (_round_weight), which
+        # a rank-local shard no longer holds.
         # full participation: worker slot s always trains client s, so this
         # process keeps only its own shard (load_partition_data_distributed_*
         # parity — the reference's per-rank loaders, cifar10/data_loader.py:433)

@@ -9,17 +9,26 @@ A key is a pair of uint32 words (``jax.random.PRNGKey``'s raw layout):
 - ``split(k, n)[i]``: both output words of ``threefry(k, (hi32(i), lo32(i)))``;
 - ``fold_in(k, d)``: ``threefry(k, (0, d))``;
 - ``random_bits(k, shape)``: element ``j`` (row-major) is ``a ^ b`` of
-  ``threefry(k, (hi32(j), lo32(j)))``;
+  ``threefry(k, (hi32(j), lo32(j)))``; ``random_bits64`` is ``a << 32 | b``
+  (the 64-bit draw);
+- ``randint(k, shape, lo, hi)``: ``jax.random.randint``'s int64 draw (under
+  x64): a high and a low 64-bit word from the two halves of ``split(k)``,
+  folded into the span with the multiplier ``(2^32 mod span)^2 mod span``;
 - ``normal(k, shape)``: the uniform ``u`` in (nextafter(-1, 0), 1) from the
-  bits' top 23 as a mantissa, then ``sqrt(2) * erfinv(u)``.
+  bits' top 23 as a mantissa, then ``sqrt(2) * erfinv(u)``, the erfinv
+  being XLA's own float32 polynomial (Giles 2010, ``ErfInv32``) written
+  out in plain torch ops.
 
 The key chain (``key``, ``split``, ``fold_in``) is host numpy: a handful of
 words a round. The bulk draws have two forms held bitwise to each other:
 numpy (the oracle) and torch on any device (``normal_torch``,
 ``random_bits_torch``), where the words live in int64 with 32-bit masks,
 so the bits of a full model's noise are drawn on the card. The uniforms are
-bitwise JAX's; the erfinv is the device's own (XLA's polynomial and
-torch's differ in the last bits, a few 1e-6 relative).
+bitwise JAX's; the erfinv is XLA's polynomial, so the normals sit within a
+few float32 ulps of JAX's (log1p and the FMA-free sums round apart from
+XLA's in the last bit). ``torch.special.erfinv`` is not used: its float32
+path once drifted by 6.6e-5 relative inside a test process (ROADMAP.md,
+queue C, C3), and its gap to XLA's polynomial is 20 times this one's.
 """
 
 from __future__ import annotations
@@ -91,6 +100,31 @@ def random_bits(k, shape) -> np.ndarray:
     return (a ^ b).reshape(shape)
 
 
+def random_bits64(k, shape) -> np.ndarray:
+    """``jax.random.bits(k, shape, uint64)`` (partitionable Threefry: the
+    block's first word is the high half)."""
+    shape = tuple(shape)
+    hi, lo = _counters(int(np.prod(shape, dtype=np.int64)))
+    a, b = _threefry2x32(tuple(np.asarray(k, np.uint32)), hi, lo)
+    return ((a.astype(np.uint64) << np.uint64(32))
+            | b.astype(np.uint64)).reshape(shape)
+
+
+def randint(k, shape, minval: int, maxval: int) -> np.ndarray:
+    """``jax.random.randint(k, shape, minval, maxval, int64)`` under x64
+    (jax/_src/random.py ``_randint``): uint64 arithmetic that wraps as
+    XLA's does. int64 [shape]."""
+    k1, k2 = split(k)
+    higher, lower = random_bits64(k1, shape), random_bits64(k2, shape)
+    span = np.uint64(1 if maxval <= minval else
+                     (int(maxval) - int(minval)) % 2**64)
+    with np.errstate(over="ignore"):
+        mult = np.uint64(2**32) % span
+        mult = (mult * mult) % span
+        off = ((higher % span) * mult + lower % span) % span
+        return np.int64(minval) + off.astype(np.int64)
+
+
 def _uniform_np(bits: np.ndarray) -> np.ndarray:
     one = ((bits >> np.uint32(9)) | np.uint32(0x3F800000)).view(np.float32)
     floats = one - np.float32(1.0)
@@ -98,11 +132,35 @@ def _uniform_np(bits: np.ndarray) -> np.ndarray:
                       floats * np.float32(2.0) + np.float32(_LO))
 
 
+# XLA's ErfInv32 (Giles, "Approximating the erfinv function", 2010):
+# w = -log1p(-u^2); w < 5: p(w - 2.5), else p(sqrt(w) - 3); erfinv = p * u
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erfinv32(u: torch.Tensor) -> torch.Tensor:
+    """XLA's float32 inverse error function on ``u``'s device, in plain
+    elementwise ops (Horner's rule, no fused multiply-adds), for
+    |u| < 1 (the uniform's range)."""
+    w = -torch.log1p(-u * u)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+    lt_c = torch.tensor(_ERFINV_LT5, dtype=torch.float32, device=u.device)
+    ge_c = torch.tensor(_ERFINV_GE5, dtype=torch.float32, device=u.device)
+    p = torch.where(lt, lt_c[0], ge_c[0])
+    for i in range(1, len(_ERFINV_LT5)):
+        p = torch.where(lt, lt_c[i], ge_c[i]) + p * w
+    return p * u
+
+
 def normal(k, shape) -> np.ndarray:
-    """``jax.random.normal(k, shape, float32)`` (the erfinv torch's, on
-    the CPU)."""
+    """``jax.random.normal(k, shape, float32)`` on the CPU."""
     u = torch.from_numpy(_uniform_np(random_bits(k, shape)))
-    return (torch.special.erfinv(u) * _SQRT2).numpy()
+    return (erfinv32(u) * _SQRT2).numpy()
 
 
 # ------------------------------------------------------------ torch draws
@@ -153,7 +211,7 @@ def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
     one = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
     floats = one - 1.0
     u = torch.clamp_min(floats * 2.0 + _LO, _LO)
-    return torch.special.erfinv(u) * _SQRT2
+    return erfinv32(u) * _SQRT2
 
 
 def normal_torch(k, shape, device) -> torch.Tensor:

@@ -390,12 +390,12 @@ def test_launcher_runs_the_wire_flags(tmp_path):
 
 # Options whose own protocol is ported now (checkpoints, crash recovery,
 # DP recovery, buffered-async rounds, heartbeat admission, rank-level churn
-# traces) keep their case, each with the composition that still raises:
-# the mid-reveal crash point of the secure tier (item 8) or fused ingest
-# (item 7).
+# traces, the secure tier's mid-reveal crash point) keep their case, each
+# with the composition that still raises: fused ingest (item 7).
 _OPTION_CASES = {
     "ckpt_dir": lambda d: dict(ckpt_dir=_dp_wal(d), fused_agg=True),
-    "chaos_plan": lambda d: dict(ckpt_dir=str(d), chaos_plan=FaultPlan.from_json(
+    "chaos_plan": lambda d: dict(ckpt_dir=str(d), fused_agg=True,
+                                 chaos_plan=FaultPlan.from_json(
         {"seed": 0, "rules": [{"fault": "crash", "ranks": [0],
                                "rounds": [1, 2], "after_uploads": -1}]})),
     "shard_server_state": lambda d: dict(shard_server_state=True),
@@ -466,16 +466,18 @@ def test_robust_run_simulated_options_run(setup, option):
     assert agg.sum_assoc == option.get("sum_assoc", "auto")
 
 
-# --ckpt_dir, --async_buffer_k and --supervise run now: each case pairs
-# the flag with a flag still refused (sharded state: item 12, the server
-# optimizer: item 9, secure aggregation: item 8), so nothing starts
+# --ckpt_dir, --async_buffer_k, --supervise and the masked tree run now:
+# each case pairs the flag with a flag still refused (sharded state: item
+# 12, the server optimizer: item 9), so nothing starts
 @pytest.mark.parametrize("flag", [
-    ["--algo", "fedopt"], ["--edges", "2", "--algo", "turboaggregate"],
+    ["--algo", "fedopt"],
+    ["--edges", "2", "--algo", "turboaggregate", "--server_optimizer",
+     "adam"],
     ["--ckpt_dir", "/tmp/x", "--partition_rules", "x"],
     ["--async_buffer_k", "2", "--server_optimizer", "adam"],
     ["--fused_agg", "1"], ["--shard_server_state", "1"],
-    ["--supervise", "1", "--ckpt_dir", "/tmp/x", "--secagg_threshold_t",
-     "1"],
+    ["--supervise", "1", "--ckpt_dir", "/tmp/x", "--partition_rules",
+     "x"],
 ], ids=lambda f: f[0])
 def test_unported_launcher_flags_raise(flag):
     with pytest.raises(NotImplementedError, match=r"ROADMAP\.md queue A, item"):

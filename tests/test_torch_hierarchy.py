@@ -662,15 +662,15 @@ def test_encoded_uplink_reaching_an_edge_raises():
 def test_unported_tree_options_raise_naming_their_item(setup, case,
                                                        tmp_path):
     """The tree's options still out of scope raise NotImplementedError
-    naming their ROADMAP.md item: the fused edge ingest (7); the masked
-    tier's mid-reveal root crash point and the hierarchical masked tier
-    (8). Root restarts, the edge's resume probe, resuming a root from a DP
-    run's WAL and the relayed fleet marker run now
-    (tests/test_torch_recovery.py, test_tree_root_resumes_a_dp_runs_wal,
-    tests/test_torch_fleet.py): their cases keep the refusals that remain
-    next to them (the fleet marker's: the fused edge, item 7)."""
-    item = "7" if case in ("fused_agg", "edge_fused", "resume_probe",
-                           "fleet_marker") else "8"
+    naming their ROADMAP.md item: the fused edge ingest (7). Root
+    restarts, the edge's resume probe, resuming a root from a DP run's
+    WAL, the relayed fleet marker, the mid-reveal root crash point and
+    the hierarchical masked tier run now (tests/test_torch_recovery.py,
+    test_tree_root_resumes_a_dp_runs_wal, tests/test_torch_fleet.py,
+    tests/test_torch_secagg_tree.py): their cases keep the refusals that
+    remain next to them (the fused edge, item 7; the masked tree's
+    launcher with the server optimizer, item 9)."""
+    item = "9" if case == "turboaggregate" else "7"
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue A, item {item}"):
         if case == "fused_agg":
@@ -681,6 +681,7 @@ def test_unported_tree_options_raise_naming_their_item(setup, case,
                 device="cpu", job_id="th-edge-fused")
         elif case == "root_crash":
             _run(setup, "th-root-crash", edges=2, ckpt_dir="/nowhere",
+                 fused_agg=True,
                  chaos={"seed": 0, "rules": [
                      {"fault": "crash", "ranks": [0], "rounds": [1, 2],
                       "after_uploads": -1}]})
@@ -690,7 +691,8 @@ def test_unported_tree_options_raise_naming_their_item(setup, case,
         elif case == "turboaggregate":
             distributed_launch.main([
                 "--rank", "0", "--world_size", "11", "--device", "cpu",
-                "--edges", "2", "--algo", "turboaggregate"])
+                "--edges", "2", "--algo", "turboaggregate",
+                "--server_optimizer", "adam"])
         else:
             from fedml_tpu_torch.obs import Telemetry
 

@@ -440,9 +440,18 @@ def test_rank0_crash_rule_schema_and_ckpt_dir_requirement(setup):
     with pytest.raises(ValueError, match="ckpt_dir"):
         run_simulated(setup["data"], setup["task"], FedAvgConfig(**_cfg()),
                       chaos_plan=plan, device="cpu")
-    # the mid-reveal point needs the secure tier
-    with pytest.raises(NotImplementedError, match=r"queue A, item 8"):
-        _port(setup, "tr-reveal", _crash_rules(1, -1), ckpt_dir="/nowhere")
+    # the mid-reveal point is a schedule the supervision loop accepts; it
+    # fires at the masked tier's reveal fan-out
+    # (tests/test_torch_secagg_wire.py)
+    from fedml_tpu_torch import chaos
+    from fedml_tpu_torch.distributed.fedavg.api import server_crash_points
+
+    chaos.install_plan(FaultPlan.from_json(
+        {"seed": 1, "rules": _crash_rules(1, -1)}))
+    try:
+        assert server_crash_points("/nowhere") == [(1, -1)]
+    finally:
+        chaos.install_plan(None)
 
 
 @pytest.fixture(scope="module")
