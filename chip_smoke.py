@@ -208,6 +208,29 @@ Phases, in order:
            the masked path, 2 rounds: ε equal to a host DPAccountant, the
            noise drawn on the card. Deadlines are driven (on_timeout once
            every upload that can arrive has), never waited out
+  pipeline bench.py's per-round driver and the rest of the aggregation and
+           pipeline stack at main's configuration, not cut, cuDNN
+           deterministic for the phase, no kernel of its own: (a) warmup()
+           and run_round(0), then 6 rounds through run_pipelined
+           (prefetch 2, the packer's copies on their own CUDA stream from
+           pinned buffers) beside the run_round loop from the same state,
+           host-packed and device-resident: model, key chain, metrics and
+           ledger bitwise; rounds/s and samples/s, the packer's pack and
+           copy spans, the driver's stall, the dispatch depth; (b)
+           bucket_batches off and on for 6 rounds from the same weights:
+           bitwise, each round's bucket depth, need, padding share and
+           wall, the warmup's variants; (c) precision='bf16' with the
+           model's activation dtype None and bfloat16: one step of each
+           client against the port's CPU step (median), round 0 against
+           the CPU's within 1e-2, masters float32, round walls beside
+           f32's; (d) the stand-in written as packed npy to a temporary
+           directory (removed after): the engine over PackedNpySource
+           bitwise the in-memory engine for 3 rounds, host RSS before and
+           after; (e) fused ingest over loopback, 2 rounds each under a
+           NaN adversary: fused vs stacked pairwise, dense and delta-int8,
+           the staged median vs the stacked two-phase median (bitwise if
+           the fits repeat, ledgers equal), the 5 x 2 tree with fused
+           edges vs the fused flat run; aggregate ms and staging bytes
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -221,6 +244,7 @@ import dataclasses
 import importlib
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -239,7 +263,7 @@ fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
 PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
           "wire", "robust", "hier", "recover", "harden", "observe",
-          "secure")
+          "secure", "pipeline")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -3917,6 +3941,460 @@ def phase_secure(report):
     if any(fa.LAUNCHES.values()):
         raise AssertionError(f"flash kernels launched by the secure phase: "
                              f"{fa.LAUNCHES}")
+
+
+# bench.py's per-round driver at main's configuration, not cut: the
+# pipelined driver (prefetch 2, drain lag 2) against the synchronous
+# run_round loop, bucketed depth, the bf16 policy, a streamed source and
+# fused ingest. cuDNN deterministic for the phase, so every "bitwise"
+# below is a claim about the code, not about luck.
+PIPE_ROUNDS = 6            # (a): timed rounds of each driver
+PIPE_BUCKET_ROUNDS = 6     # (b)
+PIPE_STREAM_ROUNDS = 3     # (d)
+PIPE_FUSED_ROUNDS = 2      # (e)
+PIPE_TREE_EDGES = 5        # (e): hier's 5 x 2 tree
+PIPE_NAN = {"seed": 1, "rules": [{"attack": "nan", "ranks": [2]}]}
+# (c): one step of each client, card vs CPU, median client update rel.
+# err. The card and the CPU round the same values to bf16, so the sound
+# gap is small: 3.2e-05 with model dtype None (f32 compute on bf16-rounded
+# weights), 4.6e-04 with bf16 activations, on an H100. Each limit is about
+# 10x its gap and sits 6x or more under the gap of a card step that skips
+# the casts (2.7e-02 and 3.7e-02 against the CPU bf16 step) or, with bf16
+# activations, skips only the activation casts (3.0e-02); (c) runs those
+# controls and fails if one falls within its limit. The round is held to
+# main's TOL_ROUND.
+PIPE_BF16_STEP_TOL = {"None": 3e-4, "bfloat16": 5e-3}
+
+
+def _card_tag():
+    """'[name, power limit]' of the current card, for every figure."""
+    global _CARD
+    if "_CARD" not in globals():
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=True, timeout=60)
+        _CARD = smi.stdout.strip().splitlines()[torch.cuda.current_device()]
+    return f"[{_CARD}]"
+
+
+def _hist_delta(name, before):
+    """(count, sum) of histogram family ``name`` since snapshot
+    ``before``, over its label sets."""
+    from fedml_tpu_torch.obs.metrics import REGISTRY
+
+    def tot(snap):
+        fam = snap.get(name, {})
+        return (sum(v.get("count", 0) for v in fam.values()),
+                sum(v.get("sum", 0.0) for v in fam.values()))
+
+    (c1, s1), (c0, s0) = tot(REGISTRY.snapshot()), tot(before)
+    return c1 - c0, s1 - s0
+
+
+def _pipe_driver(data, cfg, start):
+    """(a): warmup() and run_round(0) as bench.py runs them, then
+    PIPE_ROUNDS rounds through run_round and through run_pipelined
+    (prefetch 2) from the same state: model, key chain, per-round metrics
+    and ledger bitwise; rounds/s and samples/s of each; the packer's pack
+    and copy spans, the driver's stall and the dispatch depth a round.
+    Host-packed (bench.py's per-round mode) and device-resident."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.obs.metrics import REGISTRY
+
+    out = {}
+    for dd in (False, True):
+        plane = "device_data" if dd else "host-packed"
+        api = FedAvgAPI(data, _cnn_task(), cfg, device_data=dd)
+        api.load_state(start)
+        wrep = api.warmup()
+        api.run_round(0)
+        torch.cuda.synchronize()
+        s1, rng1 = _cpu_state(api.net), api.rng.copy()
+        rounds = range(1, 1 + PIPE_ROUNDS)
+        t0 = time.perf_counter()
+        sync = [{k: float(v) for k, v in api.run_round(r).items()}
+                for r in rounds]
+        torch.cuda.synchronize()
+        sync_s = time.perf_counter() - t0
+        sync_net, sync_rng = _cpu_state(api.net), api.rng.copy()
+        sync_led = api.quarantine.canonical()
+
+        api.load_state(s1, rng=rng1)
+        api.prefetch = 2
+        spans, depths = [], []
+        pack, drain = api._pack_round_placed, api._drain_round_entry
+
+        def packed(r):
+            res = pack(r)
+            spans.append(res[2])
+            return res
+
+        def drained(r, entry):
+            depths.append(entry[2]["depth"])
+            return drain(r, entry)
+
+        api._pack_round_placed, api._drain_round_entry = packed, drained
+        before = REGISTRY.snapshot()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = api.run_pipelined(1, PIPE_ROUNDS)
+        torch.cuda.synchronize()
+        pipe_s = time.perf_counter() - t0
+        stalls = _hist_delta("fed_prefetch_stall_seconds", before)
+        got = [{k: float(v) for k, v in m.items()} for _, m in pipe]
+        same = (_bitwise(sync_net, _cpu_state(api.net))
+                and (sync_rng == api.rng).all() and got == sync
+                and [r for r, _ in pipe] == list(rounds)
+                and sync_led == api.quarantine.canonical())
+        n = sum(m["count"] for m in sync)
+        print(f"pipeline: (a) {plane}: warmup {wrep['variants']} in "
+              f"{wrep['seconds']:.3f} s; {PIPE_ROUNDS} rounds: run_round "
+              f"{PIPE_ROUNDS / sync_s:.2f} rounds/s {n / sync_s:.0f} "
+              f"samples/s, run_pipelined {PIPE_ROUNDS / pipe_s:.2f} rounds/s"
+              f" {n / pipe_s:.0f} samples/s; a round on the packer: pack "
+              + ", ".join(f"{s['prefetch_pack'] * 1e3:.2f}" for s in spans)
+              + " ms, h2d call "
+              + ", ".join(f"{s['h2d'] * 1e3:.2f}" for s in spans)
+              + f" ms; driver stall {stalls[1] * 1e3 / max(stalls[0], 1):.2f}"
+              f" ms a round ({stalls[0]} gets); dispatch depth {depths}; "
+              f"model, key chain, metrics and ledger bitwise {same} "
+              + _card_tag())
+        if not same:
+            raise AssertionError(f"pipeline: (a) {plane}: run_pipelined is "
+                                 "not bitwise the run_round loop")
+        out[plane] = dict(
+            sync_rounds_per_s=PIPE_ROUNDS / sync_s,
+            pipe_rounds_per_s=PIPE_ROUNDS / pipe_s,
+            sync_samples_per_s=n / sync_s, pipe_samples_per_s=n / pipe_s,
+            pack_ms=[s["prefetch_pack"] * 1e3 for s in spans],
+            h2d_ms=[s["h2d"] * 1e3 for s in spans],
+            stall_ms=stalls[1] * 1e3 / max(stalls[0], 1), depths=depths,
+            warmup_s=wrep["seconds"])
+    return out
+
+
+def _pipe_bucket(data, cfg, start):
+    """(b): PIPE_BUCKET_ROUNDS rounds with bucket_batches off and on from
+    the same weights (telemetry on both, for the pack blocks): bitwise;
+    each round's bucket_B / b_needed / pad_frac and wall, on and off; the
+    bucketed warmup's variants and seconds."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.obs import Telemetry
+
+    res = {}
+    for on in (False, True):
+        tel = Telemetry()
+        try:
+            api = FedAvgAPI(data, _cnn_task(), cfg, bucket_batches=on,
+                            telemetry=tel)
+            api.load_state(start)
+            wrep = api.warmup()
+            walls = []
+            for r in range(PIPE_BUCKET_ROUNDS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                api.run_round(r)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            packs = [rec["pack"] for rec in tel.events.sink.records
+                     if rec.get("kind") == "round"]
+        finally:
+            tel.close()
+        res[on] = dict(net=_cpu_state(api.net), walls=walls, packs=packs,
+                       warmup=wrep, ladder=list(api._b_ladder))
+    same = _bitwise(res[False]["net"], res[True]["net"])
+    for on in (False, True):
+        r = res[on]
+        print(f"pipeline: (b) bucket_batches {on}: warmup "
+              f"{r['warmup']['variants']} in {r['warmup']['seconds']:.3f} s;"
+              " rounds (bucket_B/b_needed/pad_frac, wall): " + "; ".join(
+                  f"{p['bucket_B']}/{p['b_needed']}/{p['pad_frac']:.4f}, "
+                  f"{w * 1e3:.1f} ms" for p, w in zip(r["packs"],
+                                                     r["walls"]))
+              + f" {_card_tag()}")
+    print(f"pipeline: (b) ladder {res[True]['ladder']}; bucketed rounds "
+          f"bitwise the unbucketed {same}; median wall off "
+          f"{statistics.median(res[False]['walls']) * 1e3:.1f} ms, on "
+          f"{statistics.median(res[True]['walls']) * 1e3:.1f} ms "
+          + _card_tag())
+    if not same:
+        raise AssertionError("pipeline: (b) bucketed rounds are not bitwise "
+                             "the unbucketed ones")
+    return {("on" if on else "off"): dict(
+        walls_ms=[w * 1e3 for w in res[on]["walls"]],
+        packs=res[on]["packs"], warmup_s=res[on]["warmup"]["seconds"],
+        variants=res[on]["warmup"]["variants"]) for on in (False, True)}
+
+
+def _pipe_bf16(data, cfg, start):
+    """(c): precision='bf16' with the model's activation dtype None and
+    bfloat16: one step of each client of round 0 on the card against the
+    port's CPU step from the same weights (median client update rel. err
+    within PIPE_BF16_STEP_TOL), round 0 from the same weights within
+    TOL_ROUND, the masters float32; round walls beside f32's. Controls: a
+    card step that skips the casts (precision f32) against each CPU bf16
+    step, and a bf16 card step that skips the activation casts (model
+    dtype None) against the CPU's bf16-activation step, each outside the
+    tolerance it controls, so the check can tell the policy ran."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.device import resolve_device
+    from fedml_tpu_torch.models.cnn import CNNOriginalFedAvg
+
+    cfg16 = dataclasses.replace(cfg, precision="bf16")
+    step16 = dataclasses.replace(cfg16, max_batches=1)
+    out, card_steps = {}, {}
+    f32 = FedAvgAPI(data, _cnn_task(), cfg, device_data=True)
+    f32.load_state(start)
+    walls = {"f32": _timed_rounds(f32, 3)}
+    f32_step = _client_steps(FedAvgAPI(
+        data, _cnn_task(), dataclasses.replace(cfg, max_batches=1),
+        device_data=True), 0, start)
+    for dt in (None, torch.bfloat16):
+        name = "None" if dt is None else "bfloat16"
+        task = lambda device=None: classification_task(
+            CNNOriginalFedAvg(dtype=dt).to(resolve_device(device)))
+        card = FedAvgAPI(data, task(), cfg16, device_data=True)
+        cpu = FedAvgAPI(data, task("cpu"), cfg16, device="cpu")
+        step = FedAvgAPI(data, task(), step16, device_data=True)
+        cpu_step = FedAvgAPI(data, task("cpu"), step16, device="cpu")
+        card_steps[name] = _client_steps(step, 0, start)
+        cpu_s = _client_steps(cpu_step, 0, start)
+        gaps = _step_gaps(card_steps[name], cpu_s)
+        controls = {"f32 card step": _step_gaps(f32_step, cpu_s)[0]}
+        if dt is not None:
+            controls["bf16 card step, model dtype None"] = _step_gaps(
+                card_steps["None"], cpu_s)[0]
+        del cpu_s
+        card0, cpu0 = _round_from(card, 0, start), _round_from(cpu, 0, start)
+        rgaps = _gaps(card0, cpu0)
+        masters = all(v.dtype == torch.float32 for v in card.net.values())
+        card.load_state(start)
+        walls[f"bf16 (model dtype {name})"] = _timed_rounds(card, 3)
+        tol = PIPE_BF16_STEP_TOL[name]
+        print(f"pipeline: (c) bf16, model dtype {name}: controls against "
+              "the CPU step, median client update rel. err: " + ", ".join(
+                  f"{k} {v:.3e}" for k, v in controls.items())
+              + f" (each must exceed tol {tol:g}) {_card_tag()}")
+        _agree(f"(c) bf16, model dtype {name}: one step of round 0's "
+               f"clients, card vs CPU", gaps,
+               (("median client update rel. err", tol),), phase="pipeline")
+        _agree(f"(c) bf16, model dtype {name}: round 0, card vs CPU", rgaps,
+               ROUND_TOLS, phase="pipeline")
+        if any(v <= tol for v in controls.values()):
+            raise AssertionError(f"pipeline: (c) model dtype {name}: a "
+                                 f"control {controls} is within {tol:g}; "
+                                 "the check cannot tell the policy ran")
+        if not masters:
+            raise AssertionError("pipeline: (c) the bf16 masters left f32")
+        out[name] = dict(step_median=gaps[0], step_max=gaps[2],
+                         loss_rel=gaps[1], controls=controls,
+                         round_hist=rgaps[0],
+                         round_params=rgaps[1])
+    print("pipeline: (c) round walls (3 rounds, ms): " + "; ".join(
+        f"{k} " + ", ".join(f"{w * 1e3:.1f}" for w in v)
+        for k, v in walls.items()) + f"; masters float32 {_card_tag()}")
+    out["walls_ms"] = {k: [w * 1e3 for w in v] for k, v in walls.items()}
+    return out
+
+
+def _pipe_stream(data, cfg, start):
+    """(d): the full stand-in written as packed npy (write_packed_npy) to a
+    temporary directory the phase removes; the engine over a
+    PackedNpySource for PIPE_STREAM_ROUNDS rounds bitwise the in-memory
+    engine; the host RSS (memwatch) before and after."""
+    import shutil
+    import tempfile
+
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.core.client_source import (
+        PackedNpySource,
+        write_packed_npy,
+    )
+    from fedml_tpu_torch.obs.memwatch import host_rss_bytes
+
+    mem = FedAvgAPI(data, _cnn_task(), cfg)
+    mem.load_state(start)
+    for r in range(PIPE_STREAM_ROUNDS):
+        mem.run_round(r)
+    d = tempfile.mkdtemp(prefix="pipeline-packed-")
+    try:
+        rss0 = host_rss_bytes()
+        t0 = time.perf_counter()
+        write_packed_npy(data, d)
+        write_s = time.perf_counter() - t0
+        size = sum(os.path.getsize(os.path.join(d, f)) for f in os.listdir(d))
+        src = PackedNpySource(d)
+        try:
+            api = FedAvgAPI(src, _cnn_task(), cfg)
+            api.load_state(start)
+            walls = _timed_rounds(api, PIPE_STREAM_ROUNDS)
+            same = _bitwise(_cpu_state(mem.net), _cpu_state(api.net))
+        finally:
+            src.close()
+        rss1 = host_rss_bytes()
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    gone = not os.path.exists(d)
+    mib = lambda b: "not measured" if b is None else f"{b / 2**20:.1f} MiB"
+    print(f"pipeline: (d) write_packed_npy of {src.num_clients} clients: "
+          f"{size / 2**20:.1f} MiB in {write_s:.2f} s; {PIPE_STREAM_ROUNDS} "
+          f"rounds over PackedNpySource: " + ", ".join(
+              f"{w * 1e3:.1f}" for w in walls) + f" ms, bitwise the "
+          f"in-memory engine {same}; host RSS before {mib(rss0)}, after "
+          f"{mib(rss1)}; temporary directory removed {gone} {_card_tag()}")
+    if not same or not gone:
+        raise AssertionError(f"pipeline: (d) streamed bitwise {same}, "
+                             f"directory removed {gone}")
+    return dict(walls_ms=[w * 1e3 for w in walls], rss_before=rss0,
+                rss_after=rss1, packed_mib=size / 2**20, write_s=write_s)
+
+
+def _fused_run(data, cfg, job, records=False, **kw):
+    """run_simulated over loopback from the seed's weights: the
+    aggregator, each round's new global model on the CPU, each flush's
+    seconds and staging bytes (the aggregator's last flush record); with
+    ``records`` the server's telemetry round records too (its per-round
+    ``decode`` span over the arrivals, ``aggregate`` span and wall)."""
+    from unittest import mock
+
+    from fedml_tpu_torch import chaos
+    from fedml_tpu_torch.distributed.fedavg import run_simulated
+    from fedml_tpu_torch.distributed.fedavg.aggregator import FedAvgAggregator
+    from fedml_tpu_torch.obs import Telemetry
+
+    nets, flushes, aggregate = [], [], FedAvgAggregator.aggregate
+
+    def stamped(self):
+        out = aggregate(self)
+        torch.cuda.synchronize()
+        nets.append(_cpu_state(self.net))
+        flushes.append(dict(self._last_flush or {}))
+        return out
+
+    tel = Telemetry() if records else None
+    try:
+        with mock.patch.object(FedAvgAggregator, "aggregate", stamped):
+            agg = run_simulated(data, _cnn_task(), cfg, job_id=job,
+                                adversary_plan=chaos.AdversaryPlan.from_json(
+                                    PIPE_NAN), telemetry=tel, **kw)
+        recs = ([r for r in tel.events.sink.records
+                 if r.get("kind") == "round"] if records else [])
+    finally:
+        if tel is not None:
+            tel.close()
+    return dict(agg=agg, nets=nets, flushes=flushes, records=recs)
+
+
+def _server_round_ms(recs):
+    """Per server round: (mean ``decode`` span per arrival, ``aggregate``
+    span, wall), in ms. The decode span is host time at arrival: in fused
+    mode it holds the densify, gate and fold that stacked mode runs in
+    its aggregate."""
+    return [(r["spans"].get("decode", 0.0) * 1e3 / max(len(r["clients"]), 1),
+             r["spans"].get("aggregate", 0.0) * 1e3,
+             r["goodput"]["wall_s"] * 1e3) for r in recs]
+
+
+def _pipe_fused(data, cfg, repeatable):
+    """(e): fused against stacked pairwise over loopback, dense and
+    delta-int8 (a NaN adversary on rank 2 fills the ledger), and the
+    staged median against the stacked two-phase median: params bitwise
+    every round (if the fits repeat), ledgers equal; the 5 x 2 tree with
+    fused edges against the fused flat run; the server's aggregate ms and
+    staging bytes, and its decode span per arrival and round wall from
+    the same runs, fused vs stacked."""
+    out = {}
+    runs = {}
+    legs = (("dense", {}), ("delta-int8", dict(update_codec="delta-int8")),
+            ("median", dict(aggregator="median")))
+    for leg, kw in legs:
+        pair = {}
+        for mode, extra in (("stacked", dict(sum_assoc="pairwise")),
+                            ("fused", dict(fused_agg=True))):
+            pair[mode] = _fused_run(data, cfg, f"pipe-{leg}-{mode}",
+                                    records=True, **kw, **extra)
+        runs[leg] = pair
+        s, f = pair["stacked"], pair["fused"]
+        bits = [_bitwise(a, b) for a, b in zip(s["nets"], f["nets"])]
+        gaps = [max(float((a[k] - b[k]).abs().max()) for k in a)
+                for a, b in zip(s["nets"], f["nets"])]
+        led = (s["agg"].quarantine.canonical(),
+               f["agg"].quarantine.canonical())
+        ms = {m: [x["flush_s"] * 1e3 for x in pair[m]["flushes"]]
+              for m in pair}
+        nb = {m: [x["stack_bytes"] for x in pair[m]["flushes"]]
+              for m in pair}
+        srv = {m: _server_round_ms(pair[m]["records"]) for m in pair}
+        print(f"pipeline: (e) {leg}: fused vs stacked params by round "
+              + ", ".join(f"{g:.3e}" for g in gaps) + f", bitwise {bits}; "
+              f"ledgers equal {led[0] == led[1]} ({len(led[0])} entries); "
+              f"server aggregate ms stacked " + ", ".join(
+                  f"{x:.2f}" for x in ms["stacked"]) + ", fused " + ", ".join(
+                  f"{x:.2f}" for x in ms["fused"]) + "; fed_agg_stack_bytes "
+              f"stacked {nb['stacked']}, "
+              f"{'fused_staged' if leg == 'median' else 'fused'} "
+              f"{nb['fused']} {_card_tag()}")
+        print(f"pipeline: (e) {leg}: server rounds (decode ms per arrival, "
+              "aggregate span ms, round wall ms): " + "; ".join(
+                  f"{m} " + ", ".join(f"{d:.2f}/{a:.2f}/{w:.1f}"
+                                      for d, a, w in srv[m])
+                  for m in srv) + f" {_card_tag()}")
+        if led[0] != led[1] or not led[0]:
+            raise AssertionError(f"pipeline: (e) {leg}: ledgers {led}")
+        if repeatable and not all(bits):
+            raise AssertionError(f"pipeline: (e) {leg}: the fits repeat, "
+                                 f"fused is not bitwise stacked ({gaps})")
+        if max(gaps) > TOL_ROUND:
+            raise AssertionError(f"pipeline: (e) {leg}: {gaps}")
+        out[leg] = dict(bitwise=bits, stacked_ms=ms["stacked"],
+                        fused_ms=ms["fused"], stacked_bytes=nb["stacked"],
+                        fused_bytes=nb["fused"], server_rounds_ms=srv)
+    flat = runs["dense"]["fused"]
+    tree = _fused_run(data, cfg, "pipe-tree-fused", fused_agg=True,
+                      edges=PIPE_TREE_EDGES)
+    bits = [_bitwise(a, b) for a, b in zip(tree["nets"], flat["nets"])]
+    led = (tree["agg"].quarantine.canonical(),
+           flat["agg"].quarantine.canonical())
+    print(f"pipeline: (e) {PIPE_TREE_EDGES} x "
+          f"{MAIN_CFG['client_num_per_round'] // PIPE_TREE_EDGES} tree, "
+          f"fused edges, vs the fused flat run: bitwise {bits}, ledgers "
+          f"equal {led[0] == led[1]}, fan-in {tree['agg'].fanin_history} "
+          + _card_tag())
+    if led[0] != led[1] or (repeatable and not all(bits)) or \
+            len(bits) != PIPE_FUSED_ROUNDS:
+        raise AssertionError(f"pipeline: (e) tree vs flat: bitwise {bits}, "
+                             f"ledgers {led}")
+    out["tree_bitwise"] = bits
+    return out
+
+
+def phase_pipeline(report):
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
+    from fedml_tpu_torch.data import load_dataset
+
+    fa.reset_launches()
+    data = load_dataset("femnist", seed=0, uint8_pixels=True)
+    cfg = FedAvgConfig(comm_round=PIPE_ROUNDS + 1,
+                       frequency_of_the_test=100, **MAIN_CFG)
+    start = _cpu_state(_initial_state(data, cfg))
+    rec = report["pipeline"] = {}
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        rec["driver"] = _pipe_driver(data, cfg, start)
+        rec["bucket"] = _pipe_bucket(data, cfg, start)
+        rec["bf16"] = _pipe_bf16(data, cfg, start)
+        rec["stream"] = _pipe_stream(data, cfg, start)
+        fcfg = dataclasses.replace(cfg, comm_round=PIPE_FUSED_ROUNDS)
+        rep = _fit_repeatable(data, fcfg, start, label="pipeline: (e)")
+        rec["fused"] = _pipe_fused(data, fcfg, rep)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched by the pipeline "
+                             f"phase: {fa.LAUNCHES}")
 
 
 def _initial_state(data, cfg):

@@ -50,9 +50,30 @@ defaults the round runs the ops it ran before they existed.
 A ``cfg.churn_trace`` (chaos/churn.py) restricts each round's draw to the
 trace's available clients, so the cohort, and the batched fit's K, vary
 by round. ``run_async`` drives buffered-async updates on a virtual clock
-(core/async_buffer.VirtualClockAsyncRunner). Mesh/SPMD round loops,
-prefetch pipelines and the other engine options are queued in ROADMAP.md
-(queue A, items 5-8); passing one raises.
+(core/async_buffer.VirtualClockAsyncRunner).
+
+The rest of the reference's per-round driver (bench.py's headline):
+
+- ``bucket_batches`` shrinks each round's batch depth to the smallest rung
+  of the ladder ``{ceil(B/d) for d in (8, 4, 2, 1)}`` that covers the
+  sampled cohort. A trailing all-masked batch is an exact no-op of the fit
+  (core/local.py), so a bucketed round is bitwise the unbucketed one and
+  skips the padding's steps.
+- ``prefetch`` > 0 arms the pipelined driver (``run_pipelined``, and
+  ``train``): a packer thread (core/pipeline.Prefetcher) samples, packs
+  and copies round r+1's batch while round r runs; on a CUDA device the
+  copy runs on the packer's own stream from pinned buffers, and the
+  compute stream waits on the copy's event. Round outputs drain
+  ``drain_lag`` rounds behind dispatch (core/pipeline.InflightRing), in
+  round order, so ledgers and records equal the synchronous driver's.
+- ``warmup`` runs the fit once per bucket depth on an all-masked batch,
+  the eager counterpart of the reference's AOT compile pass.
+- ``precision='bf16'`` arms the client-compute policy (core/local.py).
+- A ``core/client_source.ClientDataSource`` dataset streams the sampled
+  cohort's rows from its reader; the device-resident plane refuses one.
+
+Mesh/SPMD round loops and the other engine options are queued in
+ROADMAP.md (queue A); passing one raises.
 """
 
 from __future__ import annotations
@@ -68,6 +89,7 @@ import torch
 
 from fedml_tpu_torch.core import optim
 from fedml_tpu_torch.core.client_data import (
+    ClientBatch,
     FederatedData,
     IndexBatch,
     batch_global,
@@ -76,6 +98,11 @@ from fedml_tpu_torch.core.client_data import (
     pad_batches,
     pad_index_batches,
 )
+from fedml_tpu_torch.core.client_source import (
+    ClientDataSource,
+    pack_clients_source,
+)
+from fedml_tpu_torch.core.pipeline import InflightRing, Prefetcher
 from fedml_tpu_torch.core.robust_agg import (
     DEFAULT_NORM_MULT,
     QuarantineLedger,
@@ -83,6 +110,7 @@ from fedml_tpu_torch.core.robust_agg import (
     make_robust_aggregator,
 )
 from fedml_tpu_torch.core.local import (
+    COMPUTE_DTYPES,
     LocalSpec,
     Task,
     make_cohort_eval_fn,
@@ -262,17 +290,44 @@ def make_client_optimizer(cfg: FedAvgConfig) -> optim.ClientOptimizer:
 
 def resolve_local_spec(local_spec: LocalSpec | None,
                        cfg: FedAvgConfig) -> LocalSpec:
-    """The engine's LocalSpec: built from the config unless one is passed."""
-    if cfg.precision not in ("f32", "float32"):
-        raise NotImplementedError(
-            f"precision={cfg.precision!r}: only float32 is ported (bf16: "
-            "ROADMAP.md queue A, item 7)")
+    """The engine's LocalSpec: the default build honors ``cfg.precision``;
+    a passed spec that left ``compute_dtype`` at its default is grafted
+    with it, so ``precision='bf16'`` composes with every engine (a spec
+    that set its own compute_dtype wins)."""
+    prec = cfg.precision
+    if prec not in COMPUTE_DTYPES:
+        raise ValueError(f"precision={prec!r} (one of "
+                         f"{sorted(COMPUTE_DTYPES)})")
     if cfg.remat:
         raise NotImplementedError("remat is not ported yet: ROADMAP.md "
                                   "queue A, item 4")
-    if local_spec is not None:
-        return local_spec
-    return LocalSpec(optimizer=make_client_optimizer(cfg), epochs=cfg.epochs)
+    if local_spec is None:
+        return LocalSpec(optimizer=make_client_optimizer(cfg),
+                         epochs=cfg.epochs, compute_dtype=prec)
+    if COMPUTE_DTYPES[prec] is not None \
+            and local_spec.compute_dtype in ("f32", "float32"):
+        return dataclasses.replace(local_spec, compute_dtype=prec)
+    return local_spec
+
+
+def _prec_tag(spec: LocalSpec) -> str:
+    """The variant-name precision tag: '' for f32, '_bf16' for bf16."""
+    return ("" if spec.compute_dtype in ("f32", "float32")
+            else f"_{spec.compute_dtype}")
+
+
+class _Placed:
+    """One round's batch on the device: ``tensors`` are (x, y, mask,
+    num_samples), or (idx, mask, num_samples) of the device-resident plane
+    (``index``). A copy started on the packer's CUDA stream carries its
+    ``event`` and the pinned host buffers it reads (``keep``), which live
+    until the round that consumes them has drained."""
+
+    __slots__ = ("tensors", "index", "event", "keep")
+
+    def __init__(self, tensors, index, event=None, keep=()):
+        self.tensors, self.index = tuple(tensors), index
+        self.event, self.keep = event, keep
 
 
 
@@ -293,24 +348,61 @@ class FedAvgAPI:
                  aggregator_params: dict | None = None,
                  sanitize: bool | float | None = None,
                  adversary_plan=None, client_result_hook=None,
-                 post_aggregate_hook=None, **unported):
+                 post_aggregate_hook=None, bucket_batches: bool = False,
+                 prefetch: int = 0, drain_lag: int = 2, **unported):
         if unported:
             raise NotImplementedError(
                 f"FedAvgAPI options {sorted(unported)} are not ported yet: "
-                "ROADMAP.md queue A, items 5-8")
+                "ROADMAP.md queue A, items 4-6, 8-9 and 12")
         self.data = dataset
         self.task = task
         self.cfg = config
         self.device = resolve_device(device)
+        # a streamed ClientDataSource (core/client_source.py) keeps client
+        # rows out of host memory: packing reads only the sampled cohort's
+        self._source = (dataset if isinstance(dataset, ClientDataSource)
+                        else None)
+        if self._source is not None and device_data:
+            raise ValueError(
+                "device_data parks the FULL train set on the device — "
+                "incompatible with a streamed ClientDataSource (pass the "
+                "host-packed plane, or materialize the dataset)")
+        if self._source is not None \
+                and config.local_test_on_all_clients == "on":
+            raise ValueError(
+                "local_test_on_all_clients='on' iterates every client's "
+                "own split — not available on a streamed ClientDataSource "
+                "(use 'auto'/'off': the global test split is evaluated)")
         self._eval_on_all_clients()  # validates local_test_on_all_clients
+        # the pipelined driver: ``prefetch`` batches staged ahead by the
+        # packer thread, outputs drained ``drain_lag`` rounds behind
+        if prefetch < 0:
+            raise ValueError(f"prefetch must be >= 0, got {prefetch}")
+        if drain_lag < 0:
+            raise ValueError(f"drain_lag must be >= 0, got {drain_lag}")
+        self.prefetch = int(prefetch)
+        self.drain_lag = int(drain_lag)
+        # test hook: observes the pipeline's ("produced" / "got" /
+        # "drained", round) events
+        self._pipe_on_event = None
+        self._h2d_stream = None  # the packer thread's CUDA stream
         # size_weighted sampling pairs with a uniform aggregate
         self.uniform_avg = uniform_avg or config.sampling == "size_weighted"
         self._client_sizes = prepare_sampling(config, dataset)
 
-        # static per-client batch budget, fixed across rounds
-        max_count = max(len(v) for v in dataset.train_idx_map.values())
+        # static per-client batch budget, fixed across rounds; a streamed
+        # source answers from its size metadata
+        if self._source is not None:
+            max_count = int(np.max(self._source.client_sizes))
+        else:
+            max_count = max(len(v) for v in dataset.train_idx_map.values())
         b_needed = int(np.ceil(max_count / config.batch_size))
         self.num_batches = min(config.max_batches or b_needed, b_needed)
+        # bucket_batches: each round's depth is the smallest ladder rung
+        # covering the cohort's need (the ladder tops out at num_batches)
+        self.bucket_batches = bool(bucket_batches)
+        ladder = sorted({-(-self.num_batches // d) for d in (8, 4, 2, 1)})
+        self._b_ladder = [b for b in ladder if b > 0]
 
         self.device_data = device_data
         if device_data:
@@ -329,7 +421,7 @@ class FedAvgAPI:
         # the JAX engine's key chain: PRNGKey(seed), one split for the init
         self.rng = prng.split(prng.key(config.seed))[0]
         init = task.init(torch.Generator().manual_seed(config.seed),
-                         dataset.train_x[:config.batch_size])
+                         self._init_batch(config.batch_size))
         self.net = {k: v.to(self.device) for k, v in init.items()}
         # the server optimizer's state: none until FedOpt (item 9)
         self.server_opt_state = ()
@@ -352,6 +444,9 @@ class FedAvgAPI:
             "server_state_bytes_per_device": int(per_dev),
             "bytes_per_round": int(self._agg_bytes_round),
         }
+        # a mixed-precision run stamps its policy on every round record
+        if self.local_spec.compute_dtype not in ("f32", "float32"):
+            self._agg_record["prec"] = self.local_spec.compute_dtype
         # telemetry: an obs.Telemetry bundle, or None (no extra work)
         self.telemetry = telemetry
         self._emit_stats = telemetry is not None and telemetry.round_stats
@@ -397,32 +492,95 @@ class FedAvgAPI:
     def _sampled_ids(self, round_idx: int):
         return sample_for(self.cfg, round_idx, self._client_sizes)
 
+    def _init_batch(self, n: int) -> np.ndarray:
+        """A model-init sample batch (shapes matter, not values)."""
+        if self._source is not None:
+            return self._source.init_batch(n)
+        return self.data.train_x[:n]
+
     def _put(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
 
-    def _round_batch(self, round_idx: int, ids):
-        """The round's (x, y, mask, num_samples) on the device, padded to
-        the static batch budget: gathered on the device from an IndexBatch
-        (``device_data``), or packed on the host (the C++ packer when it
-        builds) and copied over."""
+    def _bucketed_B(self, b_needed: int) -> int:
+        """Smallest ladder rung covering ``b_needed`` (never above the
+        static budget)."""
+        for b in self._b_ladder:
+            if b >= b_needed:
+                return b
+        return self.num_batches
+
+    def _pack_round(self, round_idx: int, ids):
+        """One round's batch on the host, padded to the round's depth (the
+        static budget, or its ladder rung with ``bucket_batches``): an
+        IndexBatch on the device-resident plane, else a ClientBatch (the
+        C++ packer when it builds; a streamed source reads only the
+        cohort's rows). Every call packs into fresh buffers, so the packer
+        thread can run ahead of rounds still reading theirs."""
         cfg = self.cfg
         kw = dict(max_batches=self.num_batches, seed=cfg.seed,
                   round_idx=round_idx)
         if self.device_data:
-            ib = pack_client_indices(self.data, ids, cfg.batch_size, **kw)
-            b_needed = ib.idx.shape[1]
-            ib = pad_index_batches(ib, self.num_batches)
-            self._record_pack_stats(round_idx, b_needed, ib)
-            mask = self._put(ib.mask)
-            x, y = _gather_rows(self._dev_x, self._dev_y,
-                                self._put(ib.idx).long(), mask)
-            return x, y, mask, self._put(ib.num_samples)
-        cb = pack_clients(self.data, ids, cfg.batch_size, **kw)
-        b_needed = cb.num_batches
-        cb = pad_batches(cb, self.num_batches)
-        self._record_pack_stats(round_idx, b_needed, cb)
-        return (self._put(cb.x), self._put(cb.y), self._put(cb.mask),
-                self._put(cb.num_samples))
+            batch = pack_client_indices(self.data, ids, cfg.batch_size, **kw)
+            b_needed = batch.idx.shape[1]
+            pad = pad_index_batches
+        else:
+            if self._source is not None:
+                batch = pack_clients_source(self._source, ids,
+                                            cfg.batch_size, **kw)
+            else:
+                batch = pack_clients(self.data, ids, cfg.batch_size, **kw)
+            b_needed = batch.num_batches
+            pad = pad_batches
+        batch = pad(batch, self._bucketed_B(b_needed) if self.bucket_batches
+                    else self.num_batches)
+        self._record_pack_stats(round_idx, b_needed, batch)
+        return batch
+
+    @staticmethod
+    def _arrays(batch) -> tuple:
+        if isinstance(batch, IndexBatch):
+            return batch.idx, batch.mask, batch.num_samples
+        return batch.x, batch.y, batch.mask, batch.num_samples
+
+    def _place(self, batch, stream=None) -> _Placed:
+        """Copy a packed batch to the device. ``stream`` (a CUDA stream,
+        the packer thread's) starts the copies there from pinned buffers
+        and records their event; without one the copies are the caller's
+        synchronous ``_put``."""
+        arrays = self._arrays(batch)
+        index = isinstance(batch, IndexBatch)
+        if stream is None:
+            return _Placed([self._put(a) for a in arrays], index)
+        with torch.cuda.stream(stream):
+            pinned = [torch.from_numpy(a).pin_memory() for a in arrays]
+            dev = [t.to(self.device, non_blocking=True) for t in pinned]
+            event = torch.cuda.Event()
+            event.record(stream)
+        return _Placed(dev, index, event, pinned)
+
+    def _materialize(self, placed: _Placed):
+        """(x, y, mask, num_samples) on the device, in the calling thread's
+        current stream: it first waits on the copy's event (never a host
+        sync) and marks the copied tensors as used by that stream, so the
+        caching allocator does not hand their blocks out while it still
+        reads them; the device-resident plane then gathers its rows."""
+        tensors = placed.tensors
+        if placed.event is not None:
+            cur = torch.cuda.current_stream(self.device)
+            cur.wait_event(placed.event)
+            for t in tensors:
+                t.record_stream(cur)
+        if placed.index:
+            idx, mask, nsamp = tensors
+            x, y = _gather_rows(self._dev_x, self._dev_y, idx.long(), mask)
+            return x, y, mask, nsamp
+        return tensors
+
+    def _round_batch(self, round_idx: int, ids):
+        """The round's (x, y, mask, num_samples) on the device (the
+        synchronous driver's pack, copy and gather)."""
+        return self._materialize(self._place(self._pack_round(round_idx,
+                                                              ids)))
 
     def _record_pack_stats(self, round_idx: int, b_needed: int,
                            batch) -> None:
@@ -456,20 +614,15 @@ class FedAvgAPI:
         return {"pack": ps} if ps else {}
 
     # ------------------------------------------------------------------ round
-    def run_round(self, round_idx: int) -> dict:
-        """One round: sample, pack, the cohort's batched local fit,
+    def _dispatch_round(self, round_idx: int, ids, batch) -> dict:
+        """Advance the key chain and run one round on the device batch
+        ``(x, y, mask, num_samples)``: the cohort's batched fit,
         sample-weighted mean (the FedAvg server update is the identity on
-        the mean). Returns the round's summed training metrics as device
-        tensors (no host read unless a telemetry bundle asks for its
-        record)."""
-        if self.telemetry is not None:
-            t_wall = time.perf_counter()
-            spans_before = dict(self.tracer.rounds[-1])
-            if self.telemetry.tracer is not None:
-                self.telemetry.tracer.begin_round(round_idx)
-        with self.tracer.span("pack"):
-            ids = self._sampled_ids(round_idx)
-            x, y, mask, nsamp = self._round_batch(round_idx, ids)
+        the mean). The one call site the synchronous and the pipelined
+        drivers share, so their key chains cannot diverge. Returns the
+        summed metrics as device tensors; an armed round's ``[K]`` reason
+        codes ride along under ``__quarantine`` (``_drain_quarantine``)."""
+        x, y, mask, nsamp = batch
         with self.tracer.span("round"), float32_compute():
             # one key a round, split three ways (the JAX round program's)
             self.rng, rk = prng.split(self.rng)
@@ -494,11 +647,34 @@ class FedAvgAPI:
                 metrics.update(round_stats(self.net, new_net, nets, avg,
                                            nsamp))
             self.net = new_net
+            if reasons is not None:
+                metrics["__quarantine"] = reasons
         _perf.record_agg_bytes(self._state_placement, self._agg_bytes_round)
+        return metrics
+
+    def _drain_quarantine(self, metrics: dict, round_idx: int, ids) -> dict:
+        """Pop an armed round's reason codes into the ledger (the round's
+        one host read) and return the metrics without them."""
+        reasons = metrics.pop("__quarantine", None)
         if reasons is not None:
-            # the round's one host read: its [K] codes into the ledger
             self.quarantine.record_codes(round_idx, reasons.cpu().numpy(),
                                          clients=np.asarray(ids).tolist())
+        return metrics
+
+    def run_round(self, round_idx: int) -> dict:
+        """One round: sample, pack, then ``_dispatch_round``. Returns the
+        round's summed training metrics as device tensors (no host read
+        unless a telemetry bundle asks for its record)."""
+        if self.telemetry is not None:
+            t_wall = time.perf_counter()
+            spans_before = dict(self.tracer.rounds[-1])
+            if self.telemetry.tracer is not None:
+                self.telemetry.tracer.begin_round(round_idx)
+        with self.tracer.span("pack"):
+            ids = self._sampled_ids(round_idx)
+            batch = self._round_batch(round_idx, ids)
+        metrics = self._dispatch_round(round_idx, ids, batch)
+        metrics = self._drain_quarantine(metrics, round_idx, ids)
         if self.telemetry is not None:
             # floating the metrics syncs on the round's outputs — a cost the
             # caller opted into by passing telemetry; the off path returns
@@ -552,20 +728,27 @@ class FedAvgAPI:
     # ------------------------------------------------------ round economics
     def _variant_name(self, B=None) -> str:
         """The reference's jit variant name for this dispatch,
-        ``round_b{B}`` (float32: no precision tag), under which the round's
-        FLOP count is cached (obs/goodput.py)."""
-        return f"round_b{int(self.num_batches if B is None else B)}"
+        ``round{prec}_b{B}`` (warmup reports the same names), under which
+        the round's FLOP count is cached (obs/goodput.py)."""
+        B = self.num_batches if B is None else B
+        return f"round{_prec_tag(self.local_spec)}_b{int(B)}"
 
-    def _goodput_wait(self) -> float:
+    def _goodput_wait(self, done=None) -> float:
         """Wait for the card to finish this round's work and return the
         wait — the device-compute backpressure the round loop pays, goodput's
-        ``compute`` share beyond the dispatch. Telemetry paths only: they
-        were about to sync on the same outputs anyway (emit floats them),
-        so the off path stays sync-free. 0 on the CPU."""
+        ``compute`` share beyond the dispatch. ``done``: the CUDA event
+        recorded after the round's dispatch (the pipelined drain: later
+        rounds are queued behind it), else the whole device. Telemetry
+        paths only: they were about to sync on the same outputs anyway
+        (emit floats them), so the off path stays sync-free. 0 on the
+        CPU."""
         if self.device.type != "cuda":
             return 0.0
         t0 = time.perf_counter()
-        torch.cuda.synchronize(self.device)
+        if done is not None:
+            done.synchronize()
+        else:
+            torch.cuda.synchronize(self.device)
         return time.perf_counter() - t0
 
     def _variant_flops(self, variant: str, B: int) -> None:
@@ -578,24 +761,37 @@ class FedAvgAPI:
         from fedml_tpu_torch.utils.flops import forward_flops
 
         self._costed.add(variant)
-        fwd = forward_flops(self.task, self.net, self.data.train_x[:1])
+        fwd = forward_flops(self.task, self.net, self._init_batch(1))
         _goodput.record_variant_cost(
             variant, None if fwd is None else
             3.0 * fwd * self.cfg.client_num_per_round * B
             * self.cfg.batch_size)
 
-    def _goodput_extra(self, wall_s, spans, *, compute_wait_s: float = 0.0,
-                       pack_extra=None) -> dict:
+    def _goodput_extra(self, wall_s, spans, *, pipelined: bool = False,
+                       compute_wait_s: float = 0.0, pack_extra=None) -> dict:
         """The ``goodput`` block one round record carries (obs/goodput.py):
         exclusive duty-cycle buckets of this round's wall plus FLOPs/s and
-        MFU from the variant's FLOP count."""
+        MFU from the variant's FLOP count. {} when the wall was not
+        measured."""
+        if wall_s is None:
+            return {}
         B = ((pack_extra or {}).get("pack") or {}).get("bucket_B")
         variant = self._variant_name(B=B)
         self._variant_flops(variant, self.num_batches if B is None else B)
         buckets = _goodput.buckets_from_spans(
-            wall_s, spans, compute_wait_s=compute_wait_s)
+            wall_s, spans, pipelined=pipelined,
+            compute_wait_s=compute_wait_s)
         return {"goodput": _goodput.round_goodput(
             wall_s, buckets, variant=variant, n_devices=1)}
+
+    def _goodput_interval(self):
+        """Per-round wall in pipelined mode: time since the previous drain
+        (one drain per dispatch in steady state). None before the drivers
+        seed the stamp."""
+        now = time.perf_counter()
+        prev = getattr(self, "_gp_prev_drain_t", None)
+        self._gp_prev_drain_t = now
+        return (now - prev) if prev is not None else None
 
     def _span_delta(self, before: dict) -> dict:
         """This call's span seconds: current tracer round minus a snapshot
@@ -667,6 +863,8 @@ class FedAvgAPI:
                                       engine="standalone",
                                       dataset_source=dataset_source(
                                           self.data))
+        if self.prefetch and rounds > 0:
+            return self._train_pipelined(rounds)
         for r in range(rounds):
             t0 = time.perf_counter()
             metrics = self.run_round(r)
@@ -679,6 +877,197 @@ class FedAvgAPI:
                     self.telemetry.emit_eval(r, rec)
             self.tracer.next_round()
         return self.net
+
+    # --------------------------------------------------------------- pipeline
+    def _pack_round_placed(self, round_idx: int):
+        """Prefetch producer (the packer thread): sample, pack into fresh
+        host buffers and start the copy to the device — on a CUDA device on
+        the packer's own stream. Returns (ids, placed batch, spans). The
+        packer thread does not touch ``self.tracer`` (its round dict is the
+        driver thread's): its spans feed the fed_span_seconds /
+        fed_h2d_seconds histograms and ride the round record at drain."""
+        t0 = time.perf_counter()
+        ids = self._sampled_ids(round_idx)
+        batch = self._pack_round(round_idx, ids)
+        t1 = time.perf_counter()
+        placed = self._place(batch, self._h2d_stream)
+        h2d = time.perf_counter() - t1
+        _perf.record_span("prefetch_pack", t1 - t0)
+        _perf.record_h2d(h2d)
+        return ids, placed, {"prefetch_pack": t1 - t0, "h2d": h2d}
+
+    def _drain_round_entry(self, round_idx: int, entry):
+        """Materialize one in-flight round's outputs, ``drain_lag`` rounds
+        behind dispatch: reason codes into the ledger, metrics to the host,
+        the telemetry record — all in round order, so ledgers and records
+        equal the synchronous driver's."""
+        ids, spans, pipeline, metrics, _placed, done = entry
+        if self.telemetry is not None:
+            # the drain is the pipeline's one sync: its wait is the device
+            # backpressure this round cost; inter-drain time is the wall
+            wait = self._goodput_wait(done)
+            wall = self._goodput_interval()
+        metrics = self._drain_quarantine(metrics, round_idx, ids)
+        host = {k: v.cpu().numpy() for k, v in metrics.items()}
+        if self.telemetry is not None:
+            pack_extra = self._pack_extra(round_idx)
+            self.telemetry.emit_round(
+                round_idx, clients=np.asarray(ids).tolist(),
+                spans=spans, pipeline=pipeline,
+                prefetch_stall=spans.get("prefetch_stall", 0.0),
+                metrics={k: float(v) for k, v in host.items()},
+                agg=self._agg_record,
+                **self._goodput_extra(
+                    wall, spans, pipelined=True, compute_wait_s=wait,
+                    pack_extra=pack_extra),
+                **pack_extra,
+                **self._quarantine_extra(round_idx),
+                **self._privacy_extra())
+        return round_idx, host
+
+    def _warn_tracer_unsupported(self):
+        """Pipelined drivers overlap rounds, which the sequential per-round
+        trace model (obs/tracing.py begin_round..finish_round) cannot
+        represent, so they emit no per-round traces: say so once."""
+        if (self.telemetry is not None and self.telemetry.tracer is not None
+                and not getattr(self, "_tracer_warned", False)):
+            self._tracer_warned = True
+            log.warning(
+                "pipelined drivers do not emit per-round distributed "
+                "traces (rounds overlap; the trace model is sequential) — "
+                "round records carry prefetch/h2d/stall spans instead; "
+                "use the synchronous driver (prefetch=0) for trace runs")
+
+    def _start_pipeline(self, keys):
+        """The (Prefetcher, InflightRing) pair over round ``keys``; on a
+        CUDA device the packer's copy stream is made here, once."""
+        if self.device.type == "cuda" and self._h2d_stream is None:
+            self._h2d_stream = torch.cuda.Stream(self.device)
+        pf = Prefetcher(self._pack_round_placed, keys,
+                        depth=max(1, self.prefetch),
+                        on_event=self._pipe_on_event)
+        ring = InflightRing(self.drain_lag, self._drain_round_entry,
+                            on_event=self._pipe_on_event)
+        self._gp_prev_drain_t = time.perf_counter()
+        return pf, ring
+
+    def _dispatch_pipelined(self, pf, ring, r: int) -> list:
+        """Take round ``r``'s prefetched batch, dispatch it, push its
+        outputs into the ring; returns the rounds the push drained."""
+        (ids, placed, spans), stall = pf.get(r)
+        metrics = self._dispatch_round(r, ids, self._materialize(placed))
+        done = None
+        if self.telemetry is not None and self.device.type == "cuda":
+            # the drain's goodput wait is for this round alone
+            done = torch.cuda.Event()
+            done.record()
+        spans = dict(spans, prefetch_stall=stall)
+        return ring.push(r, (ids, spans, {"depth": len(ring) + 1}, metrics,
+                             placed, done))
+
+    def run_pipelined(self, start_round: int, num_rounds: int) -> list:
+        """Per-round dispatch through the prefetch pipeline: round r+1's
+        pack and copy overlap round r, and the drain trails ``drain_lag``
+        rounds behind. Bitwise the run_round loop (same packs, same key
+        chain, same ledger order). Returns [(round_idx, host metrics)] in
+        round order."""
+        self._warn_tracer_unsupported()
+        pf, ring = self._start_pipeline(
+            range(start_round, start_round + num_rounds))
+        out = []
+        try:
+            for r in range(start_round, start_round + num_rounds):
+                out.extend(self._dispatch_pipelined(pf, ring, r))
+            out.extend(ring.drain_all())
+        finally:
+            pf.close()
+        return out
+
+    def _train_pipelined(self, rounds: int):
+        """train() with the pipeline armed: the same eval cadence and
+        history records as the synchronous loop; an eval round drains the
+        ring (its metrics must be on the host)."""
+        self._warn_tracer_unsupported()
+        cfg = self.cfg
+        pf, ring = self._start_pipeline(range(rounds))
+        pending: dict[int, dict] = {}
+        try:
+            for r in range(rounds):
+                t0 = time.perf_counter()
+                for k, m in self._dispatch_pipelined(pf, ring, r):
+                    pending[k] = m
+                if (r % cfg.frequency_of_the_test == 0) or (r == rounds - 1):
+                    for k, m in ring.drain_all():
+                        pending[k] = m
+                    rec = self.eval_record(r, pending[r])
+                    rec["round_time"] = time.perf_counter() - t0
+                    self.history.append(rec)
+                    log.info("round %d: %s", r, rec)
+                    if self.telemetry is not None:
+                        self.telemetry.emit_eval(r, rec)
+                pending = {k: v for k, v in pending.items() if k >= r}
+                self.tracer.next_round()
+            ring.drain_all()
+        finally:
+            pf.close()
+        return self.net
+
+    # ----------------------------------------------------------------- warmup
+    def _warmup_batch(self, B: int):
+        """An all-masked zero batch with the shapes and dtypes the round
+        sees at depth ``B``."""
+        K, bs = self.cfg.client_num_per_round, self.cfg.batch_size
+        mask = np.zeros((K, B, bs), np.float32)
+        nsamp = np.zeros((K,), np.float32)
+        if self.device_data:
+            return IndexBatch(idx=np.zeros((K, B, bs), np.int32), mask=mask,
+                              num_samples=nsamp)
+        if self._source is not None:
+            (xs, xd), (ys, yd) = self._source.row_meta()
+        else:
+            x, y = self.data.train_x, self.data.train_y
+            (xs, xd), (ys, yd) = (x.shape[1:], x.dtype), (y.shape[1:],
+                                                          y.dtype)
+        return ClientBatch(x=np.zeros((K, B, bs) + tuple(xs), xd),
+                           y=np.zeros((K, B, bs) + tuple(ys), yd),
+                           mask=mask, num_samples=nsamp)
+
+    def warmup(self) -> dict:
+        """Run the cohort's fit once per depth this engine can dispatch
+        (the ladder's rungs with ``bucket_batches``, else the budget) on
+        an all-masked zero batch: the eager counterpart of the reference's
+        AOT compile pass. It loads the cuDNN / cuBLAS handles and grows the
+        allocator before the first timed round. Only the fit runs (the
+        aggregate of zero samples would divide by zero), and an all-masked
+        fit is a no-op, so ``net``, the key chain and every ledger stay as
+        they were. Eager PyTorch compiles nothing: ``fresh_compiles`` and
+        ``cache_hits`` are 0."""
+        buckets = (list(self._b_ladder) if self.bucket_batches
+                   else [self.num_batches])
+        prec = _prec_tag(self.local_spec)
+        per_variant = {}
+        t_all = time.perf_counter()
+        for B in buckets:
+            t0 = time.perf_counter()
+            x, y, mask, _ = self._materialize(self._place(
+                self._warmup_batch(B)))
+            with float32_compute():
+                self.local_update(self.net, x, y, mask)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            per_variant[f"round{prec}_b{B}"] = time.perf_counter() - t0
+        rep = {"variants": list(per_variant), "bucket_depths": buckets,
+               "seconds": time.perf_counter() - t_all,
+               "per_variant": per_variant,
+               "fresh_compiles": 0, "cache_hits": 0}
+        log.info("warmup: %d variant(s) in %.2fs", len(per_variant),
+                 rep["seconds"])
+        if self.telemetry is not None:
+            self.telemetry.events.emit(
+                "compiles", variants=per_variant, seconds=rep["seconds"],
+                fresh=0, cache_hits=0, cache_misses=0, instrumented=False,
+                attribution={})
+        return rep
 
     # ------------------------------------------------------------------ state
     def load_state(self, net: dict, server_opt_state=(), rng=None):

@@ -110,14 +110,14 @@ class FedAvgRobustAPI(FedAvgAPI):
         return ({"privacy": dict(self._privacy_cache)}
                 if self._privacy_cache is not None else {})
 
-    def run_round(self, round_idx: int):
+    def _dispatch_round(self, round_idx: int, ids, batch):
         # charge BEFORE the dispatch: the round's record must carry the ε
         # that INCLUDES this round's spend (a budget ledger may over-report
-        # mid-flight, never under-report). run_rounds is a loop of
-        # run_round, so every round charges exactly once.
+        # mid-flight, never under-report). run_round, run_rounds and the
+        # pipelined driver all dispatch here, so every round charges once.
         if self.accountant is not None:
             self._charge()
-        return super().run_round(round_idx)
+        return super()._dispatch_round(round_idx, ids, batch)
 
     def epsilon(self, delta: float = 1e-5) -> float:
         """Cumulative (ε, δ)-DP spent by the rounds run so far."""

@@ -60,13 +60,14 @@ class TurboAggregateAPI(FedAvgAPI):
         super().__init__(dataset, task, config, device=device, **kwargs)
         self.num_heads = num_heads_of(task.module)
 
-    def run_round(self, round_idx: int) -> dict:
-        """One masked round: the batched fit, then per slot mask + fold,
-        the self-seeds from the full cohort's shares, one unmask and one
-        decode. Returns the summed metrics (device tensors)."""
-        with self.tracer.span("pack"):
-            ids = self._sampled_ids(round_idx)
-            x, y, mask, nsamp = self._round_batch(round_idx, ids)
+    def _dispatch_round(self, round_idx: int, ids, batch) -> dict:
+        """One masked round on the device batch: the batched fit, then per
+        slot mask + fold, the self-seeds from the full cohort's shares, one
+        unmask and one decode. The masking lives at the dispatch, which
+        run_round, run_rounds and the pipelined drivers all call, so no
+        driver can reach the plain weighted mean. Returns the summed
+        metrics (device tensors)."""
+        x, y, mask, nsamp = batch
         with self.tracer.span("round"):
             # the reference splits rk K ways for the fits; the port's
             # fits draw nothing, so the chain's advance is all that stays

@@ -37,7 +37,21 @@ import torch
 
 
 def _t(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.contiguous()  # from_flax of device leaves (fused ingest)
     return torch.from_numpy(np.array(a, copy=True))
+
+
+def _arr(a):
+    """A leaf as an array: tensors stay tensors (on their device)."""
+    return a if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def _perm(a, axes):
+    """``transpose(axes)`` of a numpy array or a tensor."""
+    a = _arr(a)
+    return a.permute(*axes) if isinstance(a, torch.Tensor) \
+        else a.transpose(axes)
 
 
 def _ln(p) -> tuple:
@@ -45,21 +59,20 @@ def _ln(p) -> tuple:
 
 
 def _dense(p) -> tuple:
-    return _t(np.asarray(p["kernel"]).T), _t(p["bias"])
+    return _t(_perm(p["kernel"], (1, 0))), _t(p["bias"])
 
 
 def _cnn_from_flax(params: dict) -> dict:
     sd = {}
     for i in (0, 1):
         conv = params[f"Conv_{i}"]
-        sd[f"conv{i + 1}.weight"] = _t(
-            np.asarray(conv["kernel"]).transpose(3, 2, 0, 1))
+        sd[f"conv{i + 1}.weight"] = _t(_perm(conv["kernel"], (3, 2, 0, 1)))
         sd[f"conv{i + 1}.bias"] = _t(conv["bias"])
-    kern = np.asarray(params["Dense_0"]["kernel"])  # [h*w*c, out], NHWC rows
+    kern = _arr(params["Dense_0"]["kernel"])  # [h*w*c, out], NHWC rows
     C = params["Conv_1"]["kernel"].shape[-1]
     hw = int(round((kern.shape[0] // C) ** 0.5))
-    nchw = kern.reshape(hw, hw, C, -1).transpose(2, 0, 1, 3)
-    sd["fc1.weight"] = _t(nchw.reshape(kern.shape).T)
+    nchw = _perm(kern.reshape(hw, hw, C, -1), (2, 0, 1, 3))
+    sd["fc1.weight"] = _t(_perm(nchw.reshape(kern.shape), (1, 0)))
     sd["fc1.bias"] = _t(params["Dense_0"]["bias"])
     sd["fc2.weight"], sd["fc2.bias"] = _dense(params["Dense_1"])
     return sd
@@ -85,7 +98,8 @@ def _cnn_to_flax(a: dict) -> dict:
 
 def from_flax(params: dict) -> dict:
     """flax TransformerLM / CNNOriginalFedAvg / LogisticRegression params ->
-    the port's state dict (CPU tensors)."""
+    the port's state dict (CPU tensors; leaves that are tensors keep their
+    device, a pure permutation of their values)."""
     if "Conv_0" in params:
         return _cnn_from_flax(params)
     if set(params) == {"Dense_0"}:
@@ -99,11 +113,12 @@ def from_flax(params: dict) -> dict:
         attn = blk["SelfAttention_0"]
         sd[pre + "ln1.weight"], sd[pre + "ln1.bias"] = _ln(blk["LayerNorm_0"])
         for name in ("q_proj", "k_proj", "v_proj"):
-            kern = np.asarray(attn[name]["kernel"])  # [C, H, D]
+            kern = _arr(attn[name]["kernel"])  # [C, H, D]
             sd[pre + f"attn.{name}.weight"] = _t(
-                kern.reshape(kern.shape[0], -1).T)
-        kern = np.asarray(attn["o_proj"]["kernel"])  # [H, D, C]
-        sd[pre + "attn.o_proj.weight"] = _t(kern.reshape(-1, kern.shape[-1]).T)
+                _perm(kern.reshape(kern.shape[0], -1), (1, 0)))
+        kern = _arr(attn["o_proj"]["kernel"])  # [H, D, C]
+        sd[pre + "attn.o_proj.weight"] = _t(
+            _perm(kern.reshape(-1, kern.shape[-1]), (1, 0)))
         sd[pre + "ln2.weight"], sd[pre + "ln2.bias"] = _ln(blk["LayerNorm_1"])
         for name in ("mlp_in", "mlp_out"):
             sd[pre + f"{name}.weight"], sd[pre + f"{name}.bias"] = _dense(

@@ -20,6 +20,16 @@ state, Adam's step count included: the update is selected out per client
 with ``torch.where``, as the reference's ``lax.select`` does
 (local.py:193-200). Nothing inside a fit reads back to the host. The models
 ported so far draw no randomness during the fit, so it takes no RNG.
+
+``LocalSpec.compute_dtype='bf16'`` is the reference's client-compute
+policy: inside the gradient closure the f32 master params and the float
+inputs are cast to bfloat16 (explicit casts, as the reference's
+``_cast_floats``, not ``torch.autocast``, whose per-op lists differ), the
+gradient flows back through the casts to f32, and the optimizer step, the
+upload and the aggregate stay f32. The model's layers promote each
+(input, weight) pair as flax does (models/dtypes.py), so uint8 pixels
+normalised to f32 meet bf16 weights in f32 unless the model sets its own
+activation ``dtype``. The default 'f32' makes no cast at all.
 """
 
 from __future__ import annotations
@@ -56,13 +66,28 @@ class Task(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class LocalSpec:
-    """Static configuration of a client's local fit: float32 compute, no
-    rematerialization (the reference's ``remat`` and bf16 ``compute_dtype``
-    are queued in ROADMAP.md, queue A items 4 and 7)."""
+    """Static configuration of a client's local fit (the reference's
+    ``remat`` is queued in ROADMAP.md, queue A item 4). ``compute_dtype``:
+    see the module docstring."""
 
     optimizer: ClientOptimizer  # see fedml_tpu_torch.core.optim
     epochs: int = 1
     prox_mu: float = 0.0  # FedProx proximal coefficient (0 = plain FedAvg)
+    compute_dtype: str = "f32"
+
+
+# accepted spellings of the LocalSpec precision policy -> compute dtype
+# (None = no casts at all)
+COMPUTE_DTYPES = {"f32": None, "float32": None,
+                  "bf16": torch.bfloat16, "bfloat16": torch.bfloat16}
+
+
+def _cast_floats(tree, dtype):
+    """Float leaves of a (nested) dict or a tensor -> ``dtype``; labels,
+    masks and integer pixels keep theirs."""
+    if isinstance(tree, dict):
+        return {k: _cast_floats(v, dtype) for k, v in tree.items()}
+    return tree.to(dtype) if torch.is_floating_point(tree) else tree
 
 
 def _select(keep, new, old):
@@ -76,9 +101,22 @@ def make_local_step(task: Task, spec: LocalSpec):
     """One client's optimizer step on one batch, a pure function (see the
     module docstring); the FedProx term mu/2 ||w - w_global||^2 joins the
     loss when ``spec.prox_mu > 0``."""
+    if spec.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={spec.compute_dtype!r} (one of "
+                         f"{sorted(COMPUTE_DTYPES)})")
+    cdt = COMPUTE_DTYPES[spec.compute_dtype]
 
     def total_loss(params, global_params, x, y, mask):
-        loss, metrics = task.loss(params, x, y, mask, True)
+        if cdt is None:
+            loss, metrics = task.loss(params, x, y, mask, True)
+        else:
+            # bf16 compute, f32 masters: the casts sit inside the grad
+            # closure, so the gradient lands f32 through them; the loss and
+            # the metrics come back f32
+            loss, metrics = task.loss(_cast_floats(params, cdt),
+                                      _cast_floats(x, cdt), y, mask, True)
+            loss = loss.float()
+            metrics = _cast_floats(metrics, torch.float32)
         if spec.prox_mu > 0.0:
             sq = sum(torch.sum((p - global_params[k]) ** 2)
                      for k, p in params.items())

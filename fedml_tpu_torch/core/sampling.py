@@ -85,6 +85,9 @@ def prepare_sampling(cfg, data) -> np.ndarray | None:
     """Construction-time half of the sampling dispatch: validate
     ``cfg.sampling`` and precompute per-client sizes for size_weighted."""
     if cfg.sampling == "size_weighted":
+        if hasattr(data, "client_sizes"):
+            # streamed ClientDataSource: sizes are metadata, no payload read
+            return np.asarray(data.client_sizes)[: cfg.client_num_in_total]
         return np.asarray([len(data.train_idx_map[c])
                            for c in range(cfg.client_num_in_total)])
     if cfg.sampling != "uniform":

@@ -23,8 +23,18 @@ the same ``gated_aggregate`` as the engine over the same stacked state
 layout, so the two runtimes' quarantine ledgers agree entry for entry.
 The aggregation families (fed_agg_bytes_total, fed_flush_seconds,
 fed_agg_stack_bytes, fed_server_state_bytes: obs/perf_instrument.py) are
-fed from every flush. Sharded server state (item 12) and fused ingest
-(item 7) are queued in ROADMAP.md, queue A; passing one raises.
+fed from every flush. Sharded server state (item 12) is queued in
+ROADMAP.md, queue A; passing it raises.
+
+Fused on-device ingest (``fused_agg=True``, core/fused_agg.py): an upload
+arrives as its raw wire payload and is densified on the server's device
+against the device-resident broadcast stash (``add_fused_result``), gated,
+and folded into the round's canonical pairwise partials at once, so no
+per-client dense tree is built on the host and the fold needs O(log K)
+partials. Robust estimators and the armed norm gate run the STAGED fused
+mode (raw slots on the device, one stacked verdict flush). Either way the
+result is bitwise the stacked ``sum_assoc='pairwise'`` route, model and
+ledger; fused implies ``sum_assoc='pairwise'``.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig, float32_compute
 from fedml_tpu_torch.comm.message import pack_pytree, unpack_pytree
 from fedml_tpu_torch.convert import num_heads_of
 from fedml_tpu_torch.core.client_data import FederatedData, batch_global
+from fedml_tpu_torch.core.client_source import ClientDataSource
 from fedml_tpu_torch.core.local import Task, make_eval_fn
 from fedml_tpu_torch.core.robust_agg import (
     DEFAULT_NORM_MULT,
@@ -77,11 +88,18 @@ class FedAvgAggregator:
                  fused_agg: bool = False, device=None):
         refuse_unported("FedAvgAggregator", {
             "shard_server_state": (bool(shard_server_state), 12),
-            "partition_rules": (partition_rules is not None, 12),
-            "fused_agg": (bool(fused_agg), 7)})
+            "partition_rules": (partition_rules is not None, 12)})
         if sum_assoc not in ("auto", "pairwise"):
             raise ValueError(f"sum_assoc={sum_assoc!r} "
                              "(expected 'auto' or 'pairwise')")
+        if fused_agg:
+            if not type(self)._stage_uploads_on_arrival:
+                raise ValueError(
+                    f"{type(self).__name__} aggregates on the HOST "
+                    "representation — fused_agg needs the device-staged "
+                    "float path (run the stacked route)")
+            # the fused fold IS the canonical pairwise association
+            sum_assoc = "pairwise"
         if cfg.sampling != "uniform":
             # this runtime's client_sampling + weighted aggregate implement
             # the uniform scheme only — refuse rather than silently ignore
@@ -115,7 +133,9 @@ class FedAvgAggregator:
         # the standalone engine's init, so every party (and the standalone
         # oracle) starts from identical weights
         init = task.init(torch.Generator().manual_seed(cfg.seed),
-                         dataset.train_x[:cfg.batch_size])
+                         dataset.init_batch(cfg.batch_size)
+                         if isinstance(dataset, ClientDataSource)
+                         else dataset.train_x[:cfg.batch_size])
         self.net = {k: v.to(self.device) for k, v in init.items()}
         # the wire layout's head count (a TransformerLM's; None otherwise)
         self.num_heads = num_heads_of(task.module)
@@ -155,9 +175,47 @@ class FedAvgAggregator:
             norm_mult=(float("inf") if self._sanitize_mult is None
                        else self._sanitize_mult),
             pairwise=sum_assoc == "pairwise" and verdict_fn is None)
+        # fused ingest: plain mode folds at arrival; estimators and the
+        # armed norm gate need the cohort, so they stage (STAGED mode)
+        self.fused_agg = bool(fused_agg)
+        self._fused_staged = self.fused_agg and (
+            aggregator is not None or self._sanitize_mult is not None)
+        self._fused = None  # the active round's FusedRoundIngest
+        self._fused_ingest: dict[str, object] = {}
+        if self.fused_agg:
+            from fedml_tpu_torch.comm.message import _wire_spec
+            from fedml_tpu_torch.core import fused_agg as _fused_mod
+
+            spec = _wire_spec(tuple((k, tuple(v.shape)) for k, v in
+                                    sorted(self.net.items())),
+                              self.num_heads)
+            # (shape, numpy dtype) of each wire leaf: the densify's meta
+            self._fused_meta = [(shape, np.dtype(dt))
+                                for _, shape, dt in spec]
+            self._wire_paths = [path for path, _, _ in spec]
+            self._fused_term_nbytes = _fused_mod.term_nbytes(self.net)
+            if self._fused_staged:
+                self._fused_flush = _fused_mod.make_fused_robust_flush(
+                    verdict_fn, norm_mult=self._gagg_kw["norm_mult"])
 
     def get_global_model_params(self):
         return pack_pytree(self.net, self.num_heads)
+
+    def wire_to_state(self, leaves) -> dict:
+        """Dense wire leaves on the device -> the server's state dict on
+        the device (``convert.from_flax`` of the device tensors: a
+        permutation of their values)."""
+        from fedml_tpu_torch.convert import from_flax
+
+        params: dict = {}
+        for path, leaf in zip(self._wire_paths, leaves):
+            node = params
+            for key in path[:-1]:
+                node = node.setdefault(key, {})
+            node[path[-1]] = leaf
+        state = from_flax(params)
+        return {k: state[k].to(v.device, v.dtype)
+                for k, v in self.net.items()}
 
     # ------------------------------------------------------------- receive
     # Stage-on-arrival: each upload moves to the server's device as its
@@ -186,6 +244,9 @@ class FedAvgAggregator:
         """Stamp the round uploads are now accepted for (called by the
         server manager right before each broadcast)."""
         self.current_round = int(round_idx)
+        # fused ingest state is per round: a fresh accumulator against the
+        # round's own global model (arrivals gate against it)
+        self._fused = None
 
     def _admit_upload(self, index: int, round_idx: int | None) -> bool:
         """The upload-slotting admission rule (see
@@ -220,6 +281,51 @@ class FedAvgAggregator:
         self.sample_num_dict[index] = sample_num
         self.flag_client_model_uploaded[index] = True
 
+    def add_fused_result(self, index: int, kind: str, payload, scales,
+                         sample_num, round_idx: int | None,
+                         base_leaves) -> None:
+        """Fused twin of :meth:`add_local_trained_result`: the upload
+        arrives as its RAW wire payload (``kind`` one of
+        core/fused_agg.FUSED_KINDS) plus the device-resident broadcast it
+        encoded against, and is densified, gated and folded (or staged) on
+        the device at once. Same admission rule and barrier bookkeeping as
+        the stacked path."""
+        if not self._admit_upload(index, round_idx):
+            return
+        if self._fused is None:
+            self._fused = self._make_fused_round()
+        self._fused.add(index, self._fused_ingest_fn(kind), payload,
+                        scales, base_leaves, float(sample_num))
+        self.sample_num_dict[index] = sample_num
+        self.flag_client_model_uploaded[index] = True
+
+    def _make_fused_round(self):
+        from fedml_tpu_torch.core.fused_agg import FusedRoundIngest
+
+        return FusedRoundIngest(self.net, staged=self._fused_staged)
+
+    def _fused_ingest_fn(self, kind: str):
+        """The per-kind arrival composition, built once and cached."""
+        fn = self._fused_ingest.get(kind)
+        if fn is None:
+            from fedml_tpu_torch.core import fused_agg as _fused_mod
+
+            build = (_fused_mod.make_fused_robust_ingest
+                     if self._fused_staged
+                     else _fused_mod.make_fused_ingest)
+            fn = build(kind, self._fused_meta, self.wire_to_state,
+                       self.device)
+            self._fused_ingest[kind] = fn
+        return fn
+
+    def make_fused_densify(self, kind: str):
+        """The async door's arrival densify for ``kind``: ``fn(payload,
+        scales, base_leaves) -> (state, finite)``."""
+        from fedml_tpu_torch.core.fused_agg import make_fused_densify
+
+        return make_fused_densify(kind, self._fused_meta, self.wire_to_state,
+                                  self.device)
+
     def load_buffered(self, entries, weights, discounts=None) -> None:
         """Populate the aggregation slots from an async buffer drain
         (server_manager async mode): slot i carries ``entries[i]``'s staged
@@ -238,6 +344,16 @@ class FedAvgAggregator:
         self._async_discounts = (None if discounts is None
                                  else {i: float(d)
                                        for i, d in enumerate(discounts)})
+        if self.fused_agg:
+            # fused async drain: the entries arrived densified on the
+            # device; the gate (or the staging) runs here, against the
+            # flush-time global, exactly when the stacked route gates
+            self._fused = self._make_fused_round()
+            for slot, (e, w) in enumerate(zip(entries, weights)):
+                self._fused.add_state(slot, e.payload, float(w))
+                self.sample_num_dict[slot] = float(w)
+                self._async_meta[slot] = (int(e.rank), int(e.client))
+            return
         for slot, (e, w) in enumerate(zip(entries, weights)):
             self.model_dict[slot] = e.payload
             self.sample_num_dict[slot] = float(w)
@@ -263,15 +379,78 @@ class FedAvgAggregator:
         records: server-state placement (one device: replicated) and the
         last flush's mode/latency/staging bytes."""
         rec = {"mode": "replicated"}
+        if self.cfg.precision not in ("f32", "float32"):
+            # the cfg's client-compute policy (every rank shares the cfg)
+            rec["prec"] = self.cfg.precision
         if self._last_flush is not None:
             rec.update(self._last_flush)
         return rec
+
+    def _record_reasons(self, slots, reasons: np.ndarray) -> None:
+        """Suspected and rejected slots into the ledger: slot ``i`` is
+        worker index ``slots[i]`` (async: an arrival position, attributed
+        through the side table the server manager staged)."""
+        if not reasons.any():
+            return
+        if self._async_meta is not None:
+            rank_l = [self._async_meta[r][0] for r in slots]
+            client_l = [self._async_meta[r][1] for r in slots]
+        else:
+            # slot i holds worker index slots[i] -> 1-based rank + the
+            # client id that rank trained this round
+            ids = self.client_sampling(self.current_round)
+            rank_l = [r + 1 for r in slots]
+            client_l = [int(ids[r]) for r in slots]
+        self.quarantine.record_codes(
+            self.current_round, reasons, clients=client_l, ranks=rank_l)
+        if (reasons != REASON_OK).all():
+            log.warning("round %d: all %d uploads quarantined — "
+                        "keeping the current global model",
+                        self.current_round, len(slots))
+
+    def _aggregate_fused(self):
+        """The fused flush: arrivals were densified and gated on the
+        device already — plain mode merges the pairwise partials and
+        divides once; staged mode runs the stacked verdict composition
+        over the staged slots. Bitwise the stacked ``sum_assoc=
+        'pairwise'`` route over the same arrived slots, ledger included."""
+        t0 = time.perf_counter()
+        fr, self._fused = self._fused, None
+        if fr is None or not fr.slots:
+            log.warning("round %d: no decodable uploads — keeping the "
+                        "current global model", self.current_round)
+            self.sample_num_dict.clear()
+            return
+        slots = sorted(fr.slots)
+        with float32_compute():
+            if fr.staged_mode:
+                avg, _vw, reasons = fr.flush_robust(self._fused_flush)
+            else:
+                avg, reasons = fr.flush()
+        # staged slots are O(K), the stacked route's bytes; partials
+        # O(log K) in order: each under its own gauge mode
+        mode = "fused_staged" if fr.staged_mode else "fused"
+        stack_bytes = fr.peak_terms * self._fused_term_nbytes
+        _perf.record_agg_bytes("replicated", self._model_nbytes * len(slots))
+        _perf.set_agg_stack_bytes(mode, stack_bytes)
+        self._record_reasons(slots, reasons.cpu().numpy())
+        self.net = avg
+        self.sample_num_dict.clear()
+        flush_s = time.perf_counter() - t0
+        _perf.record_flush_seconds(flush_s)
+        self._last_flush = {"fused": True, "flush_s": round(flush_s, 6),
+                            "stack_bytes": int(stack_bytes)}
+        log.info("fused aggregate time cost: %.3fs (%d %s peak)", flush_s,
+                 fr.peak_terms,
+                 "staged slots" if fr.staged_mode else "partials")
 
     def _aggregate_core(self):
         """Gate + estimator + ledger, updating ``self.net``: the
         non-finite rule always (the float wire path performs no clamping),
         suspected and rejected slots into the ledger, an all-rejected
         round keeps the global model."""
+        if self.fused_agg:
+            return self._aggregate_fused()
         t0 = time.perf_counter()
         ranks = sorted(self.model_dict)
         if not ranks:
@@ -288,27 +467,7 @@ class FedAvgAggregator:
         # bytes folded this round: an elastic partial aggregation may stack
         # fewer than worker_num uploads — count the realized cohort
         _perf.record_agg_bytes("replicated", self._model_nbytes * len(ranks))
-        reasons = reasons.cpu().numpy()
-        if reasons.any():
-            if self._async_meta is not None:
-                # async buffered flush: slots are arrival positions — the
-                # (rank, client) attribution rides the side table the
-                # server manager staged with the buffer entries
-                rank_l = [self._async_meta[r][0] for r in ranks]
-                client_l = [self._async_meta[r][1] for r in ranks]
-            else:
-                # slot i holds worker index ranks[i] -> 1-based rank + the
-                # client id that rank trained this round
-                ids = self.client_sampling(self.current_round)
-                rank_l = [r + 1 for r in ranks]
-                client_l = [int(ids[r]) for r in ranks]
-            self.quarantine.record_codes(
-                self.current_round, reasons, clients=client_l,
-                ranks=rank_l)
-            if (reasons != REASON_OK).all():
-                log.warning("round %d: all %d uploads quarantined — "
-                            "keeping the current global model",
-                            self.current_round, len(ranks))
+        self._record_reasons(ranks, reasons.cpu().numpy())
         self.net = avg
         self.model_dict.clear()
         self.sample_num_dict.clear()

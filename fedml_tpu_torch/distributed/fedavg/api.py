@@ -168,6 +168,11 @@ def run_simulated(
     ``sanitize=`` arm its two-phase cross-tier gating. Returns the root's
     aggregator (also ``.fanin_history``).
 
+    ``fused_agg``: fused on-device ingest (core/fused_agg.py): each upload
+    is densified, gated and folded on the server's device as it arrives
+    (with ``edges``, on the edges' devices), bitwise the stacked
+    ``sum_assoc='pairwise'`` run.
+
     Each option the port does not run yet raises in the constructor it is
     passed to."""
     if edges:
@@ -200,7 +205,6 @@ def run_simulated(
                 "cfg.churn_trace (cohort sampling), which composes with "
                 "edges")
         refuse_unported("run_simulated(edges=)", {
-            "fused_agg": (bool(fused_agg), 7),
             "partition_rules": (partition_rules is not None, 12)})
         from fedml_tpu_torch.distributed.fedavg.hierarchy import (
             run_simulated_hierarchical,
@@ -214,7 +218,7 @@ def run_simulated(
             round_timeout_s=round_timeout_s, adversary_plan=adversary_plan,
             warmup=warmup, aggregator=aggregator,
             aggregator_params=aggregator_params, sanitize=sanitize,
-            device=device)
+            fused_agg=fused_agg, device=device)
     from fedml_tpu_torch import chaos as _chaos
 
     size = cfg.client_num_per_round + 1

@@ -348,7 +348,7 @@ class FedAvgClientManager(ClientManager):
         self.finish()
 
     def warmup(self) -> dict:
-        """See DistributedTrainer.warmup: nothing to compile here."""
+        """See DistributedTrainer.warmup: the fit once per common depth."""
         return self.trainer.warmup()
 
     def finish(self):

@@ -56,9 +56,11 @@ of each child, and forwards ONE folded blob on its partial (its own digest,
 the block's under ``block``), so the root's ingress stays O(edges).
 
 The hierarchical masked tier (secure aggregation with edge-local reveal
-recovery) builds on these classes in distributed/turboaggregate.py. Not
-ported yet (ROADMAP.md queue A): the edges' fused ingest of the dense tier
-(item 7), which raises where it would be asked for.
+recovery) builds on these classes in distributed/turboaggregate.py. With
+``fused=True`` an edge ingests its children on the device as they arrive
+(core/fused_agg.py): gated and folded into the block's pairwise partial,
+or staged for the two-phase evidence; its frames are bitwise the stacked
+edge's.
 """
 
 from __future__ import annotations
@@ -281,6 +283,11 @@ class HierFedAvgAggregator(FedAvgAggregator):
                  len(edges), time.perf_counter() - t0)
 
 
+def _positions(leaves) -> dict:
+    """Dense wire leaves keyed by position: the edge's stack layout."""
+    return dict(enumerate(leaves))
+
+
 class FedAvgEdgeManager(DistributedManager):
     """One edge aggregator rank: relay downlinks to its worker block, fold
     their gated uploads, forward one partial to the root.
@@ -297,7 +304,6 @@ class FedAvgEdgeManager(DistributedManager):
                  robust: bool = False,
                  sketch_dim: int = EVIDENCE_SKETCH_DIM,
                  fused: bool = False, device=None, **kw):
-        refuse_unported("FedAvgEdgeManager", {"fused": (bool(fused), 7)})
         self.topology = topology
         self.edge_idx = rank - 1
         if not 0 <= self.edge_idx < topology.edges:
@@ -324,6 +330,13 @@ class FedAvgEdgeManager(DistributedManager):
         self._fleet_marker: dict | None = None
         self._digest = None
         self._child_digests: dict[int, dict] = {}
+        # fused on-device ingest at the edge (core/fused_agg.py): each
+        # child's upload is copied to the device, gated and folded (or, in
+        # the two-phase mode, staged) as it arrives; the block frames are
+        # bitwise the stacked edge's, so the root is none the wiser
+        self.fused = bool(fused)
+        self._fused_round = None  # rebuilt per downlink (new global)
+        self._fused_ingest = None
         ts = kw.pop("timeout_s", None)
         self.round_timeout_s = round_timeout_s
         super().__init__(rank, topology.world_size, backend,
@@ -376,6 +389,8 @@ class FedAvgEdgeManager(DistributedManager):
             self._evidence_sent = False
             self._staged = None
             self._last_partial = None
+            if self.fused:
+                self._start_fused_round()
             # fleet marker: the edge REBUILDS worker frames, so the
             # marker must be relayed explicitly (like every other
             # side-band key) or the workers never start digesting
@@ -443,9 +458,13 @@ class FedAvgEdgeManager(DistributedManager):
                     "encoded uplinks (top-k / delta / quantized) are not "
                     "wired through edge aggregators — run the flat "
                     "topology or the dense protocol")
-            self._uploads[local] = (
-                list(msg_params[MyMessage.MSG_ARG_KEY_MODEL_PARAMS]),
-                float(msg_params[MyMessage.MSG_ARG_KEY_NUM_SAMPLES]))
+            leaves = list(msg_params[MyMessage.MSG_ARG_KEY_MODEL_PARAMS])
+            nsamp = float(msg_params[MyMessage.MSG_ARG_KEY_NUM_SAMPLES])
+            if self.fused:
+                self._fused_round.add(local, self._fused_ingest, leaves,
+                                      None, None, nsamp)
+                leaves = None  # folded or staged on the device
+            self._uploads[local] = (leaves, nsamp)
             if len(self._uploads) == len(self._slots):
                 if self.robust:
                     self._forward_evidence()
@@ -454,6 +473,23 @@ class FedAvgEdgeManager(DistributedManager):
 
     def _put(self, a) -> torch.Tensor:
         return torch.from_numpy(np.array(a)).to(self.device)
+
+    def _start_fused_round(self) -> None:
+        """A fresh fused ingest against the held broadcast, keyed by wire
+        position as the stacked edge keys its stack. Caller holds
+        _lock."""
+        from fedml_tpu_torch.core import fused_agg as _fused
+
+        glob = {i: self._put(g) for i, g in enumerate(self._global)}
+        if self._fused_ingest is None:
+            meta = [(tuple(np.shape(g)), np.asarray(g).dtype)
+                    for g in self._global]
+            build = (_fused.make_fused_robust_ingest if self.robust
+                     else _fused.make_fused_ingest)
+            self._fused_ingest = build("dense", meta, _positions,
+                                       self.device)
+        self._fused_round = _fused.FusedRoundIngest(glob,
+                                                    staged=self.robust)
 
     def _stack_block(self):
         """(stacked, global, weights) over this block's slots on the edge's
@@ -515,17 +551,28 @@ class FedAvgEdgeManager(DistributedManager):
 
     def _forward_partial(self) -> None:
         """Single phase: the local non-finite gate and the canonical
-        pairwise partial over this block. Caller holds _lock."""
-        stacked, glob, weights = self._stack_block()
-        with float32_compute():
-            wsum, total, reasons = edge_partial(stacked, glob, weights)
+        pairwise partial over this block (fused: the arrivals were gated
+        and folded already; the holes fold here at their positions).
+        Caller holds _lock."""
+        if self.fused:
+            wsum, total, reasons = self._fused_round.flush_block_partial(
+                len(self._slots))
+        else:
+            stacked, glob, weights = self._stack_block()
+            with float32_compute():
+                wsum, total, reasons = edge_partial(stacked, glob, weights)
         self._send_partial(wsum, total, reasons.cpu())
 
     def _forward_evidence(self) -> None:
         """Phase 1 of the two-phase protocol: per-slot evidence to the
         root; the staged uploads stay here until the verdict frame names
         the survivors. Caller holds _lock."""
-        stacked, glob, weights = self._stack_block()
+        if self.fused:
+            stacked, weights = self._fused_round.block_stacked(
+                len(self._slots))
+            glob = self._fused_round._global
+        else:
+            stacked, glob, weights = self._stack_block()
         self._staged = (stacked, glob)
         with float32_compute():
             ev = update_evidence(stacked, glob, weights,
@@ -925,7 +972,8 @@ def run_simulated_hierarchical(
     round_timeout_s: float | None = None, adversary_plan=None,
     warmup: bool = False, aggregator: str | None = None,
     aggregator_params: dict | None = None,
-    sanitize: bool | float | None = None, device=None,
+    sanitize: bool | float | None = None, fused_agg: bool = False,
+    device=None,
 ) -> HierFedAvgAggregator:
     """The 2-tier ``run_simulated``: 1 root + E edges + W workers as
     threads over the loopback (or localhost gRPC / MQTT) backend.
@@ -984,11 +1032,13 @@ def run_simulated_hierarchical(
         edge_timeout = (round_timeout_s / 2.0
                         if round_timeout_s is not None else None)
         edge_mgrs = [
+            # fused_agg is an edge-tier property in the tree: the edges do
+            # the fan-in ingest; the root folds O(edges) partial frames
             FedAvgEdgeManager(topo.edge_rank(e), topo, backend=backend,
                               round_timeout_s=edge_timeout,
                               robust=root_agg.robust_mode,
                               sketch_dim=root_agg.sketch_dim,
-                              device=device, **kw)
+                              fused=fused_agg, device=device, **kw)
             for e in range(topo.edges)
         ]
         clients = []

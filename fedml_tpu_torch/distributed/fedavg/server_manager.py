@@ -56,7 +56,11 @@ their uploads and the server ingests each before any gate (obs/fleet.py);
 off, no frame carries the key. Sync rounds and async flushes carry a
 duty-only ``goodput`` block (the server runs no device round program of
 its own: wire wait, aggregation flush and the rest of the wall,
-obs/goodput.py). Fused ingest is queued in ROADMAP.md (queue A, item 7).
+obs/goodput.py). With a fused aggregator (``fused_agg=True``) an upload's
+host work is structural validation only: the densify against the
+device-resident broadcast stash, the gate and the fold run on the
+server's device at arrival (``_stage_fused``; the async door densifies and
+the drain gates, ``_decode_upload_fused``).
 """
 
 from __future__ import annotations
@@ -66,6 +70,9 @@ import logging
 import os
 import threading
 import time
+
+import numpy as np
+import torch
 
 from fedml_tpu_torch.comm.managers import ServerManager
 from fedml_tpu_torch.comm.message import (
@@ -136,6 +143,11 @@ class FedAvgServerManager(ServerManager):
         # ROUND tag and densifies against THIS table; a version never
         # stashed is a loud protocol error.
         self._version_pack: dict[int, list] = {}
+        # fused on-device ingest (aggregator.fused_agg): the same stash as
+        # device tensors, which the arrival densify decodes against
+        self._fused = bool(getattr(aggregator, "fused_agg", False))
+        self._version_dev: dict[int, list] = {}
+        self._fused_densify: dict[str, object] = {}  # async door, per kind
         # rank -> the version its last upload PROVED it holds (the upload's
         # round tag): the delta-broadcast warm set. Proof-based tracking
         # self-heals to the dense fallback after a dropped frame.
@@ -878,12 +890,15 @@ class FedAvgServerManager(ServerManager):
                         min(self._version_pack, default=None))
             self._dispatch_one(sender)
             return
-        wire_leaves = self._decode_upload(msg_params, sender,
+        if self._fused:
+            decoded = self._decode_upload_fused(msg_params, sender,
+                                                trained_version)
+        else:
+            decoded = self._decode_upload(msg_params, sender,
                                           trained_version)
-        if wire_leaves is None:
-            # undecodable payload: quarantined + counted by
-            # _decode_upload; the rank gets fresh work like any other
-            # consumed upload
+        if decoded is None:
+            # undecodable payload: quarantined + counted by the decode;
+            # the rank gets fresh work like any other consumed upload
             self._record_shed("undecodable")
             self._dispatch_one(sender)
             return
@@ -894,9 +909,14 @@ class FedAvgServerManager(ServerManager):
         client = msg_params.get(MyMessage.MSG_ARG_KEY_CLIENT_INDEX)
         client = (int(self.aggregator.client_sampling(wave)[sender - 1])
                   if client is None else int(client))
-        finite = all(np.isfinite(v).all() for v in wire_leaves
-                     if isinstance(v, np.ndarray)
-                     and np.issubdtype(v.dtype, np.floating))
+        if self._fused:
+            # the device densify answered the door's question already
+            payload, finite = decoded
+        else:
+            payload = self.aggregator._stage_upload(decoded)
+            finite = all(np.isfinite(v).all() for v in decoded
+                         if isinstance(v, np.ndarray)
+                         and np.issubdtype(v.dtype, np.floating))
         if not finite:
             # quarantine at the door: a non-finite arrival never enters
             # the buffer (norm outliers still gate at flush, where the
@@ -914,7 +934,7 @@ class FedAvgServerManager(ServerManager):
         entry = BufferedUpdate(
             rank=sender, client=client,
             version=trained_version, wave=wave,
-            payload=self.aggregator._stage_upload(wire_leaves),
+            payload=payload,
             nsamp=float(msg_params[MyMessage.MSG_ARG_KEY_NUM_SAMPLES]),
             seq=wave * self.size + sender, t_arrival=now)
         for victim in self._buffer.add(entry):
@@ -1305,11 +1325,114 @@ class FedAvgServerManager(ServerManager):
 
     def _stash_version(self, version: int, decoded_leaves) -> None:
         self._version_pack[int(version)] = decoded_leaves
+        if self._fused:
+            dev = self.aggregator.device
+            self._version_dev[int(version)] = [
+                torch.from_numpy(np.array(v)).to(dev)
+                for v in decoded_leaves]
         retain = (max(self._ASYNC_VERSION_RETAIN,
                       (self._staleness_bound or 0) + 2)
                   if self._async else self._VERSION_RETAIN)
         for v in [v for v in self._version_pack if v <= version - retain]:
             del self._version_pack[v]
+            self._version_dev.pop(v, None)
+
+    def _fused_payload(self, msg_params, sender: int, version: int):
+        """The fused route's host work on one upload: structural
+        validation only (zlib inflate to int8, leaf-count and size checks,
+        comm/delta.inflate_update). Returns ``(kind, payload, scales,
+        base_dev)`` for the device densify; raises ``CorruptPayload`` (a
+        ValueError) on structural garbage and RuntimeError on a base
+        version never broadcast."""
+        from fedml_tpu_torch.comm.delta import CorruptPayload, inflate_update
+
+        has_sparse = MyMessage.MSG_ARG_KEY_SPARSE_IDX in msg_params
+        has_upd = MyMessage.MSG_ARG_KEY_UPDATE_CODEC in msg_params
+        if not (has_sparse or has_upd):
+            leaves = msg_params.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS)
+            if not isinstance(leaves, list):
+                raise ValueError(f"model_params is {type(leaves).__name__}")
+            check_wire_leaves(self.aggregator.net, leaves,
+                              self.aggregator.num_heads)
+            return "dense", leaves, None, None
+        base_dev = self._version_dev.get(int(version))
+        base = self._version_pack.get(int(version))
+        if base is None or base_dev is None:
+            raise RuntimeError(
+                f"upload from rank {sender} is encoded against version "
+                f"{version}, which was never broadcast (or predates this "
+                f"server) — encoded uplinks require a versioned base "
+                f"(stashed: {sorted(self._version_pack)})")
+        if has_sparse:
+            idx = msg_params[MyMessage.MSG_ARG_KEY_SPARSE_IDX]
+            val = msg_params[MyMessage.MSG_ARG_KEY_SPARSE_VAL]
+            if len(idx) != len(base) or len(val) != len(base):
+                raise CorruptPayload(
+                    f"sparse payload has {len(idx)}/{len(val)} leaves, "
+                    f"model has {len(base)}")
+            for sel, vals, t in zip(idx, val, base):
+                sel, t = np.asarray(sel), np.asarray(t)
+                # the device gather would fault (or wrap) where the host
+                # scatter raised IndexError: validate here, so a flipped
+                # index costs one upload on both routes
+                if np.issubdtype(t.dtype, np.floating) and (
+                        len(sel) != len(np.asarray(vals)) or sel.size and (
+                            int(sel.max()) >= t.size
+                            or int(sel.min()) < -t.size)):
+                    raise CorruptPayload(
+                        f"sparse index out of range for a {t.size}-entry "
+                        f"leaf")
+            return "topk", (list(idx), list(val)), None, base_dev
+        codec = str(msg_params[MyMessage.MSG_ARG_KEY_UPDATE_CODEC])
+        raw, scales = inflate_update(
+            msg_params[MyMessage.MSG_ARG_KEY_UPDATE_PAYLOAD],
+            msg_params[MyMessage.MSG_ARG_KEY_UPDATE_SCALE], codec, base)
+        return codec, raw, scales, base_dev
+
+    def _quarantine_undecodable(self, sender: int, e) -> None:
+        """Structural garbage that survived the CRC costs one upload:
+        ledgered ``undecodable`` and counted, never a crashed loop."""
+        self.aggregator.quarantine.record(self.round_idx, sender,
+                                          "undecodable")
+        _obs.record_update_rejected("undecodable")
+        log.warning("quarantining undecodable upload from rank %d (%s)",
+                    sender, e)
+
+    def _stage_fused(self, msg_params, sender: int, version: int,
+                     sample_num) -> bool:
+        """Fused twin of ``_decode_upload`` + ``add_local_trained_result``:
+        host-side structural validation, then the aggregator's device
+        densify, gate and fold. Returns False when the payload is
+        structurally undecodable (quarantined and counted, as on the
+        stacked path); raises on a base version never broadcast."""
+        try:
+            kind, payload, scales, base_dev = self._fused_payload(
+                msg_params, sender, version)
+            self.aggregator.add_fused_result(
+                sender - 1, kind, payload, scales, sample_num, version,
+                base_dev)
+        except (ValueError, KeyError, TypeError, IndexError) as e:
+            self._quarantine_undecodable(sender, e)
+            return False
+        return True
+
+    def _decode_upload_fused(self, msg_params, sender: int, version: int):
+        """Fused twin of ``_decode_upload`` for the ASYNC door: the same
+        validation, then only the device densify and the finiteness
+        verdict (the gate runs at the drain, against the flush-time
+        global). Returns ``(state, finite)`` or None when undecodable."""
+        try:
+            kind, payload, scales, base_dev = self._fused_payload(
+                msg_params, sender, version)
+            fn = self._fused_densify.get(kind)
+            if fn is None:
+                fn = self._fused_densify[kind] = \
+                    self.aggregator.make_fused_densify(kind)
+            state, finite = fn(payload, scales, base_dev)
+        except (ValueError, KeyError, TypeError, IndexError) as e:
+            self._quarantine_undecodable(sender, e)
+            return None
+        return state, bool(finite)
 
     def _decode_upload(self, msg_params, sender: int, version: int):
         """Densify one upload's wire payload into full model leaves:
@@ -1365,11 +1488,7 @@ class FedAvgServerManager(ServerManager):
             # through and dies at the non-finite gate instead. IndexError:
             # a bit-flipped sparse index lands out of range in
             # topk_decode's scatter.
-            self.aggregator.quarantine.record(
-                self.round_idx, sender, "undecodable")
-            _obs.record_update_rejected("undecodable")
-            log.warning("quarantining undecodable upload from rank %d "
-                        "(%s)", sender, e)
+            self._quarantine_undecodable(sender, e)
             return None
         return leaves
 
@@ -1439,16 +1558,23 @@ class FedAvgServerManager(ServerManager):
             # reference does not time apart.
             with (self._tracer.span("decode") if tel is not None
                   else contextlib.nullcontext()):
-                wire_leaves = self._decode_upload(msg_params, int(sender),
+                if self._fused:
+                    # fused: validate here, densify -> gate -> fold on
+                    # the device against the version stash
+                    decoded = self._stage_fused(
+                        msg_params, int(sender), int(msg_round),
+                        msg_params[MyMessage.MSG_ARG_KEY_NUM_SAMPLES])
+                else:
+                    decoded = self._decode_upload(msg_params, int(sender),
                                                   int(msg_round))
-                if wire_leaves is not None:
-                    self.aggregator.add_local_trained_result(
-                        sender - 1,
-                        wire_leaves,
-                        msg_params[MyMessage.MSG_ARG_KEY_NUM_SAMPLES],
-                        round_idx=int(msg_round),
-                    )
-            if wire_leaves is None:
+                    if decoded is not None:
+                        self.aggregator.add_local_trained_result(
+                            sender - 1,
+                            decoded,
+                            msg_params[MyMessage.MSG_ARG_KEY_NUM_SAMPLES],
+                            round_idx=int(msg_round),
+                        )
+            if not decoded:
                 # undecodable: quarantined + counted, but the ARRIVAL still
                 # satisfies the barrier — with no elastic timeout armed, a
                 # skipped slot would otherwise hang the round forever. The

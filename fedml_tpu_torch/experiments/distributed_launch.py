@@ -23,12 +23,16 @@ robust / accounted-DP server (distributed/fedavg_robust.py) with
 DP on the masked path, flat or with ``--edges``; ``--fused_agg`` is
 accepted there as the reference's spelling: the masked fold always runs
 on the server's device); every other ``--algo`` raises naming its item.
+``--fused_agg 1`` arms fused on-device ingest (core/fused_agg.py) on the
+server, or with ``--edges`` on the edges; ``--precision bf16`` the bf16
+client-compute policy on every rank.
 
 Every rank runs on the CUDA device unless ``--device`` names another (the
 one flag the reference lacks: the port's device rule). The reference's
 other flags are accepted at their defaults; set to anything else, each
-raises naming its ROADMAP.md item (``--warmup`` is accepted and does
-nothing: eager PyTorch has no program to compile ahead).
+raises naming its ROADMAP.md item. ``--warmup 1`` (the default) runs
+each client rank's fit once on an all-masked batch before the first
+broadcast (DistributedTrainer.warmup).
 """
 
 from __future__ import annotations
@@ -48,7 +52,6 @@ _UNPORTED_FLAGS = {
     "fedprox_mu": ("--fedprox_mu", float, 0.1, 9),
     "shard_server_state": ("--shard_server_state", int, 0, 12),
     "partition_rules": ("--partition_rules", str, None, 12),
-    "fused_agg": ("--fused_agg", int, 0, 7),
 }
 
 
@@ -116,9 +119,18 @@ def add_args(p: argparse.ArgumentParser):
                         "persistent broker cannot cross-talk; every rank of "
                         "a job must pass the same value")
     p.add_argument("--warmup", type=int, default=1,
-                   help="accepted for the reference's command line; eager "
-                        "PyTorch has no program to compile ahead, so it "
-                        "does nothing")
+                   help="client ranks run their fit once on an all-masked "
+                        "batch at the population's common depths before "
+                        "the first broadcast (0: the first round pays it)")
+    p.add_argument("--fused_agg", "--fused-agg", dest="fused_agg", type=int,
+                   default=0,
+                   help="fused on-device server aggregation (core/"
+                        "fused_agg.py): uploads densify, gate and fold on "
+                        "the device as they arrive (implies sum_assoc "
+                        "pairwise; robust estimators / armed sanitize run "
+                        "the staged fused mode; with --edges the edges "
+                        "ingest); under --algo turboaggregate the masked "
+                        "fold always runs on the device")
     p.add_argument("--timeout_s", type=float, default=None,
                    help="failure-detection watchdog (server logs stragglers)")
     p.add_argument("--round_timeout_s", type=float, default=None,
@@ -193,8 +205,8 @@ def add_args(p: argparse.ArgumentParser):
     p.add_argument("--ci", type=int, default=0)
     p.add_argument("--precision", type=str, default="f32",
                    choices=["f32", "bf16"],
-                   help="client-compute precision policy; only f32 is "
-                        "ported (bf16 raises: ROADMAP.md queue A, item 7)")
+                   help="client-compute precision policy: bf16 fits on "
+                        "bf16 casts of the f32 masters (core/local.py)")
     p.add_argument("--compression", type=str, default="none",
                    choices=["none", "f16", "q8", "zlib", "f16+zlib",
                             "q8+zlib", "json"],
@@ -334,10 +346,6 @@ def add_args(p: argparse.ArgumentParser):
         names = [flag] + ([flag.replace("_", "-")] if "_" in flag else [])
         help_ = (f"not ported yet (ROADMAP.md queue A, item {item}); "
                  f"raises unless left at {default!r}")
-        if dest == "fused_agg":
-            help_ = ("--algo turboaggregate: accepted (the masked fold "
-                     "always runs on the server's device); elsewhere "
-                     + help_)
         p.add_argument(*names, dest=dest, type=kind, default=default,
                        help=help_)
     return p
@@ -345,13 +353,8 @@ def add_args(p: argparse.ArgumentParser):
 
 def refuse_unported_flags(args) -> None:
     """Raise NotImplementedError for the first reference flag set off its
-    default, naming its ROADMAP.md item. ``--fused_agg`` under ``--algo
-    turboaggregate`` is the reference's spelling of the masked tier's
-    device-resident fold, which the port always runs: accepted, not the
-    dense tier's item 7."""
+    default, naming its ROADMAP.md item."""
     for dest, (flag, _, default, item) in _UNPORTED_FLAGS.items():
-        if dest == "fused_agg" and args.algo == "turboaggregate":
-            continue
         if getattr(args, dest) != default:
             raise NotImplementedError(
                 f"{flag}={getattr(args, dest)!r} is not ported yet: "
@@ -577,7 +580,8 @@ def _tree_rank(args, data, task, cfg, backend, device, agg_kw, telemetry,
             args.rank, topo, backend=backend,
             round_timeout_s=(args.round_timeout_s / 2.0
                              if args.round_timeout_s else None),
-            robust=bool(args.aggregator), device=device, **backend_kw)
+            robust=bool(args.aggregator), fused=bool(args.fused_agg),
+            device=device, **backend_kw)
     slot = topo.slot_of(args.rank)
     return init_client(
         data, task, cfg, args.rank, args.world_size, backend, device=device,
@@ -617,6 +621,8 @@ def init_role(args, data, task, cfg, backend_kw, telemetry=None,
                           staleness_bound=args.staleness_bound,
                           buffer_deadline_s=args.buffer_deadline_s)
         agg_kw["sum_assoc"] = args.sum_assoc
+        if args.fused_agg:
+            agg_kw["fused_agg"] = True
         if args.algo == "fedavg_robust":
             from fedml_tpu_torch.distributed.fedavg.server_manager import (
                 FedAvgServerManager,
@@ -832,6 +838,13 @@ def main(argv=None):
     telemetry, metrics_server = _live_telemetry(args)
     mgr = init_role(args, data, task, cfg, backend_kw, telemetry=telemetry,
                     device=device)
+    if args.warmup and args.rank != 0 and hasattr(mgr, "warmup"):
+        # run the fit once before blocking on the first broadcast
+        rep = mgr.warmup()
+        if rep:
+            logging.getLogger("fedml_tpu_torch.launch").info(
+                "warmup: %s in %.2fs", rep.get("variants"),
+                rep.get("seconds", 0.0))
     try:
         mgr.run()
         if broker is not None:

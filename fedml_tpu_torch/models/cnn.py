@@ -12,6 +12,13 @@ flax flattens NHWC, so the first dense layer's input columns are a
 permutation of flax's rows (fedml_tpu_torch.convert does it).
 ``CNNDropOut`` is queued in ROADMAP.md (queue A, item 3): its dropout has to
 draw from an explicit generator inside the cohort-batched fit.
+
+``dtype`` is the JAX module's activation dtype: ``torch.bfloat16`` runs the
+convolutions and the first dense layer in bf16 (the input is cast to it),
+and the head takes its input back to float32, so the logits are f32. Each
+layer promotes its (input, weight, bias) as flax does
+(models/dtypes.promote_dtype), so the bf16 client-compute policy's bf16
+params meet an f32 input in f32 when ``dtype`` is None.
 """
 
 from __future__ import annotations
@@ -20,6 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from fedml_tpu_torch.models.dtypes import promote_dtype
 from fedml_tpu_torch.models.init import reset_dense_layers
 
 
@@ -49,8 +57,10 @@ def conv2d(x, w, b, padding):
 
 
 class CNNOriginalFedAvg(nn.Module):
-    def __init__(self, only_digits: bool = False):
+    def __init__(self, only_digits: bool = False,
+                 dtype: torch.dtype | None = None):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = nn.Conv2d(1, 32, 5, padding=2)
         self.conv2 = nn.Conv2d(32, 64, 5, padding=2)
         self.fc1 = nn.Linear(7 * 7 * 64, 512)
@@ -63,11 +73,20 @@ class CNNOriginalFedAvg(nn.Module):
     def forward(self, x):
         if x.ndim == 3:
             x = x[..., None]
+        dt = self.dtype
+        if dt is not None:
+            x = x.to(dt)
         x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW (a view)
         # conv1 (one input channel a client) runs on PyTorch's depthwise
         # kernels under vmap, whose weight gradient is float32 proper
-        x = F.relu(F.max_pool2d(self.conv1(x), 2))
-        x = conv2d(x, self.conv2.weight, self.conv2.bias, 2)
+        x, w, b = promote_dtype(x, self.conv1.weight, self.conv1.bias,
+                                dtype=dt)
+        x = F.relu(F.max_pool2d(F.conv2d(x, w, b, padding=2), 2))
+        x = conv2d(*promote_dtype(x, self.conv2.weight, self.conv2.bias,
+                                  dtype=dt), 2)
         x = F.relu(F.max_pool2d(x, 2))
-        x = F.relu(self.fc1(x.flatten(1)))
-        return self.fc2(x)
+        x = F.relu(F.linear(*promote_dtype(x.flatten(1), self.fc1.weight,
+                                           self.fc1.bias, dtype=dt)))
+        # the head in float32: the loss and softmax stay full precision
+        return F.linear(*promote_dtype(x.float(), self.fc2.weight,
+                                       self.fc2.bias))

@@ -3,8 +3,10 @@ fedml_api/model/linear/lr.py:4-11)."""
 
 from __future__ import annotations
 
+import torch.nn.functional as F
 from torch import nn
 
+from fedml_tpu_torch.models.dtypes import promote_dtype
 from fedml_tpu_torch.models.init import reset_dense_layers
 
 
@@ -26,4 +28,9 @@ class LogisticRegression(nn.Module):
         reset_dense_layers(self, generator)
 
     def forward(self, x):
-        return self.linear(x.flatten(1))
+        if nn.parameter.is_lazy(self.linear.weight):
+            return self.linear(x.flatten(1))  # the first call sizes it
+        # flax's promotion (models/dtypes.py): bf16 params meet an f32
+        # input in f32
+        return F.linear(*promote_dtype(x.flatten(1), self.linear.weight,
+                                       self.linear.bias))

@@ -12,8 +12,8 @@ is a no-op scope, :func:`variant_compile_stats` returns ``{}``, and
 :func:`ensure_compile_attr_families` registers nothing, so no ``fed_xla_*``
 family appears in an export.
 
-**Pipeline metrics** (declared for the prefetch pipeline, ROADMAP.md
-queue A item 7, which feeds them):
+**Pipeline metrics** (fed by the engine's pipelined driver and
+core/pipeline.py):
 
     fed_h2d_seconds                   (histogram) host time issuing a round
                                       batch's host->device transfers
@@ -23,8 +23,9 @@ queue A item 7, which feeds them):
                                       drained
 
 **Aggregation and server-state metrics** (fed by the engine and the flat
-and tree aggregators; one device, so ``replicated`` / ``stacked`` only
-until sharded state and fused ingest land, items 12 and 7):
+and tree aggregators; one device, so ``replicated`` only until sharded
+state lands, item 12; the staging gauge reads ``stacked``, ``fused`` or
+``fused_staged``):
 
     fed_agg_bytes_total{mode}         client-update bytes aggregated
     fed_server_state_bytes{placement} (gauge) per-device bytes of the

@@ -390,32 +390,35 @@ def test_launcher_runs_the_wire_flags(tmp_path):
 
 # Options whose own protocol is ported now (checkpoints, crash recovery,
 # DP recovery, buffered-async rounds, heartbeat admission, rank-level churn
-# traces, the secure tier's mid-reveal crash point) keep their case, each
-# with the composition that still raises: fused ingest (item 7).
+# traces, the secure tier's mid-reveal crash point, the edge tier and fused
+# ingest) keep their case, each with a composition that still raises:
+# sharded server state (item 12). Their fused compositions run
+# (tests/test_torch_fused_agg.py::test_fused_compositions_run).
 _OPTION_CASES = {
-    "ckpt_dir": lambda d: dict(ckpt_dir=_dp_wal(d), fused_agg=True),
-    "chaos_plan": lambda d: dict(ckpt_dir=str(d), fused_agg=True,
+    "ckpt_dir": lambda d: dict(ckpt_dir=_dp_wal(d), shard_server_state=True),
+    "chaos_plan": lambda d: dict(ckpt_dir=str(d), shard_server_state=True,
                                  chaos_plan=FaultPlan.from_json(
         {"seed": 0, "rules": [{"fault": "crash", "ranks": [0],
                                "rounds": [1, 2], "after_uploads": -1}]})),
     "shard_server_state": lambda d: dict(shard_server_state=True),
     "partition_rules": lambda d: dict(partition_rules=[]),
-    "async_buffer_k": lambda d: dict(async_buffer_k=2, fused_agg=True),
+    "async_buffer_k": lambda d: dict(async_buffer_k=2,
+                                     shard_server_state=True),
     "staleness": lambda d: dict(async_buffer_k=2, staleness="poly:0.5",
-                                fused_agg=True),
+                                shard_server_state=True),
     "staleness_bound": lambda d: dict(async_buffer_k=2, staleness_bound=1,
-                                      fused_agg=True),
+                                      shard_server_state=True),
     "buffer_deadline_s": lambda d: dict(async_buffer_k=2,
                                         buffer_deadline_s=1.0,
-                                        fused_agg=True),
+                                        shard_server_state=True),
     "buffer_capacity": lambda d: dict(async_buffer_k=2, buffer_capacity=4,
-                                      fused_agg=True),
+                                      shard_server_state=True),
     "heartbeat_max_age_s": lambda d: dict(heartbeat_max_age_s=1.0,
-                                          fused_agg=True),
-    "edges": lambda d: dict(edges=2, fused_agg=True),
-    "fused_agg": lambda d: dict(fused_agg=True),
+                                          shard_server_state=True),
+    "edges": lambda d: dict(edges=2, partition_rules=[]),
+    "fused_agg": lambda d: dict(fused_agg=True, partition_rules=[]),
     "churn_trace": lambda d: dict(churn_trace=_churn_trace(),
-                                  fused_agg=True),
+                                  shard_server_state=True),
 }
 
 
@@ -466,16 +469,17 @@ def test_robust_run_simulated_options_run(setup, option):
     assert agg.sum_assoc == option.get("sum_assoc", "auto")
 
 
-# --ckpt_dir, --async_buffer_k, --supervise and the masked tree run now:
-# each case pairs the flag with a flag still refused (sharded state: item
-# 12, the server optimizer: item 9), so nothing starts
+# --ckpt_dir, --async_buffer_k, --supervise, --fused_agg and the masked
+# tree run now: each case pairs the flag with a flag still refused
+# (sharded state: item 12, the server optimizer: item 9), so nothing starts
 @pytest.mark.parametrize("flag", [
     ["--algo", "fedopt"],
     ["--edges", "2", "--algo", "turboaggregate", "--server_optimizer",
      "adam"],
     ["--ckpt_dir", "/tmp/x", "--partition_rules", "x"],
     ["--async_buffer_k", "2", "--server_optimizer", "adam"],
-    ["--fused_agg", "1"], ["--shard_server_state", "1"],
+    ["--fused_agg", "1", "--shard_server_state", "1"],
+    ["--shard_server_state", "1"],
     ["--supervise", "1", "--ckpt_dir", "/tmp/x", "--partition_rules",
      "x"],
 ], ids=lambda f: f[0])

@@ -202,10 +202,13 @@ def test_entry_points_need_a_device_without_cuda():
         FedAvgAPI(_data(), task, FedAvgConfig(**CFG))
 
 
+# prefetch and precision='bf16' run now (tests/test_torch_pipeline.py,
+# tests/test_torch_bf16.py): their cases pair them with an option still
+# refused, the block working set (item 5) and remat (item 4)
 @pytest.mark.parametrize("kwargs,cfg", [
     (dict(mesh=object()), {}),
-    (dict(prefetch=2), {}),
-    ({}, dict(precision="bf16")),
+    (dict(prefetch=2, block_working_set=True), {}),
+    ({}, dict(precision="bf16", remat=True)),
 ])
 def test_unported_engine_options_raise(kwargs, cfg):
     task = sequence_task(create_model("transformer", device="cpu", **WIDTHS))

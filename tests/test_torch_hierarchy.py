@@ -662,32 +662,36 @@ def test_encoded_uplink_reaching_an_edge_raises():
 def test_unported_tree_options_raise_naming_their_item(setup, case,
                                                        tmp_path):
     """The tree's options still out of scope raise NotImplementedError
-    naming their ROADMAP.md item: the fused edge ingest (7). Root
-    restarts, the edge's resume probe, resuming a root from a DP run's
-    WAL, the relayed fleet marker, the mid-reveal root crash point and
-    the hierarchical masked tier run now (tests/test_torch_recovery.py,
+    naming their ROADMAP.md item. Root restarts, the edge's resume probe,
+    resuming a root from a DP run's WAL, the relayed fleet marker, the
+    mid-reveal root crash point, the hierarchical masked tier and the
+    fused edge ingest run now (tests/test_torch_recovery.py,
     test_tree_root_resumes_a_dp_runs_wal, tests/test_torch_fleet.py,
-    tests/test_torch_secagg_tree.py): their cases keep the refusals that
-    remain next to them (the fused edge, item 7; the masked tree's
-    launcher with the server optimizer, item 9)."""
-    item = "9" if case == "turboaggregate" else "7"
+    tests/test_torch_secagg_tree.py, tests/test_torch_fused_agg.py): their
+    cases keep a refusal that remains next to them (a sharded server
+    plane's partition rules, item 12; the masked tree's launcher with the
+    server optimizer, item 9)."""
+    item = "9" if case == "turboaggregate" else "12"
+    rules = dict(partition_rules=[])
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP\.md queue A, item {item}"):
         if case == "fused_agg":
-            _run(setup, "th-fused", edges=2, fused_agg=True)
+            _run(setup, "th-fused", edges=2, fused_agg=True, **rules)
         elif case == "edge_fused":
-            hierarchy.FedAvgEdgeManager(
-                1, hierarchy.EdgeTopology(edges=2, workers=8), fused=True,
-                device="cpu", job_id="th-edge-fused")
+            # an edge rank of a fused tree whose root shards its state
+            distributed_launch.main([
+                "--rank", "1", "--world_size", "11", "--device", "cpu",
+                "--edges", "2", "--fused_agg", "1",
+                "--shard_server_state", "1"])
         elif case == "root_crash":
-            _run(setup, "th-root-crash", edges=2, ckpt_dir="/nowhere",
-                 fused_agg=True,
+            _run(setup, "th-root-crash", edges=2,
+                 ckpt_dir=str(tmp_path / "ckpt"), fused_agg=True,
                  chaos={"seed": 0, "rules": [
                      {"fault": "crash", "ranks": [0], "rounds": [1, 2],
-                      "after_uploads": -1}]})
+                      "after_uploads": -1}]}, **rules)
         elif case == "resume_probe":
             _run(setup, "th-resume-fused", edges=2, fused_agg=True,
-                 ckpt_dir=_dp_wal_dir(str(tmp_path)))
+                 ckpt_dir=_dp_wal_dir(str(tmp_path)), **rules)
         elif case == "turboaggregate":
             distributed_launch.main([
                 "--rank", "0", "--world_size", "11", "--device", "cpu",
@@ -699,7 +703,7 @@ def test_unported_tree_options_raise_naming_their_item(setup, case,
             tel = Telemetry(fleet=True)
             try:
                 _run(setup, "th-fleet-fused", edges=2, fused_agg=True,
-                     telemetry=tel)
+                     telemetry=tel, **rules)
             finally:
                 tel.close()
 

@@ -269,8 +269,11 @@ def test_launcher_turboaggregate_refusal_matrix(flags):
 
 def test_launcher_turboaggregate_lifted_compositions(setup):
     """--fused_agg is accepted on the masked tier (its fold is always on
-    the device) and still raises item 7 off it; --edges builds the masked
-    tree on every rank class; --defense_type dp the masked DP path."""
+    the device), and off it runs the dense tier's fused ingest (item 7,
+    tests/test_torch_fused_agg.py), so its refusal case pairs it with a
+    flag still refused (sharded state, item 12); --edges builds the
+    masked tree on every rank class; --defense_type dp the masked DP
+    path."""
     cfg = FedAvgConfig(**cfg_kw(2, 3))
 
     def role(rank, *flags, c=cfg):
@@ -287,9 +290,10 @@ def test_launcher_turboaggregate_lifted_compositions(setup):
         assert srv.aggregator.secagg.max_abs == 0.5
     finally:
         srv.finish()
-    with pytest.raises(NotImplementedError, match="item 7"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         distributed_launch.main(["--rank", "0", "--world_size", "4",
-                                 "--device", "cpu", "--fused_agg", "1"])
+                                 "--device", "cpu", "--fused_agg", "1",
+                                 "--shard_server_state", "1"])
     tree_cfg = FedAvgConfig(**cfg_kw(2, 4))
     argv = ("--world_size", "7", "--edges", "2", "--secagg_threshold_t", "1")
     for rank, klass in ((0, ta.HierTASecureServerManager),

@@ -540,6 +540,42 @@ def test_engine_masked_round_matches_plain_within_quantization(setup):
         assert float((masked.net[k] - plain.net[k]).abs().max()) <= bound
 
 
+@pytest.mark.parametrize("driver", ["run_pipelined", "train_prefetch_set_late"])
+def test_engine_pipelined_drivers_mask(setup, driver):
+    """Both pipelined entries reach the masked dispatch: the direct
+    ``run_pipelined`` call, and bench.py's sequence of ``warmup()``, then
+    ``prefetch = 2`` set after construction, then ``train()``. Each is
+    bitwise the synchronous masked run, and not the plain weighted mean."""
+    cfg = FedAvgConfig(**cfg_kw(3, 4))
+    sync = TurboAggregateAPI(setup["data"], setup["task"], cfg, device="cpu")
+    piped = TurboAggregateAPI(setup["data"], setup["task"], cfg,
+                              device="cpu")
+    plain = FedAvgAPI(setup["data"], setup["task"], cfg, device="cpu")
+    if driver == "run_pipelined":
+        sync_m = [sync.run_round(r) for r in range(3)]
+        out = piped.run_pipelined(0, 3)
+        assert [r for r, _ in out] == [0, 1, 2]
+        for m, (_, h) in zip(sync_m, out):
+            assert {k: float(v) for k, v in m.items()} == {
+                k: float(v) for k, v in h.items()}
+        for r in range(3):
+            plain.run_round(r)
+    else:
+        sync.train()
+        piped.warmup()
+        piped.prefetch = 2
+        piped.train()
+        strip = [{k: v for k, v in rec.items() if k != "round_time"}
+                 for rec in sync.history]
+        assert strip == [{k: v for k, v in rec.items() if k != "round_time"}
+                         for rec in piped.history]
+        plain.train()
+    for k in sync.net:
+        assert torch.equal(sync.net[k], piped.net[k])
+    assert np.array_equal(sync.rng, piped.rng)
+    assert any(not torch.equal(sync.net[k], plain.net[k]) for k in sync.net)
+
+
 def test_engine_refuses_past_cross_silo_scale(setup):
     cfg = FedAvgConfig(**dict(cfg_kw(1, 3), client_num_per_round=33,
                               client_num_in_total=40))
