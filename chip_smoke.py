@@ -231,6 +231,29 @@ Phases, in order:
            the staged median vs the stacked two-phase median (bitwise if
            the fits repeat, ledgers equal), the 5 x 2 tree with fused
            edges vs the fused flat run; aggregate ms and staging bytes
+  seq      sequence-parallel long-context FedAvg (FedAvgSeqAPI) at the
+           slice's width, its ranks 4 processes sharing the card in one
+           gloo world (fedml_tpu_torch.mesh.world; the collectives staged
+           through host memory; a failed or late rank fails the phase):
+           (a) on a 1 x 2 mesh, ring_attention_flash, ring_attention and
+           ulysses_attention with and without flash over [4, 2048, 8, 32],
+           causal and not, output and q/k/v grads against the single-rank
+           flash kernels or plain attention (3e-5 / 2e-3); (b) 2 rounds on
+           a 2 x 2 mesh, ring + flash, each from the same entering weights
+           as the single-process FedAvgAPI (flash) round it is held to
+           (relative parameter distance within TOL_SEQ_ROUND, count
+           exact; the round's update relative to the weights beside):
+           wall and train tokens/s beside the single process's, each
+           rank's share of the wall in the exchanges and, apart, in the
+           device waits before them, device peak and launches (16 of each
+           kernel a rank a round: the ring's causal own block and
+           non-causal other block, and their backward with the merge's
+           lse cotangent); a planted control, round 0 again with
+           seq_invariant's gradient all-reduce taken out, must land
+           outside TOL_SEQ_ROUND; (c) one Ulysses + flash round on 1 x 2
+           against the same oracle; then the three kernels timed at the
+           path's shapes ([8, 1024, 8, 32] causal and not, [16, 2048, 4,
+           32]) beside their bounds, plain versions and SDPA
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -246,11 +269,14 @@ import json
 import math
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 import traceback
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -263,7 +289,7 @@ fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
 PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
           "wire", "robust", "hier", "recover", "harden", "observe",
-          "secure", "pipeline")
+          "secure", "pipeline", "seq")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -4397,6 +4423,322 @@ def phase_pipeline(report):
                              f"phase: {fa.LAUNCHES}")
 
 
+# the long-context engine over a ('clients', 'seq') mesh of rank processes
+# sharing the one card (gloo, host-staged: NCCL refuses two ranks on one
+# device). (a) runs on a 1 x 2 mesh, (b) on 2 x 2, (c) on 1 x 2; the
+# ranks outside a 1 x 2 mesh wait at the next mesh's groups.
+SEQ_WORLD = 4
+SEQ_ROUNDS = 2             # (b)
+SEQ_DEADLINE_S = 300.0     # the world's join deadline
+SEQ_ATTN = dict(B=4, T=_T, H=_H, D=_D)   # (a): [4, 2048, 8, 32] f32
+# (a) against the single-rank kernels / plain attention on the card: the
+# JAX package's own bounds (tests/test_flash_attention.py:76-137)
+TOL_SEQ_OUT = 3e-5
+TOL_SEQ_GRAD = 2e-3
+# (b) / (c) against the single-process round from the same weights: the
+# relative parameter distance. On an H100 sound rounds land near 3e-8
+# (ring) and 1e-8 (Ulysses), a round's update is 1.1-1.6e-3 of the weights,
+# and the planted control (no gradient all-reduce in seq_invariant) lands
+# near 6e-4: the phase runs that control and fails if it lands inside
+TOL_SEQ_ROUND = 1e-6
+# the seq path's kernel shapes: ring blocks of 2 clients x batch 4 at
+# T/2, causal (s = 0) and not (s = 1), and Ulysses' 4 clients x batch 4
+# at full T with H/2 heads
+SEQ_SHAPES = (dict(B=8, T=_T // 2, H=_H, D=_D, causal=True),
+              dict(B=8, T=_T // 2, H=_H, D=_D, causal=False),
+              dict(B=16, T=_T, H=_H // 2, D=_D, causal=True))
+
+
+def _seq_data():
+    from fedml_tpu_torch.data.synthetic import synthetic_sequences
+
+    return synthetic_sequences(
+        num_clients=SLICE_FED["client_num_in_total"], seq_len=_T,
+        vocab_size=SLICE_WIDTHS["vocab_size"], samples_per_client=8,
+        test_samples=16)
+
+
+def _seq_attention(mesh):
+    """(a), on the ranks of a 1 x 2 mesh: each sequence-parallel attention
+    over the full [4, 2048, 8, 32] tensors (the wrappers slice each
+    rank's block and gather the output), forward and the q/k/v grads of
+    sum(out * g), against the single-rank kernels (flash) or plain
+    attention (dense) on the same inputs."""
+    ra = importlib.import_module("fedml_tpu_torch.parallel.ring_attention")
+    a = SEQ_ATTN
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v, g = (torch.randn((a["B"], a["T"], a["H"], a["D"]),
+                              generator=gen, device="cuda")
+                  for _ in range(4))
+    out = {}
+    for causal in (True, False):
+        for name, wrap, kw, ref in (
+                ("ring_flash", "ring_attention_flash_sharded", {},
+                 fa.flash_attention),
+                ("ring", "ring_attention_sharded", {}, ra.full_attention),
+                ("ulysses_flash", "ulysses_attention_sharded",
+                 {"use_flash": True}, fa.flash_attention),
+                ("ulysses", "ulysses_attention_sharded", {},
+                 ra.full_attention)):
+            f = getattr(ra, wrap)(mesh, "seq", causal=causal, **kw)
+            errs = []
+            for fn in (f, lambda q, k, v: ref(q, k, v, causal)):
+                qq, kk, vv = (t.clone().requires_grad_() for t in (q, k, v))
+                o = fn(qq, kk, vv)
+                errs.append((o.detach(), torch.autograd.grad(
+                    (o * g).sum(), (qq, kk, vv))))
+                del o
+            (o1, g1), (o2, g2) = errs
+            ok = torch.allclose(o1, o2, rtol=TOL_SEQ_OUT, atol=TOL_SEQ_OUT) \
+                and all(torch.allclose(x, y, rtol=TOL_SEQ_GRAD,
+                                       atol=TOL_SEQ_GRAD)
+                        for x, y in zip(g1, g2))
+            out[f"{name} {'causal' if causal else 'full'}"] = dict(
+                out=_max_err([(o1, o2)]), grads=[_max_err([(x, y)])
+                                                 for x, y in zip(g1, g2)],
+                ok=ok)
+            del errs, o1, o2, g1, g2
+    torch.cuda.synchronize()
+    return out
+
+
+def _seq_engine(mesh, work, impl, rounds, tag, control=False):
+    """(b) / (c) on this rank: FedAvgSeqAPI at the slice's full width,
+    each round timed on its own (counts and the peak reset just before,
+    read just after a device sync); rank 0 saves each round's entering
+    and resulting weights for the parent's oracle. With ``control``,
+    round 0 runs once more from its entering weights with seq_invariant's
+    backward all-reduce taken out (each shard keeps its own partial
+    gradient), for the parent to show the oracle sees that fault."""
+    from fedml_tpu_torch.algorithms import FedAvgConfig, FedAvgSeqAPI
+    from fedml_tpu_torch.collectives import ops
+    from fedml_tpu_torch.models import create_model
+    from fedml_tpu_torch.obs import memwatch
+
+    cfg = FedAvgConfig(comm_round=rounds, **SLICE_FED)
+    api = FedAvgSeqAPI(_seq_data(), lambda ax: create_model(
+        "transformer_flash", seq_axis=ax, seq_impl=impl, **SLICE_WIDTHS),
+        cfg, mesh)
+    rank = torch.distributed.get_rank()
+    recs = []
+    for r in range(rounds):
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in api.net.items()},
+                       work / f"{tag}-enter{r}.pt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fa.reset_launches()
+        ops.reset_comm_stats()
+        t0 = time.perf_counter()
+        metrics = api.run_round(r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        recs.append(dict(
+            wall_s=wall, launches=dict(fa.LAUNCHES),
+            comm_s=sum(v for k, v in ops.COMM_SECONDS.items()
+                       if k != "drain"),
+            drain_s=ops.COMM_SECONDS["drain"],
+            peak_bytes=memwatch.device_memory_stats()[
+                f"gpu:{torch.cuda.current_device()}"]["peak_bytes"],
+            metrics={k: float(v) for k, v in metrics.items()}))
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in api.net.items()},
+                       work / f"{tag}-result{r}.pt")
+    finite = all(bool(torch.isfinite(v).all()) for v in api.net.values())
+    if control:
+        # every rank saw round 0's entering weights saved before its
+        # round-0 collectives, so the file is whole here
+        api.load_state(torch.load(work / f"{tag}-enter0.pt"))
+        reduce_back = ops._GradPsum.backward
+        ops._GradPsum.backward = staticmethod(lambda ctx, *gs: (None, *gs))
+        try:
+            api.run_round(0)
+        finally:
+            ops._GradPsum.backward = reduce_back
+        if rank == 0:
+            torch.save({k: v.cpu() for k, v in api.net.items()},
+                       work / f"{tag}-control0.pt")
+    return dict(num_batches=api.num_batches, rounds=recs, finite=finite)
+
+
+def seq_rank(work):
+    """Every rank of the seq phase's world (fedml_tpu_torch.mesh.world)."""
+    from fedml_tpu_torch.mesh import make_2d_mesh
+
+    work = Path(work)
+    t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    torch.cuda.init()
+    out = {"seconds": {"cuda init": time.perf_counter() - t0}}
+
+    def lap(label, fn):
+        t = time.perf_counter()
+        out[label] = fn()
+        out["seconds"][label] = time.perf_counter() - t
+
+    mesh = make_2d_mesh(2, 2, ("clients", "seq"))
+    if mesh.member:
+        lap("attention", lambda: _seq_attention(mesh))
+    mesh = make_2d_mesh(None, 2, ("clients", "seq"))
+    lap("ring", lambda: _seq_engine(mesh, work, "ring", SEQ_ROUNDS, "ring",
+                                    control=True))
+    mesh = make_2d_mesh(2, 2, ("clients", "seq"))
+    if mesh.member:
+        lap("ulysses", lambda: _seq_engine(mesh, work, "ulysses", 1,
+                                           "ulysses"))
+    return out
+
+
+def _seq_rel(a, b):
+    num = sum(float((a[k].double() - b[k].double()).square().sum())
+              for k in a)
+    return (num / sum(float(a[k].double().square().sum()) for k in a)) ** 0.5
+
+
+def _seq_oracle(work, ranks, tag, rounds, data, cfg):
+    """Each round of ``tag`` against the single-process FedAvgAPI (flash)
+    from the same entering weights: relative parameter distance within
+    TOL_SEQ_ROUND, count exact; the oracle round's update relative to the
+    weights (``upd``), its wall and its peak beside. Where the ranks left
+    a control round (``_seq_engine``), its distance to the oracle's round
+    0 must exceed TOL_SEQ_ROUND."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.core.tasks import sequence_task
+    from fedml_tpu_torch.models import create_model
+
+    api = FedAvgAPI(data, sequence_task(create_model("transformer_flash",
+                                                     **SLICE_WIDTHS)), cfg)
+    out = []
+    for r in range(rounds):
+        enter = torch.load(work / f"{tag}-enter{r}.pt")
+        api.load_state(enter)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        m = api.run_round(r)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = torch.load(work / f"{tag}-result{r}.pt")
+        want = {k: v.cpu() for k, v in api.net.items()}
+        rel = _seq_rel(want, got)
+        counts = [rk[tag]["rounds"][r]["metrics"]["count"] for rk in ranks
+                  if tag in rk]
+        out.append(dict(rel=rel, upd=_seq_rel(enter, want),
+                        count=float(m["count"]), counts=counts,
+                        wall_s=wall, peak_bytes=torch.cuda.max_memory_allocated()))
+        if rel > TOL_SEQ_ROUND or any(c != float(m["count"]) for c in counts):
+            raise AssertionError(f"seq: {tag} round {r}: rel {rel:.3e} "
+                                 f"(tol {TOL_SEQ_ROUND}), count {counts} vs "
+                                 f"{float(m['count'])}")
+        control = work / f"{tag}-control{r}.pt"
+        if control.exists():
+            out[-1]["control_rel"] = c = _seq_rel(want, torch.load(control))
+            print(f"seq: {tag} round {r}, planted control (seq_invariant's "
+                  f"gradient all-reduce taken out): rel {c:.3e}, must exceed "
+                  f"{TOL_SEQ_ROUND}")
+            if not c > TOL_SEQ_ROUND:
+                raise AssertionError(
+                    f"seq: {tag}: the control without seq_invariant's "
+                    f"reduce lands at rel {c:.3e}, inside TOL_SEQ_ROUND "
+                    f"{TOL_SEQ_ROUND}: the oracle cannot see that fault")
+    return out
+
+
+def _shares(per, key):
+    return ", ".join(f"{p[key] / p['wall_s']:.1%}" for p in per)
+
+
+def _seq_want(steps, depth, per_layer):
+    """Launches a rank makes in one round: per_layer of each kernel per
+    layer and local step."""
+    n = steps * depth * per_layer
+    return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+
+
+def phase_seq(report):
+    from fedml_tpu_torch.algorithms import FedAvgConfig
+    from fedml_tpu_torch.mesh.world import spawn
+
+    loader.build_all()  # the ranks load the libraries, never build them
+    tmp = tempfile.mkdtemp(prefix="seq-")
+    work = Path(tmp)
+    try:
+        t0 = time.perf_counter()
+        ranks = spawn("chip_smoke:seq_rank", SEQ_WORLD, (tmp,),
+                      deadline_s=SEQ_DEADLINE_S, workdir=str(work / "world"))
+        print(f"seq: world of {SEQ_WORLD} ranks on one card (gloo, "
+              f"host-staged) done in {time.perf_counter() - t0:.1f} s; "
+              "seconds by rank: " + "; ".join(
+                  ", ".join(f"{k} {v:.1f}" for k, v in rk["seconds"].items())
+                  for rk in ranks))
+        rec = report["seq"] = {"ranks": ranks}
+        bad = []
+        for r in (0, 1):
+            for name, st in ranks[r]["attention"].items():
+                print(f"seq: (a) rank {r} {name} {list(SEQ_ATTN.values())}: out "
+                      f"max|err| {st['out']:.3e} (tol {TOL_SEQ_OUT:g}), "
+                      f"dq/dk/dv " + ", ".join(f"{e:.3e}" for e in st["grads"])
+                      + f" (tol {TOL_SEQ_GRAD:g}) {_card_tag()}")
+                if not st["ok"]:
+                    bad.append(f"rank {r} {name}")
+        if bad:
+            raise AssertionError(f"seq: (a) disagrees: {bad}")
+
+        data = _seq_data()
+        cfg = FedAvgConfig(comm_round=SEQ_ROUNDS, **SLICE_FED)
+        depth = SLICE_WIDTHS["depth"]
+        tokens = cfg.client_num_per_round * ranks[0]["ring"]["num_batches"] \
+            * cfg.batch_size * _T
+        for tag, rounds, per_layer, n in (("ring", SEQ_ROUNDS, 2, 4),
+                                          ("ulysses", 1, 1, 2)):
+            label = "(b) ring + flash, 2 x 2" if tag == "ring" else \
+                "(c) Ulysses + flash, 1 x 2"
+            oracle = _seq_oracle(work, ranks, tag, rounds, data, cfg)
+            rec[f"{tag}_oracle"] = oracle
+            want = _seq_want(ranks[0][tag]["num_batches"], depth, per_layer)
+            for r in range(rounds):
+                per = [rk[tag]["rounds"][r] for rk in ranks[:n]]
+                wall = max(p["wall_s"] for p in per)
+                print(f"seq: {label} round {r}: rel {oracle[r]['rel']:.3e} "
+                      f"(tol {TOL_SEQ_ROUND}; the round's update is "
+                      f"{oracle[r]['upd']:.3e} of the weights) count "
+                      f"{oracle[r]['count']:.0f}; "
+                      f"wall {wall:.4f} s, {tokens / wall:.0f} train tokens/s"
+                      f" (single process {oracle[r]['wall_s']:.4f} s, "
+                      f"{tokens / oracle[r]['wall_s']:.0f} tokens/s); "
+                      f"exchanges {_shares(per, 'comm_s')} of the wall by "
+                      f"rank, device waits before them "
+                      f"{_shares(per, 'drain_s')}; "
+                      f"peak MiB by rank "
+                      + ", ".join(f"{p['peak_bytes'] / 2**20:.1f}" for p in per)
+                      + f" (single process {oracle[r]['peak_bytes'] / 2**20:.1f})"
+                      f"; launches by rank {[p['launches'] for p in per]} "
+                      + _card_tag())
+                for i, p in enumerate(per):
+                    if p["launches"] != want:
+                        raise AssertionError(
+                            f"seq: {label} rank {i} round {r}: launches "
+                            f"{p['launches']} != {want}")
+            if not all(rk[tag]["finite"] for rk in ranks[:n]):
+                raise AssertionError(f"seq: {label}: non-finite params")
+        rec["launches"] = {
+            tag: {name: sum(rk[tag]["rounds"][r]["launches"][name]
+                            for rk in ranks if tag in rk
+                            for r in range(len(rk[tag]["rounds"])))
+                  for name in fa.LAUNCHES}
+            for tag in ("ring", "ulysses")}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    # the kernels at the seq path's shapes: times beside their bounds and
+    # SDPA's (the parent process, after the world has gone)
+    rec["shapes"] = []
+    for s in SEQ_SHAPES:
+        st = check_kernels(s["B"], s["T"], s["H"], s["D"], s["causal"],
+                           timed=True)
+        rec["shapes"].append(dict(shape=[s["B"], s["T"], s["H"], s["D"]],
+                                  causal=s["causal"], stats=st))
+
+
 def _initial_state(data, cfg):
     """The weights every rank of a job at ``cfg`` starts from (the
     engine's and the aggregator's init from the seed)."""
@@ -4406,6 +4748,26 @@ def _initial_state(data, cfg):
     task = classification_task(create_model("cnn", output_dim=62))
     return task.init(torch.Generator().manual_seed(cfg.seed),
                      data.train_x[:cfg.batch_size])
+
+
+def _seq_rows(report, name):
+    """The seq phase's part of a kernel's row: its launches on the seq
+    path (summed over the ranks and rounds of (b) and (c)) and its time,
+    bounds and SDPA's at each of the path's shapes."""
+    seq = report.get("seq", {})
+    shapes = []
+    for s in seq.get("shapes", []):
+        st, sdpa = s["stats"][name], s["stats"]["sdpa"]
+        shapes.append({
+            "shape": s["shape"], "causal": s["causal"], "ms": st["ms"],
+            "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
+            "bound_by": st["bound_by"], "max_abs_err": st["max_abs_err"],
+            "library_ms": sdpa["fwd_ms"] if name == "flash_fwd" else None,
+            "library_pair_ms": None if name == "flash_fwd"
+            else sdpa["bwd_ms"]})
+    return {"seq_launches": {tag: n[name] for tag, n in
+                             seq.get("launches", {}).items()},
+            "seq_shapes": shapes}
 
 
 def kernel_line(report):
@@ -4427,6 +4789,7 @@ def kernel_line(report):
             # backward kernels together and charged to neither alone
             "library_ms": sdpa.get("fwd_ms") if name == "flash_fwd" else None,
             "library_pair_ms": None if name == "flash_fwd" else pair,
+            **_seq_rows(report, name),
         })
     return {"kernels": rows}
 

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.func import functional_call
 
+from fedml_tpu_torch.collectives.ops import psum, seq_invariant
 from fedml_tpu_torch.core.local import Task
 
 
@@ -94,18 +95,23 @@ def classification_task(module) -> Task:
     return Task(init, loss, predict, eval_batch, module)
 
 
-def sequence_task(module, pad_id: int = 0,
-                  seq_axis: str | None = None) -> Task:
+def sequence_task(module, pad_id: int = 0, seq_axis=None) -> Task:
     """Next-token prediction: ``module`` maps tokens [bs, T] -> logits
     [bs, T, V]; y [bs, T] holds the targets. Tokens equal to ``pad_id`` are
     masked out of loss and accuracy (the reference masks PAD in nwp,
     my_model_trainer_nwp.py), and so are padded samples (mask [bs] = 0).
-    Metrics: 'loss_sum', 'correct' and 'count' over the unmasked tokens."""
-    if seq_axis is not None:
-        raise NotImplementedError("sequence-parallel tasks (seq_axis) are "
-                                  "not ported yet: ROADMAP.md queue A, "
-                                  "item 11")
+    Metrics: 'loss_sum', 'correct' and 'count' over the unmasked tokens.
 
+    ``seq_axis`` (a mesh axis handle, fedml_tpu_torch.mesh): the
+    sequence-parallel mode. x / y carry this rank's sequence slice and the
+    module runs sequence-parallel attention over the axis, so the loss's
+    token count and the three metric sums are psum-ed over it (one
+    exchange): every rank then holds the same GLOBAL loss and metrics. The
+    params enter the module through ``seq_invariant``, whose backward sums
+    the gradient over the axis, as ``shard_map``'s transpose does for the
+    reference's seq-invariant params: the gradient on every rank is the
+    full-sequence gradient. ``eval_batch`` stays axis-free (the engine
+    evaluates on the plain twin)."""
     init, call = _module_caller(module)
 
     def _metrics(params, x, y, mask):
@@ -116,8 +122,17 @@ def sequence_task(module, pad_id: int = 0,
         correct = ((logits.argmax(-1) == y) * tm).sum()
         return (per_tok * tm).sum(), correct.detach(), tm.sum()
 
+    def _seq_metrics(params, x, y, mask):
+        sums = torch.stack(_metrics(seq_invariant(params, seq_axis), x, y,
+                                    mask))
+        return psum(sums, seq_axis).unbind(0)
+
     def loss(params, x, y, mask, train):
-        loss_sum, correct, count = _metrics(params, x, y, mask)
+        if seq_axis is None:
+            loss_sum, correct, count = _metrics(params, x, y, mask)
+        else:
+            loss_sum, correct, count = _seq_metrics(params, x, y, mask)
+            correct, count = correct.detach(), count.detach()
         metrics = {"loss_sum": loss_sum.detach(), "correct": correct,
                    "count": count}
         return loss_sum / count.clamp_min(1.0), metrics

@@ -1,7 +1,17 @@
-"""Parallelism strategies. This slice carries the single-device attention
-oracle only; ring and Ulysses attention over torch.distributed are queued
-in ROADMAP.md (queue A, item 11)."""
+"""Parallelism strategies: the single-device attention oracle and ring,
+flash-ring and Ulysses sequence-parallel attention over a mesh axis of a
+torch.distributed world."""
 
-from fedml_tpu_torch.parallel.ring_attention import full_attention
+from fedml_tpu_torch.parallel.ring_attention import (
+    full_attention,
+    ring_attention,
+    ring_attention_flash,
+    ring_attention_flash_sharded,
+    ring_attention_sharded,
+    ulysses_attention,
+    ulysses_attention_sharded,
+)
 
-__all__ = ["full_attention"]
+__all__ = ["full_attention", "ring_attention", "ring_attention_flash",
+           "ring_attention_flash_sharded", "ring_attention_sharded",
+           "ulysses_attention", "ulysses_attention_sharded"]

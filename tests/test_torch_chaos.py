@@ -210,12 +210,67 @@ def test_plan_replays_per_tier_like_jax(setup, tier_kw):
     assert [r["round"] for r in a0.history] == [0, 1, 2]
 
 
-def test_lossy_plan_gives_the_jax_ledgers(setup):
+def _upload_lost(plan, rank: int, round_idx: int) -> bool:
+    """Rank's upload of the round can no longer arrive: dropped on its
+    send, or corrupted on the server's receive (the CRC drops it)."""
+    return any(e["src"] == rank and e["dst"] == 0
+               and (e["fault"], e["direction"]) in (("drop", "send"),
+                                                    ("corrupt", "recv"))
+               for e in plan.ledger.for_round(round_idx, ("drop", "corrupt")))
+
+
+def _drive_deadline(server, plan_of, stop):
+    """Fire the server's deadline as soon as every upload that can still
+    arrive this round has, as the watchdog would after its idle wait."""
+    while not stop.wait(0.002) and not server._finished.is_set():
+        plan = plan_of()
+        if plan is None:
+            continue
+        with server._round_lock:
+            r = server.round_idx
+            flags = server.aggregator.flag_client_model_uploaded
+            missing = [i + 1 for i, up in flags.items() if not up]
+            fire = (r < server.round_num and missing
+                    and all(_upload_lost(plan, k, r) for k in missing))
+        if fire:
+            server.on_timeout(LOSSY_TIMEOUT_S)
+
+
+@pytest.fixture
+def driven_deadlines(monkeypatch):
+    """Every FedAvg server of either package run while this is in force has
+    its lossy rounds' deadline driven (``_drive_deadline``): the test does
+    not wait it out."""
+    import threading
+
+    from fedml_tpu.distributed.fedavg import server_manager as jax_sm
+    from fedml_tpu_torch.distributed.fedavg import server_manager as port_sm
+
+    for mod, pkg in ((port_sm, chaos), (jax_sm, jax_chaos)):
+        cls = mod.FedAvgServerManager
+        run = cls.run
+
+        def driven(self, run=run, pkg=pkg):
+            stop = threading.Event()
+            t = threading.Thread(target=_drive_deadline, daemon=True,
+                                 args=(self, pkg.active_plan, stop))
+            t.start()
+            try:
+                return run(self)
+            finally:
+                stop.set()
+                t.join()
+
+        monkeypatch.setattr(cls, "run", driven)
+
+
+def test_lossy_plan_gives_the_jax_ledgers(setup, driven_deadlines):
     """Round 1 loses rank 2's upload (dropped) and rank 1's (corrupted on
     arrival: the CRC drops it, counted, never decoded) on delta-int8:
-    the round aggregates the two others after the deadline. Fault and
-    quarantine ledgers equal across the port's two runs and the JAX
-    package's; the final models equal within the tier tolerance."""
+    the round aggregates the two others at the deadline (driven as soon
+    as no upload can still arrive). Fault and quarantine ledgers equal
+    across the port's two runs and the JAX package's; the final models
+    equal within the tier tolerance."""
     spec = {"seed": 5, "rules": [
         {"fault": "drop", "direction": "send", "src": [2], "dst": [0],
          "rounds": [1, 2]},

@@ -169,10 +169,19 @@ def test_agg_weights_match_jax(uniform):
                                   np.asarray(jax_agg_weights(nsamp, uniform)))
 
 
+# the sequence-parallel path's modules, named so that a walk that
+# stopped finding them would fail here
+SEQ_MODULES = ("fedml_tpu_torch.mesh.mesh", "fedml_tpu_torch.mesh.world",
+               "fedml_tpu_torch.collectives.ops",
+               "fedml_tpu_torch.parallel.ring_attention",
+               "fedml_tpu_torch.algorithms.fedavg_seq")
+
+
 def test_port_imports_no_jax():
     """Every port module (55 of them: the main path's data plane, native
-    packer, models, task, optimizers and engine, and the cross-process
-    runtime's comm, obs, distributed and launcher modules among them)
+    packer, models, task, optimizers and engine, the cross-process
+    runtime's comm, obs, distributed and launcher modules, and the
+    sequence-parallel path's mesh, collectives and engine among them)
     imports without jax, flax, optax or fedml_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -182,6 +191,8 @@ def test_port_imports_no_jax():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in\n"
         "             ('jax', 'jaxlib', 'flax', 'optax', 'fedml_tpu'))\n"
         "assert not bad, bad\n"
+        f"missing = [n for n in {SEQ_MODULES!r} if n not in sys.modules]\n"
+        "assert not missing, missing\n"
         "print(len([n for n in sys.modules if n.startswith(pkg.__name__)]))\n")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, timeout=120,

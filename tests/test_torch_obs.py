@@ -92,11 +92,14 @@ def test_obs_exports_the_reference_names():
 
 def test_port_and_chip_smoke_import_no_jax():
     """No module of the port and nothing in chip_smoke.py (or the port's
-    MQTT soak script) imports jax, a JAX-ecosystem package or anything of
-    fedml_tpu (an import statement, at any depth, naming one)."""
+    MQTT soak script, or the rank-side scenarios of the sequence-parallel
+    tests, which run on the port alone) imports jax, a JAX-ecosystem
+    package or anything of fedml_tpu (an import statement, at any depth,
+    naming one)."""
     banned = re.compile(r"^(jax|jaxlib|flax|optax|orbax|fedml_tpu)(\.|$)")
     files = sorted((ROOT / "fedml_tpu_torch").rglob("*.py")) + \
-        [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_mqtt_soak.py"]
+        [ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_mqtt_soak.py",
+         ROOT / "tests" / "test_torch_seq_ranks.py"]
     bad = []
     for f in files:
         for node in ast.walk(ast.parse(f.read_text())):
