@@ -254,6 +254,30 @@ Phases, in order:
            against the same oracle; then the three kernels timed at the
            path's shapes ([8, 1024, 8, 32] causal and not, [16, 2048, 4,
            32]) beside their bounds, plain versions and SDPA
+  resnet   the fit's model state and randomness with the CIFAR ResNets,
+           on cuDNN / cuBLAS and plain torch ops (no kernel of its own;
+           no flash kernel may launch): (a) the reference's cross-silo
+           row, ResNet-56 with BatchNorm at full width and depth on the
+           CIFAR-10 stand-in (10 clients x ~5,000 uint8 images, LDA alpha
+           0.5, parked on the card), all 10 a round, batch 64, SGD lr
+           0.001, wd 0.001, one epoch cut to 8 batches (the uncut round is
+           20 epochs x 79 batches): one step of each client on the card
+           against the port's CPU step from the same params and running
+           statistics (median and largest), warmup, 2 timed rounds under
+           memwatch (wall, real samples/s, device_peak_bytes, goodput's
+           FLOPs/s and padded-slot mfu) and one remat round (its wall and
+           peak), a profiled round (device time by kernel group, busy
+           share, idle gaps), an eval on the running statistics; then with
+           cuDNN deterministic, round 0 again and with remat from the same
+           net, both bitwise the first; (b) the fed_cifar100 row,
+           ResNet-18-GN (500 clients, 10 a round, batch 20, lr 0.1): its
+           step held the same way and one timed round; (c) CNNDropOut at
+           main's configuration: a dropout mask drawn on the card bitwise
+           the host's Threefry draw, one round, eval twice equal; (d) with
+           cuDNN deterministic, a loopback job of 1 server + 10 client
+           threads, ResNet-56, 1 round of 2 batches, against the engine's
+           round from the same net (params and statistics; its bitwise
+           equality printed), 287 leaves a frame
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -289,7 +313,7 @@ fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
 PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
           "wire", "robust", "hier", "recover", "harden", "observe",
-          "secure", "pipeline", "seq")
+          "secure", "pipeline", "seq", "resnet")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -4737,6 +4761,353 @@ def phase_seq(report):
                            timed=True)
         rec["shapes"].append(dict(shape=[s["B"], s["T"], s["H"], s["D"]],
                                   causal=s["causal"], stats=st))
+
+
+# The CIFAR ResNets and the fit's state and randomness (the resnet phase).
+# (a) the reference's cross-silo row (examples/reproduce_benchmarks.py's
+# ResNet-56 / CIFAR-10 run, FedML benchmark/README.md): 10 silos, all 10 a
+# round, batch 64, SGD lr 0.001, wd 0.001, one epoch, the CIFAR-10 stand-in
+# split by LDA alpha 0.5. Its uncut round is E = 20 epochs x 79 batches a
+# silo; the phase cuts it to 8 batches a round, as bench_scaling.py's
+# one-program row does.
+RESNET_CFG = dict(client_num_in_total=10, client_num_per_round=10, epochs=1,
+                  batch_size=64, lr=0.001, wd=0.001, max_batches=8, seed=0)
+RESNET_TIMED_ROUNDS = 2
+# (b) the fed_cifar100 row: ResNet-18-GN, 500 clients, 10 a round, batch 20,
+# SGD lr 0.1 (its stand-in holds 100 samples a client: 5 batches)
+GN18_CFG = dict(client_num_in_total=500, client_num_per_round=10, epochs=1,
+                batch_size=20, lr=0.1, seed=0)
+# (d) the loopback job's depth
+RESNET_WIRE_BATCHES = 2
+RESNET_LEAVES = 287  # ResNet-56's NetState leaves: 173 params + 114 stats
+# One step of each client on the card against the port's CPU step from the
+# same net (params and running statistics), as main holds the CNN, and
+# both against a float64 step of the same clients on the card. A ResNet's
+# one-step gradient at its initial weights is ill-conditioned in float32:
+# on the CPU, ResNet-18-GN's f32 step sits 1.7e-4 (median client) and
+# 1.3e-3 (largest) from its f64 step (fed_cifar100 row), so two f32
+# implementations cannot agree to main's 1e-5. The card's f32 step is held
+# to the f64 one within F32_STEP_FACTOR x the CPU f32 step's own error (or
+# TOL_RESNET_FLOOR where that is smaller); the card-vs-CPU gaps and each
+# client's loss (within TOL_RESNET_LOSS, relative) are printed beside it.
+F32_STEP_FACTOR = 4.0
+TOL_RESNET_FLOOR = 1e-6
+TOL_RESNET_LOSS = 1e-4
+# (d): a trainer fits one client, the engine vmaps ten (grouped
+# convolutions): other algorithms summing in other orders, so the loopback
+# round is held within this, relative to each tensor's largest value (the
+# running variances reach the hundreds), its bitwise equality printed.
+# One ResNet-56 f32 step sits up to 1.8e-4 from float64 (the CPU at batch
+# 4); two steps compound it.
+TOL_RESNET_WIRE = 1e-3
+
+
+def _resnet_task(name, classes, device=None, dtype=torch.float32):
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.models import create_model
+
+    return classification_task(create_model(name, output_dim=classes,
+                                            device=device).to(dtype))
+
+
+def _resnet_step(report_key, data, cfg, name, classes, start):
+    """One step of each client of round 0 from ``start`` (params and
+    extras): the card in f32, the CPU in f32, the card in f64; the f32
+    steps' gaps to the f64 one (median, largest) and to each other."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+
+    step_cfg = dataclasses.replace(cfg, max_batches=1)
+    card = FedAvgAPI(data, _resnet_task(name, classes), step_cfg,
+                     device_data=True)
+    cpu = FedAvgAPI(data, _resnet_task(name, classes, "cpu"), step_cfg,
+                    device="cpu")
+    f64 = FedAvgAPI(data, _resnet_task(name, classes, dtype=torch.float64),
+                    step_cfg, device_data=True)
+    t0 = time.perf_counter()
+    cpu_s = _client_steps(cpu, 0, start)
+    cpu_t = time.perf_counter() - t0
+    card_s = _client_steps(card, 0, start)
+    ref = _client_steps(f64, 0, {k: v.double() for k, v in start.items()})
+    med, loss, worst = _step_gaps(card_s, ref)
+    cmed, closs, cworst = _step_gaps(cpu_s, ref)
+    vmed, vloss, vworst = _step_gaps(card_s, cpu_s)
+    tol = max(F32_STEP_FACTOR * cmed, TOL_RESNET_FLOOR)
+    print(f"resnet: {report_key}: one step of each of round 0's "
+          f"{cfg.client_num_per_round} clients (params and extras), client "
+          f"update rel. err against the card's float64 step: card f32 "
+          f"median {med:.3e} (tol {tol:.3e} = max({F32_STEP_FACTOR:g} x the "
+          f"CPU's, {TOL_RESNET_FLOOR:g})), largest {worst:.3e}; CPU f32 "
+          f"median {cmed:.3e}, largest {cworst:.3e}; card vs CPU median "
+          f"{vmed:.3e}, largest {vworst:.3e}, client loss rel. diff "
+          f"{vloss:.3e} (tol {TOL_RESNET_LOSS:g}); the CPU step {cpu_t:.1f} s "
+          f"{_card_tag()}")
+    if med > tol or vloss > TOL_RESNET_LOSS:
+        raise AssertionError(f"{report_key}: step gaps {med} (tol {tol}), "
+                             f"loss {vloss}")
+    return dict(median=med, largest=worst, cpu_median=cmed,
+                cpu_largest=cworst, card_vs_cpu_median=vmed,
+                card_vs_cpu_largest=vworst, loss=vloss)
+
+
+def _armed_rounds(api, rounds, start_round, tel_dir):
+    """``rounds`` engine rounds under a Telemetry bundle (memwatch on), the
+    allocator's peak reset before each: (walls, real samples, the round
+    records' goodput and mem blocks)."""
+    from fedml_tpu_torch.obs import Telemetry
+
+    tel = Telemetry(log_dir=tel_dir, memwatch=True)
+    api.telemetry = tel
+    api._emit_stats = tel.round_stats
+    walls, counts = [], []
+    try:
+        for r in range(start_round, start_round + rounds):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = api.run_round(r)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            counts.append(float(m["count"]))
+    finally:
+        api.telemetry = None
+        api._emit_stats = False
+        tel.close()
+    with open(os.path.join(tel_dir, "events.jsonl")) as f:
+        recs = [r for r in map(json.loads, f) if r.get("kind") == "round"]
+    return walls, counts, recs
+
+
+def _resnet_cross_silo(report):
+    """(a): ResNet-56 with BatchNorm at the cross-silo row."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.data import load_dataset
+
+    t0 = time.perf_counter()
+    data = load_dataset("cifar10", seed=0, uint8_pixels=True)
+    print(f"resnet: (a) cifar10 stand-in {data.num_clients} clients x "
+          f"{len(data.train_x) // data.num_clients}, {len(data.train_x)} "
+          f"train samples ({data.train_x.nbytes / 1e6:.1f} MB "
+          f"{data.train_x.dtype}), LDA alpha 0.5; set-up "
+          f"{time.perf_counter() - t0:.1f} s")
+    cfg = FedAvgConfig(comm_round=RESNET_TIMED_ROUNDS + 1,
+                       frequency_of_the_test=1, **RESNET_CFG)
+    api = FedAvgAPI(data, _resnet_task("resnet56", 10), cfg,
+                    device_data=True)
+    n_par = sum(api.net[k].numel() for k in api.net
+                if k not in api.task.extra_keys)
+    n_ext = sum(api.net[k].numel() for k in api.task.extra_keys)
+    print(f"resnet: (a) ResNet-56 (BatchNorm): {n_par} params + {n_ext} "
+          f"running-statistic values, {len(api.net)} tensors; "
+          f"{api.num_batches} batches a client a round (the reference's "
+          f"uncut round: 20 epochs x 79 batches)")
+    if (n_par, n_ext) != (855_770, 4_256):
+        raise AssertionError(f"ResNet-56 counts {n_par}, {n_ext}")
+    start = _cpu_state(api.net)
+    out = {"step": _resnet_step("(a) ResNet-56", data, cfg, "resnet56", 10,
+                                start)}
+    rep = api.warmup()
+    print(f"resnet: (a) warmup {rep['seconds']:.2f} s ({rep['variants']}) "
+          f"{_card_tag()}")
+    tmp = tempfile.mkdtemp(prefix="smoke-resnet-")
+    try:
+        api.load_state(start)
+        walls, counts, recs = _armed_rounds(api, RESNET_TIMED_ROUNDS, 0,
+                                            os.path.join(tmp, "plain"))
+        remat = FedAvgAPI(data, _resnet_task("resnet56", 10),
+                          dataclasses.replace(cfg, remat=True),
+                          device_data=True)
+        remat.load_state(start)
+        remat.warmup()
+        r_walls, _, r_recs = _armed_rounds(remat, 1, 0,
+                                           os.path.join(tmp, "remat"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    slots = cfg.client_num_per_round * api.num_batches * cfg.batch_size
+    out["rounds"] = []
+    for r, (wall, real, rec) in enumerate(zip(walls, counts, recs)):
+        gp, mem = rec["goodput"], rec["mem"]
+        print(f"resnet: (a) round {r}: wall {wall:.4f} s, {real / wall:.1f} "
+              f"real train samples/s ({real:.0f} real of {slots} slots); "
+              f"device_peak_bytes {mem['device_peak_bytes']}; goodput "
+              f"{gp.get('flops_per_s', 0) / 1e12:.4f} TFLOP/s, mfu "
+              f"{gp.get('mfu')} (padded slots; FLOPs 3 x forward x every "
+              f"slot); spans {rec['spans']} {_card_tag()}")
+        out["rounds"].append(dict(wall_s=wall, real=real,
+                                  samples_per_s=real / wall, goodput=gp,
+                                  mem=mem))
+        if not math.isfinite(float(rec["metrics"]["loss_sum"])):
+            raise AssertionError(f"(a) round {r}: {rec['metrics']}")
+    peak, r_peak = (recs[-1]["mem"]["device_peak_bytes"],
+                    r_recs[0]["mem"]["device_peak_bytes"])
+    print(f"resnet: (a) remat round: wall {r_walls[0]:.4f} s, "
+          f"device_peak_bytes {r_peak} against {peak} without remat "
+          f"({r_peak / peak:.3f}x) {_card_tag()}")
+    out.update(remat_wall_s=r_walls[0], remat_peak_bytes=r_peak,
+               peak_bytes=peak)
+    busy = profile_round(api, RESNET_TIMED_ROUNDS, slots, "sample slots", {
+        "convolution": "conv|cudnn|fprop|dgrad|wgrad|implicit|im2col|"
+                       "winograd|sm90_xmma",
+        "matmul": "gemm|cutlass|cublas",
+        "reduction": "reduce|norm|mean|sum"})
+    out["busy_share"] = busy
+    ev = api.evaluate()
+    print(f"resnet: (a) eval (running statistics) on {int(ev['count'])} "
+          f"test samples: loss {ev['loss']:.6f} acc {ev['acc']:.4f} "
+          f"{_card_tag()}")
+    if not (math.isfinite(ev["loss"]) and 0.0 <= ev["acc"] <= 1.0):
+        raise AssertionError(f"(a) eval {ev}")
+
+    # deterministic cuDNN (phase_resnet restores the flag): a repeat of
+    # round 0 and a remat round 0 from the same net, bitwise the first
+    torch.backends.cudnn.deterministic = True
+    nets = []
+    for api_ in (api, api, remat):
+        api_.load_state(start)
+        api_.run_round(0)
+        nets.append(_cpu_state(api_.net))
+    same, same_remat = _bitwise(nets[0], nets[1]), _bitwise(nets[0], nets[2])
+    print(f"resnet: (a) deterministic cuDNN: round 0 again from the same "
+          f"net bitwise {same}; the remat round bitwise the plain one "
+          f"{same_remat}")
+    out.update(repeat_bitwise=same, remat_bitwise=same_remat)
+    if not (same and same_remat):
+        raise AssertionError(f"(a) repeat {same}, remat {same_remat}")
+    moved = float((nets[0]["norm.var"] - start["norm.var"]).abs().max())
+    if not moved:
+        raise AssertionError("(a) the running statistics did not move")
+    return data, cfg, start, out
+
+
+def _resnet18_gn(report):
+    """(b): ResNet-18-GN at the fed_cifar100 row: one round, its step held
+    to the CPU's."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.data import load_dataset
+
+    data = load_dataset("fed_cifar100", seed=0, uint8_pixels=True)
+    cfg = FedAvgConfig(comm_round=1, frequency_of_the_test=1, **GN18_CFG)
+    api = FedAvgAPI(data, _resnet_task("resnet18_gn", 100), cfg,
+                    device_data=True)
+    n_par = sum(v.numel() for v in api.net.values())
+    print(f"resnet: (b) ResNet-18-GN: {n_par} params, no extras; "
+          f"fed_cifar100 stand-in {data.num_clients} "
+          f"clients, {api.num_batches} batches a client")
+    start = _cpu_state(api.net)
+    step = _resnet_step("(b) ResNet-18-GN", data, cfg, "resnet18_gn", 100,
+                        start)
+    api.load_state(start)
+    api.warmup()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = api.run_round(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    real = float(m["count"])
+    print(f"resnet: (b) round 0: wall {wall:.4f} s, {real / wall:.1f} real "
+          f"train samples/s {_card_tag()}")
+    if not all(bool(torch.isfinite(v).all()) for v in api.net.values()):
+        raise AssertionError("(b) non-finite params")
+    return dict(step=step, wall_s=wall, samples_per_s=real / wall)
+
+
+def _cnn_dropout(report):
+    """(c): CNNDropOut at MAIN_CFG: its masks drawn on the card equal the
+    host's draw; one round; eval deterministic."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.data import load_dataset
+    from fedml_tpu_torch.utils import prng
+
+    # the card's mask for a batch key against the numpy oracle's bits
+    key = prng.fit_keys(prng.client_keys(0, 0, [7]), 1, 1)[0, 0, 0]
+    folded = prng.fold_in(key, prng.flax_rng_data("Dropout_0", 1))
+    shape = (MAIN_CFG["batch_size"], 14, 14, 64)
+    host = (prng.random_bits(folded, shape) >> np.uint32(9)).astype(
+        np.float32) * np.float32(2.0 ** -23) < np.float32(0.75)
+    card = prng.bernoulli_torch(prng.fold_in_torch(torch.from_numpy(
+        key.astype(np.int64)).cuda(), prng.flax_rng_data("Dropout_0", 1)),
+        0.75, shape)
+    same = bool(np.array_equal(card.cpu().numpy(), host))
+    print(f"resnet: (c) a Dropout_0 mask {list(shape)} drawn on the card "
+          f"bitwise the host's Threefry draw: {same} (keep share "
+          f"{float(card.float().mean()):.4f}) {_card_tag()}")
+    if not same:
+        raise AssertionError("(c) the card's dropout mask differs")
+    data = load_dataset("femnist", seed=0, uint8_pixels=True)
+    cfg = FedAvgConfig(comm_round=1, frequency_of_the_test=1, **MAIN_CFG)
+    api = FedAvgAPI(data, _resnet_task("cnn_dropout", 62), cfg,
+                    device_data=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = api.run_round(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    evs = [api.evaluate() for _ in range(2)]
+    print(f"resnet: (c) CNNDropOut round 0: wall {wall:.4f} s, train loss "
+          f"{float(m['loss_sum']) / float(m['count']):.6f}; eval twice: "
+          f"{evs[0]['loss']:.6f} / {evs[1]['loss']:.6f} {_card_tag()}")
+    if evs[0] != evs[1] or not math.isfinite(evs[0]["loss"]):
+        raise AssertionError(f"(c) eval {evs}")
+    return dict(mask_bitwise=same, wall_s=wall)
+
+
+def _resnet_loopback(data, cfg, start):
+    """(d): 1 server + 10 client threads over loopback, ResNet-56, one
+    round, against the engine's round from the same net."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.comm.message import pack_pytree
+    from fedml_tpu_torch.distributed.fedavg import run_simulated
+
+    wcfg = dataclasses.replace(cfg, comm_round=1,
+                               max_batches=RESNET_WIRE_BATCHES)
+    api = FedAvgAPI(data, _resnet_task("resnet56", 10), wcfg,
+                    device_data=True)
+    api.load_state(start)
+    api.run_round(0)
+    t0 = time.perf_counter()
+    agg = run_simulated(data, _resnet_task("resnet56", 10), wcfg,
+                        job_id="smoke-resnet-loopback")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    got, want = _cpu_state(agg.net), _cpu_state(api.net)
+    rel = lambda k: float((got[k] - want[k]).abs().max()) / max(
+        1.0, float(want[k].abs().max()))
+    gap = max(rel(k) for k in want)
+    stats = max(rel(k) for k in api.task.extra_keys)
+    absolute = max(float((got[k] - want[k]).abs().max()) for k in want)
+    leaves = len(pack_pytree(agg.net))
+    same = _bitwise(got, want)
+    print(f"resnet: (d) loopback job, 1 server + {wcfg.client_num_per_round}"
+          f" client threads, {RESNET_WIRE_BATCHES} batches: {wall:.2f} s; "
+          f"model against the engine's round: params and extras max|diff| "
+          f"/ max(1, max|engine|) by tensor {gap:.3e} (tol "
+          f"{TOL_RESNET_WIRE:g}; statistics alone {stats:.3e}; absolute "
+          f"{absolute:.3e}), bitwise {same}; {leaves} leaves a frame "
+          f"{_card_tag()}")
+    if gap > TOL_RESNET_WIRE or leaves != RESNET_LEAVES:
+        raise AssertionError(f"(d) gap {gap}, {leaves} leaves")
+    return dict(gap=gap, stats_gap=stats, abs_gap=absolute, bitwise=same,
+                leaves=leaves, wall_s=wall)
+
+
+def phase_resnet(report):
+    was = torch.backends.cudnn.deterministic
+    fa.reset_launches()
+    try:
+        data, cfg, start, rec = _resnet_cross_silo(report)
+        rec["loopback"] = _resnet_loopback(data, cfg, start)
+        del data
+        torch.backends.cudnn.deterministic = was
+        rec["gn18"] = _resnet18_gn(report)
+        rec["dropout"] = _cnn_dropout(report)
+    finally:
+        torch.backends.cudnn.deterministic = was
+    torch.cuda.synchronize()
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched by the resnet phase: "
+                             f"{fa.LAUNCHES}")
+    print("resnet: no flash kernel launched (the path runs on cuDNN / "
+          "cuBLAS and plain torch ops)")
+    report["resnet"] = rec
 
 
 def _initial_state(data, cfg):

@@ -72,6 +72,13 @@ The rest of the reference's per-round driver (bench.py's headline):
 - A ``core/client_source.ClientDataSource`` dataset streams the sampled
   cohort's rows from its reader; the device-resident plane refuses one.
 
+A model with extras (BatchNorm statistics, core/local.py) carries them in
+``net``: the fits start from the global extras, return their own, and the
+round averages them with the params' weights; eval reads them. A model that
+draws randomness (dropout) gets the JAX engine's per-client key chain
+(``_fit_keys``). The robust, adversarial, hooked (DP) and async rounds
+refuse a model with extras (ROADMAP.md queue A, item 4).
+
 Mesh/SPMD round loops and the other engine options are queued in
 ROADMAP.md (queue A); passing one raises.
 """
@@ -116,6 +123,7 @@ from fedml_tpu_torch.core.local import (
     make_cohort_eval_fn,
     make_eval_fn,
     make_local_update,
+    refuse_extras,
 )
 from fedml_tpu_torch.core.sampling import prepare_sampling, sample_for
 from fedml_tpu_torch.device import resolve_device
@@ -298,12 +306,10 @@ def resolve_local_spec(local_spec: LocalSpec | None,
     if prec not in COMPUTE_DTYPES:
         raise ValueError(f"precision={prec!r} (one of "
                          f"{sorted(COMPUTE_DTYPES)})")
-    if cfg.remat:
-        raise NotImplementedError("remat is not ported yet: ROADMAP.md "
-                                  "queue A, item 4")
     if local_spec is None:
         return LocalSpec(optimizer=make_client_optimizer(cfg),
-                         epochs=cfg.epochs, compute_dtype=prec)
+                         epochs=cfg.epochs, remat=cfg.remat,
+                         compute_dtype=prec)
     if COMPUTE_DTYPES[prec] is not None \
             and local_spec.compute_dtype in ("f32", "float32"):
         return dataclasses.replace(local_spec, compute_dtype=prec)
@@ -336,8 +342,10 @@ class FedAvgAPI:
     """Host-side round driver on one device (``device``: the CUDA device
     when None, see fedml_tpu_torch.device).
 
-    State: ``net`` is the global model, a dict of parameter tensors on the
-    device; ``history`` holds one record per eval round. ``device_data``
+    State: ``net`` is the global model, a dict of its params and extras
+    (core/local.py) on the device, the extras averaged with the params'
+    sample weights as the reference averages its whole ``NetState``;
+    ``history`` holds one record per eval round. ``device_data``
     parks the train set on the device once (see module docstring)."""
 
     def __init__(self, dataset: FederatedData, task: Task,
@@ -353,7 +361,14 @@ class FedAvgAPI:
         if unported:
             raise NotImplementedError(
                 f"FedAvgAPI options {sorted(unported)} are not ported yet: "
-                "ROADMAP.md queue A, items 4-6, 8-9 and 12")
+                "ROADMAP.md queue A, items 5-6, 8-9 and 12")
+        # the robust, adversarial and hooked rounds do not carry a
+        # model's extras yet (ROADMAP.md queue A, item 4)
+        refuse_extras(task, type(self).__name__, {
+            "aggregator": aggregator, "sanitize": sanitize or None,
+            "adversary_plan": adversary_plan,
+            "client_result_hook": client_result_hook,
+            "post_aggregate_hook": post_aggregate_hook})
         self.data = dataset
         self.task = task
         self.cfg = config
@@ -627,7 +642,9 @@ class FedAvgAPI:
             # one key a round, split three ways (the JAX round program's)
             self.rng, rk = prng.split(self.rng)
             _, kh, kp = prng.split(rk, 3)
-            nets, metrics = self.local_update(self.net, x, y, mask)
+            nets, metrics = self.local_update(
+                self.net, x, y, mask, self._fit_keys(round_idx, ids,
+                                                     x.shape[1]))
             if self._adversary is not None:
                 nets = self._adversary(nets, self.net, round_idx)
             if self.client_result_hook is not None:
@@ -698,6 +715,18 @@ class FedAvgAPI:
                 # inter-round idle and misreport per-round wall-clock
                 self.telemetry.tracer.finish_round()
         return metrics
+
+    def _fit_keys(self, round_idx: int, ids, B: int):
+        """The cohort's per-batch keys ``[E, B, K, 2]`` on the device
+        (utils/prng ``client_keys`` / ``fit_keys``: client ``i``'s fit is
+        keyed by ``fold_in(fold_in(key(seed), round), id_i)``, as the JAX
+        engine's ``_make_client_keys``); None for a task that draws no
+        randomness."""
+        if not self.task.needs_key:
+            return None
+        keys = prng.fit_keys(prng.client_keys(self.cfg.seed, round_idx, ids),
+                             self.local_spec.epochs, B)
+        return torch.from_numpy(keys.astype(np.int64)).to(self.device)
 
     def _client_hook(self, nets: dict, kh, k: int) -> dict:
         """``client_result_hook`` on each client of the stacked cohort
@@ -1051,8 +1080,10 @@ class FedAvgAPI:
             t0 = time.perf_counter()
             x, y, mask, _ = self._materialize(self._place(
                 self._warmup_batch(B)))
+            ids = np.zeros(mask.shape[0], np.int64)
             with float32_compute():
-                self.local_update(self.net, x, y, mask)
+                self.local_update(self.net, x, y, mask,
+                                  self._fit_keys(0, ids, B))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             per_variant[f"round{prec}_b{B}"] = time.perf_counter() - t0

@@ -30,6 +30,7 @@ from fedml_tpu_torch.algorithms.fedavg import (
     float32_compute,
 )
 from fedml_tpu_torch.core.client_data import batch_global
+from fedml_tpu_torch.core.local import refuse_extras
 from fedml_tpu_torch.core.robust import add_gaussian_noise, norm_diff_clipping
 
 DEFENSES = ("norm_diff_clipping", "weak_dp", "dp", "none")
@@ -46,6 +47,8 @@ class FedAvgRobustAPI(FedAvgAPI):
         ``norm_bound`` (= C), the server adds N(0, (z·C/m)²) to the
         m-client average, and ``self.accountant`` tracks cumulative Rényi
         DP — ``self.epsilon(delta)`` gives the (ε, δ) spent so far."""
+        # its clip and noise act on the params (ROADMAP.md queue A, item 4)
+        refuse_extras(task, "FedAvgRobustAPI")
         if defense_type not in DEFENSES:
             raise ValueError(f"unknown defense_type {defense_type!r} "
                              f"(one of {DEFENSES})")

@@ -57,6 +57,7 @@ from fedml_tpu_torch.core.local import (
     LocalSpec,
     make_eval_fn,
     make_local_update,
+    refuse_extras,
 )
 from fedml_tpu_torch.core.sampling import prepare_sampling, sample_for
 from fedml_tpu_torch.core.tasks import sequence_task
@@ -134,6 +135,8 @@ class FedAvgSeqAPI:
         self._clients, self._seq = mesh["clients"], mesh["seq"]
         self.task_plain = sequence_task(model_ctor(None).to(self.device),
                                         pad_id=pad_id)
+        # its rounds fold params only and key no fit
+        refuse_extras(self.task_plain, "FedAvgSeqAPI", key=True)
         sharded_model = model_ctor(self._seq).to(self.device)
         if (getattr(sharded_model, "seq_impl", "ring") == "ulysses"
                 and getattr(sharded_model, "num_heads", None) is not None

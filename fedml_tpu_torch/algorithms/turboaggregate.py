@@ -33,6 +33,7 @@ from fedml_tpu_torch.algorithms.fedavg import (
 )
 from fedml_tpu_torch.convert import num_heads_of
 from fedml_tpu_torch.core import secure_agg as sa
+from fedml_tpu_torch.core.local import refuse_extras
 from fedml_tpu_torch.utils import prng
 from fedml_tpu_torch.utils.tree import tree_unvectorize, tree_vectorize
 
@@ -45,6 +46,8 @@ class TurboAggregateAPI(FedAvgAPI):
                  threshold_t: int | None = None,
                  quant_scale: float = 2**16,
                  secagg_max_abs: float = 4.0, device=None, **kwargs):
+        # the masked round folds params only, and keys no fit
+        refuse_extras(task, "TurboAggregateAPI", key=True)
         if config.client_num_per_round > 32:
             raise ValueError("TurboAggregate secure path is for cross-silo "
                              "scale")

@@ -484,16 +484,14 @@ def codec_roundtrip(leaves, codec: str | None = None) -> list:
 
 
 def pack_pytree(state, num_heads: int | None = None) -> list[np.ndarray]:
-    """Flatten a port state dict into the wire leaves the JAX package sends
-    for the same model (sender side): its flax params (``convert.to_flax``:
-    HWIO convolution kernels, ``[in, out]`` dense kernels, the first dense
-    layer's rows in NHWC order, a TransformerLM's attention kernels split
-    by its ``num_heads``) flattened in sorted-key order, as
-    ``jax.tree.leaves`` flattens them. So a JAX peer decodes a port frame,
-    and the other way round, with no layout knowledge on the wire."""
-    from fedml_tpu_torch.convert import to_flax
-
-    return [leaf for _, leaf in _flat_items(to_flax(state, num_heads))]
+    """Flatten a port net into the wire leaves the JAX package sends for
+    the same model (sender side): its flax params (HWIO convolution
+    kernels, ``[in, out]`` dense kernels, the first dense layer's rows in
+    NHWC order, a TransformerLM's attention kernels split by its
+    ``num_heads``), then its extras, in ``net_items``' order. So a JAX peer
+    decodes a port frame, and the other way round, with no layout
+    knowledge on the wire."""
+    return [leaf for _, leaf in net_items(state, num_heads)]
 
 
 def unpack_pytree(template, leaves, num_heads: int | None = None) -> dict:
@@ -511,7 +509,9 @@ def unpack_pytree(template, leaves, num_heads: int | None = None) -> dict:
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.asarray(leaf)
-    state = from_flax(params)
+    extra = ({"batch_stats": params.pop("batch_stats")}
+             if "batch_stats" in params else {})
+    state = from_flax(params, extra)
     return {k: state[k].to(v.device, v.dtype) for k, v in template.items()}
 
 
@@ -535,15 +535,26 @@ def check_wire_leaves(template, leaves, num_heads: int | None = None) -> tuple:
 @functools.lru_cache(maxsize=8)
 def _wire_spec(shapes: tuple, num_heads: int | None) -> tuple:
     """(path, shape, dtype) of each wire leaf of a state with these
-    ``(key, shape)`` entries and head count, from ``to_flax`` of zeros
-    (models' float32 params only)."""
+    ``(key, shape)`` entries and head count, from ``net_items`` of zeros
+    (models' float32 params and extras only)."""
     import torch
-
-    from fedml_tpu_torch.convert import to_flax
 
     zeros = {k: torch.zeros(shape) for k, shape in shapes}
     return tuple((path, leaf.shape, leaf.dtype)
-                 for path, leaf in _flat_items(to_flax(zeros, num_heads)))
+                 for path, leaf in net_items(zeros, num_heads))
+
+
+def net_items(state, num_heads: int | None = None) -> list:
+    """``(path, leaf)`` of a port net in the JAX package's order,
+    ``jax.tree.leaves(NetState(params, extra))``: every flax params leaf
+    (``convert.to_flax_net``) in sorted-key order, then every extra leaf
+    (``batch_stats/...``) in sorted-key order. (One sorted merge would put
+    ``batch_stats`` first; sorted keys put ``BasicBlock_10`` before
+    ``BasicBlock_2``, as jax does.)"""
+    from fedml_tpu_torch.convert import to_flax_net
+
+    params, extra = to_flax_net(state, num_heads)
+    return [*_flat_items(params), *_flat_items(extra)]
 
 
 def _flat_items(tree, prefix=()):

@@ -2,9 +2,27 @@
 
 ``from_flax`` turns a flax param tree (nested dicts of numpy arrays, as
 ``Module(...).init(...)["params"]`` prints them) of ``TransformerLM``,
-``CNNOriginalFedAvg`` or ``LogisticRegression`` into the port's
-``state_dict`` layout; ``to_flax`` is its inverse. Leaves are copied
-exactly, so a round trip is bitwise.
+``CNNOriginalFedAvg``, ``CNNDropOut``, ``LogisticRegression``,
+``ResNetCIFAR`` (all three ``norm_type``s) or ``ResNet18GN``, plus its
+extras (``{"batch_stats": ...}``, the JAX package's ``NetState.extra``),
+into the port's net layout (params and buffers in one dict); ``to_flax_net``
+(params and extras) is its inverse, ``to_flax`` its params half. Leaves
+are copied exactly, so a round trip is bitwise.
+
+The families are told apart by structure: a ResNet by its block scopes
+(``BasicBlock_i``, ``_GNBasicBlock_i``, ``_FixupBasicBlock_i``,
+``GNBlock_i``; the port's ``blocks.i``) before the CNNs' ``Conv_0`` /
+``conv1``. CNNOriginalFedAvg and CNNDropOut share their four leaf names;
+the first dense layer's row permutation takes its spatial size from the
+shapes (7x7x64 rows for the one, 14x14x64 for the other).
+
+ResNets (flax -> torch): ``Conv_j/kernel`` (HWIO) -> ``...conv{j+1}.weight``
+(OIHW), a norm's ``scale`` / ``bias`` -> ``weight`` / ``bias``,
+``batch_stats/.../{mean,var}`` -> the BatchNorm's ``mean`` / ``var``
+buffers, ``Dense_0`` -> ``fc``; the stem is ``Conv_0`` -> ``conv`` and its
+norm (``BatchNorm_0``, ``_GN_0/GroupNorm_0`` or ``GroupNorm_0``) ->
+``norm``; block ``i`` -> ``blocks.i`` with its norms ``n1``..``n3`` and,
+in a Fixup block, ``bias1`` / ``bias2`` / ``scale``.
 
 CNNOriginalFedAvg (flax -> torch):
   Conv_{0,1}/kernel [kh,kw,in,out] (HWIO)    -> conv{1,2}.weight [out,in,kh,kw]
@@ -96,10 +114,119 @@ def _cnn_to_flax(a: dict) -> dict:
     return params
 
 
-def from_flax(params: dict) -> dict:
-    """flax TransformerLM / CNNOriginalFedAvg / LogisticRegression params ->
-    the port's state dict (CPU tensors; leaves that are tensors keep their
-    device, a pure permutation of their values)."""
+# ResNet flavor -> (block scope, stem norm scope, block norm scope)
+_RESNETS = {
+    "batch": ("BasicBlock", ("BatchNorm_0",), "BatchNorm"),
+    "group": ("_GNBasicBlock", ("_GN_0", "GroupNorm_0"), "GroupNorm"),
+    "none": ("_FixupBasicBlock", None, None),
+    "gn18": ("GNBlock", ("GroupNorm_0",), "GroupNorm"),
+}
+_STATS = "batch_stats"
+
+
+def _norm_entries(port: str, path: tuple, batch: bool) -> list:
+    out = [(port + "weight", path + ("scale",), "vec"),
+           (port + "bias", path + ("bias",), "vec")]
+    if batch:
+        out += [(port + s, (_STATS,) + path + (s,), "vec")
+                for s in ("mean", "var")]
+    return out
+
+
+def _resnet_entries(flavor: str, shortcuts: list) -> list:
+    """``(port key, flax path, kind)`` of every leaf of a ResNet; ``kind``
+    'conv' (OIHW <-> HWIO), 'dense' (a transpose) or 'vec' (a copy); paths
+    under ``batch_stats`` are extras. ``shortcuts[i]``: block i has the 1x1
+    projection."""
+    block, stem_norm, norm = _RESNETS[flavor]
+    fixup, batch = flavor == "none", flavor == "batch"
+    out = [("conv.weight", ("Conv_0", "kernel"), "conv")]
+    if fixup:
+        out.append(("conv.bias", ("Conv_0", "bias"), "vec"))
+    else:
+        out += _norm_entries("norm.gn." if flavor == "group" else "norm.",
+                             stem_norm, batch)
+    for i, shortcut in enumerate(shortcuts):
+        pre, scope = f"blocks.{i}.", (f"{block}_{i}",)
+        for j in range(3 if shortcut else 2):
+            conv = scope + (f"Conv_{j}",)
+            out.append((pre + f"conv{j + 1}.weight", conv + ("kernel",),
+                        "conv"))
+            if fixup:
+                out.append((pre + f"conv{j + 1}.bias", conv + ("bias",),
+                            "vec"))
+            else:
+                out += _norm_entries(pre + f"n{j + 1}.",
+                                     scope + (f"{norm}_{j}",), batch)
+        if fixup:
+            out += [(pre + k, scope + (k,), "vec")
+                    for k in ("bias1", "bias2", "scale")]
+    out += [("fc.weight", ("Dense_0", "kernel"), "dense"),
+            ("fc.bias", ("Dense_0", "bias"), "vec")]
+    return out
+
+
+def _flavor_of_flax(params: dict) -> str | None:
+    for flavor, (block, _, _) in _RESNETS.items():
+        if f"{block}_0" in params:
+            return flavor
+    return None
+
+
+def _flavor_of_port(state: dict) -> str | None:
+    if "blocks.0.conv1.weight" not in state:
+        return None
+    if "blocks.0.bias1" in state:
+        return "none"
+    if "norm.gn.weight" in state:
+        return "group"
+    return "batch" if "norm.mean" in state else "gn18"
+
+
+def _get(tree: dict, path: tuple):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def _resnet_from_flax(params: dict, extra: dict, flavor: str) -> dict:
+    block = _RESNETS[flavor][0]
+    n = sum(1 for k in params if k.startswith(block + "_"))
+    shortcuts = ["Conv_2" in params[f"{block}_{i}"] for i in range(n)]
+    sd = {}
+    for key, path, kind in _resnet_entries(flavor, shortcuts):
+        leaf = _get(extra, path) if path[0] == _STATS else _get(params, path)
+        sd[key] = _t(_perm(leaf, (3, 2, 0, 1)) if kind == "conv"
+                     else _perm(leaf, (1, 0)) if kind == "dense" else leaf)
+    return sd
+
+
+def _resnet_to_flax(a: dict, flavor: str) -> tuple:
+    n = sum(1 for k in a if k.startswith("blocks.")
+            and k.endswith(".conv1.weight"))
+    shortcuts = [f"blocks.{i}.conv3.weight" in a for i in range(n)]
+    params, extra = {}, {}
+    for key, path, kind in _resnet_entries(flavor, shortcuts):
+        leaf = a[key]
+        if kind == "conv":
+            leaf = np.ascontiguousarray(leaf.transpose(2, 3, 1, 0))
+        elif kind == "dense":
+            leaf = np.ascontiguousarray(leaf.T)
+        node = extra if path[0] == _STATS else params
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return params, extra
+
+
+def from_flax(params: dict, extra: dict | None = None) -> dict:
+    """flax params (and the model's extras, ``{"batch_stats": ...}``) of
+    any model of the module docstring -> the port's net (CPU tensors;
+    leaves that are tensors keep their device, a pure permutation of their
+    values)."""
+    flavor = _flavor_of_flax(params)
+    if flavor is not None:
+        return _resnet_from_flax(params, extra or {}, flavor)
     if "Conv_0" in params:
         return _cnn_from_flax(params)
     if set(params) == {"Dense_0"}:
@@ -132,12 +259,26 @@ def num_heads_of(module) -> int | None:
     """The head count ``to_flax`` needs for ``module``'s state: a
     TransformerLM's, None for the models that have no attention."""
     blocks = getattr(module, "blocks", None)
-    return int(blocks[0].attn.num_heads) if blocks else None
+    attn = getattr(blocks[0], "attn", None) if blocks else None
+    return int(attn.num_heads) if attn is not None else None
+
+
+def to_flax_net(state: dict, num_heads: int | None = None) -> tuple:
+    """The port's net -> ``(params, extra)`` as the JAX package's
+    ``NetState`` holds them (numpy arrays; ``extra`` is ``{}`` for a model
+    with no state); a TransformerLM needs its ``num_heads``."""
+    flavor = _flavor_of_port(state)
+    if flavor is not None:
+        return _resnet_to_flax({k: v.detach().cpu().numpy()
+                                for k, v in state.items()}, flavor)
+    return to_flax(state, num_heads), {}
 
 
 def to_flax(state: dict, num_heads: int | None = None) -> dict:
-    """The port's state dict -> flax params (numpy arrays); a TransformerLM
+    """The port's net -> flax params (numpy arrays); a TransformerLM
     needs its ``num_heads``."""
+    if _flavor_of_port(state) is not None:
+        return to_flax_net(state)[0]
     a = {k: v.detach().cpu().numpy() for k, v in state.items()}
     if "conv1.weight" in a:
         return _cnn_to_flax(a)

@@ -335,8 +335,11 @@ class VirtualClockAsyncRunner:
                  capacity: int | None = None,
                  chaos_plan=None, adversary_plan=None,
                  base_duration_s: float = 1.0):
+        from fedml_tpu_torch.core.local import refuse_extras
         from fedml_tpu_torch.obs import perf_instrument as _perf
 
+        # its fits key nothing and its buffer folds params only
+        refuse_extras(engine.task, "the async runner", key=True)
         if engine.client_result_hook is not None or \
                 engine._adversary is not None:
             raise ValueError(

@@ -6,10 +6,11 @@ The layout (the reference's orbax-less fallback): one ``round_NNNNNN.npz``
 per round holding ``leaf_i`` in ``jax.tree.flatten`` order of the state
 dict ``{"net", "rng", "round", "server_opt_state", ...}`` (keys sorted) and
 a ``treedef`` string equal to the one the JAX package writes. The net's
-leaves are its flax params in sorted-key order (``comm.message.
-pack_pytree``: HWIO convolution kernels, ``[in, out]`` dense kernels), and
-its treedef is the JAX package's ``NetState`` namedtuple around them —
-built here from the same ``convert.to_flax`` names, so a port checkpoint
+leaves are its flax params in sorted-key order, then its extras (BatchNorm
+statistics) likewise (``comm.message.pack_pytree``: HWIO convolution
+kernels, ``[in, out]`` dense kernels), and its treedef is the JAX
+package's ``NetState(params, extra)`` namedtuple around them — built here
+from the same ``convert.to_flax_net`` names, so a port checkpoint
 never loads shifted weights into the JAX package, nor the reverse: the
 reader maps leaves by index and checks the treedef string first.
 
@@ -49,13 +50,14 @@ def _dict_def(tree) -> str:
         for k, v in sorted(tree.items())) + "}"
 
 
-def _net_params(net: dict, num_heads: int | None) -> dict:
-    """The flax params tree of the port state ``net``'s model, as zeros of
-    its shapes (the structure only: names, nesting and leaf shapes)."""
-    from fedml_tpu_torch.convert import to_flax
+def _net_variables(net: dict, num_heads: int | None) -> tuple:
+    """The flax ``(params, extra)`` trees of the port net ``net``'s model,
+    as zeros of its shapes (the structure only: names, nesting and leaf
+    shapes)."""
+    from fedml_tpu_torch.convert import to_flax_net
 
-    return to_flax({k: torch.zeros(tuple(v.shape)) for k, v in net.items()},
-                   num_heads)
+    return to_flax_net({k: torch.zeros(tuple(v.shape))
+                        for k, v in net.items()}, num_heads)
 
 
 def _is_net(key: str, value) -> bool:
@@ -72,10 +74,11 @@ def _layout(state: dict, num_heads: int | None):
     for key in sorted(state):
         value = state[key]
         if _is_net(key, value):
-            params = _net_params(value, num_heads)
-            shapes += [tuple(leaf.shape) for _, leaf in _flat_items(params)]
+            params, extra = _net_variables(value, num_heads)
+            shapes += [tuple(leaf.shape) for tree in (params, extra)
+                       for _, leaf in _flat_items(tree)]
             defs.append(f"{key!r}: CustomNode(namedtuple[NetState], "
-                        f"[{_dict_def(params)}, {{}}])")
+                        f"[{_dict_def(params)}, {_dict_def(extra)}])")
         elif isinstance(value, tuple) and not value:
             defs.append(f"{key!r}: ()")
         else:
@@ -105,7 +108,8 @@ def _unflatten_state(template: dict, leaves: list,
     for key in sorted(template):
         value = template[key]
         if _is_net(key, value):
-            n = sum(1 for _ in _flat_items(_net_params(value, num_heads)))
+            n = sum(1 for tree in _net_variables(value, num_heads)
+                    for _ in _flat_items(tree))
             out[key] = unpack_pytree(value, leaves[i:i + n], num_heads)
             i += n
         elif isinstance(value, tuple) and not value:

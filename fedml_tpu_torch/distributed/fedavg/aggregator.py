@@ -50,7 +50,7 @@ from fedml_tpu_torch.comm.message import pack_pytree, unpack_pytree
 from fedml_tpu_torch.convert import num_heads_of
 from fedml_tpu_torch.core.client_data import FederatedData, batch_global
 from fedml_tpu_torch.core.client_source import ClientDataSource
-from fedml_tpu_torch.core.local import Task, make_eval_fn
+from fedml_tpu_torch.core.local import Task, make_eval_fn, refuse_extras
 from fedml_tpu_torch.core.robust_agg import (
     DEFAULT_NORM_MULT,
     REASON_OK,
@@ -89,6 +89,13 @@ class FedAvgAggregator:
         refuse_unported("FedAvgAggregator", {
             "shard_server_state": (bool(shard_server_state), 12),
             "partition_rules": (partition_rules is not None, 12)})
+        # the dense synchronous flat server carries a model's extras; the
+        # robust, fused, DP, masked and tree servers do not yet
+        if type(self) is not FedAvgAggregator:
+            refuse_extras(task, type(self).__name__)
+        refuse_extras(task, "FedAvgAggregator", {
+            "aggregator": aggregator, "sanitize": sanitize or None,
+            "fused_agg": fused_agg})
         if sum_assoc not in ("auto", "pairwise"):
             raise ValueError(f"sum_assoc={sum_assoc!r} "
                              "(expected 'auto' or 'pairwise')")

@@ -47,6 +47,7 @@ import torch
 
 from fedml_tpu_torch.comm.managers import ClientManager
 from fedml_tpu_torch.comm.message import Message
+from fedml_tpu_torch.core.local import refuse_extras
 from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage
 from fedml_tpu_torch.distributed.fedavg.trainer import DistributedTrainer
 from fedml_tpu_torch.obs.fleet import TELEMETRY_KEY, DigestEmitter, attach_digest
@@ -100,6 +101,12 @@ class FedAvgClientManager(ClientManager):
                     "update_codec and sparsify_ratio are mutually "
                     "exclusive uplink tiers — pick one")
         self.update_codec = update_codec
+        # the codecs and the adversaries act on dense params-only uploads
+        if trainer is not None:
+            refuse_extras(trainer.task, "FedAvgClientManager", {
+                "sparsify_ratio": sparsify_ratio,
+                "adversary_plan": adversary_plan,
+                "update_codec": update_codec})
         # one shared error-feedback residual (comm/ef.py) owned by ALL
         # lossy tiers (top-k AND the quantized delta tiers);
         # error_feedback=False is the convergence-ablation knob only

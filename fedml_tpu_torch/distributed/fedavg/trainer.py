@@ -6,9 +6,12 @@ cohort of one, over the client's batches packed at its own depth (capped
 at the budget every party agrees on, ``num_batches_for``) by the port's
 ``pack_clients``, the C++ packer when it builds (a streamed
 ``core/client_source.ClientDataSource`` reads only the assigned client's
-rows). ``cfg.precision`` resolves as in the engine (bf16 included). The
-models ported so far draw no randomness during the fit, so where the
-reference folds an RNG key by (seed, round, client), the port passes none.
+rows). ``cfg.precision`` resolves as in the engine (bf16 included). A
+model that draws randomness (dropout) is keyed as the reference's trainer
+keys it, ``fold_in(fold_in(key(seed), round), client)``, split per epoch
+and batch (utils/prng ``fit_keys``): the engine's chain for that client.
+The net carries the model's extras (BatchNorm statistics), so they ride
+the frames after the params (comm/message.pack_pytree).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from fedml_tpu_torch.core.client_source import (
 )
 from fedml_tpu_torch.core.local import LocalSpec, Task, make_local_update
 from fedml_tpu_torch.device import resolve_device
+from fedml_tpu_torch.utils import prng
 
 
 def num_batches_for(max_count: int, cfg: FedAvgConfig) -> int:
@@ -60,8 +64,8 @@ class DistributedTrainer:
         else:
             max_count = max(len(v) for v in dataset.train_idx_map.values())
         self.num_batches = num_batches_for(max_count, cfg)
-        self.local_update = make_local_update(
-            task, resolve_local_spec(local_spec, cfg))
+        self.local_spec = resolve_local_spec(local_spec, cfg)
+        self.local_update = make_local_update(task, self.local_spec)
         # the standalone engine's init (FedAvgAPI.__init__), so the
         # distributed and standalone runs of the port start equal
         init = task.init(torch.Generator().manual_seed(cfg.seed),
@@ -104,7 +108,8 @@ class DistributedTrainer:
                 self.local_update(
                     self.net, put(np.zeros((1, B, bs) + tuple(xs), xd)),
                     put(np.zeros((1, B, bs) + tuple(ys), yd)),
-                    put(np.zeros((1, B, bs), np.float32)))
+                    put(np.zeros((1, B, bs), np.float32)),
+                    self._keys(0, B))
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
             per_variant[f"local_fit_b{B}"] = time.perf_counter() - t0
@@ -130,6 +135,16 @@ class DistributedTrainer:
                             self.cfg.batch_size, max_batches=self.num_batches,
                             seed=self.cfg.seed, round_idx=round_idx)
 
+    def _keys(self, round_idx: int, B: int):
+        """The fit's batch keys ``[E, B, 1, 2]`` (see the module
+        docstring), or None for a model that draws no randomness."""
+        if not self.task.needs_key:
+            return None
+        keys = prng.fit_keys(
+            prng.client_keys(self.cfg.seed, round_idx, [self.client_index]),
+            self.local_spec.epochs, B)
+        return torch.from_numpy(keys.astype(np.int64)).to(self.device)
+
     def fit(self, round_idx: int) -> int:
         """Run the local fit on the currently assigned client's data
         (result in self.net); returns the local sample count."""
@@ -137,7 +152,8 @@ class DistributedTrainer:
         put = lambda a: torch.from_numpy(a).to(self.device)
         with float32_compute():
             nets, self.metrics = self.local_update(
-                self.net, put(cb.x), put(cb.y), put(cb.mask))
+                self.net, put(cb.x), put(cb.y), put(cb.mask),
+                self._keys(round_idx, cb.x.shape[1]))
         self.net = {k: v[0] for k, v in nets.items()}
         return int(cb.num_samples[0])
 

@@ -55,6 +55,7 @@ import torch
 from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
 from fedml_tpu_torch.comm.message import Message, pack_pytree
 from fedml_tpu_torch.core import secure_agg as sa
+from fedml_tpu_torch.core.local import refuse_extras
 from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.distributed.fedavg.aggregator import FedAvgAggregator
 from fedml_tpu_torch.distributed.fedavg.api import (
@@ -126,14 +127,18 @@ def _secagg_config(cfg: FedAvgConfig, threshold_t: int | None,
 
 class SecureTrainer(DistributedTrainer):
     """DistributedTrainer whose wire format is ``[masked_vec, b_shares]``
-    (plus the plaintext extra state, which the port's models do not
-    have): the update never leaves the client unmasked. The masking runs
+    (the reference adds the plaintext extra state; a model with extras is
+    refused here, ROADMAP.md queue A, item 4): the update never leaves the
+    client unmasked. The masking runs
     on the trainer's device."""
 
     def __init__(self, client_rank, dataset, task, cfg, threshold_t=None,
                  quant_scale=2**16, defense_type: str = "none",
                  norm_bound: float = 30.0, secagg_max_abs: float = 4.0,
                  slot: int | None = None, peers=None, device=None):
+        # the reference sends the extras in plaintext beside the masked
+        # vector; the port's masked upload has no such slot yet
+        refuse_extras(task, "SecureTrainer")
         super().__init__(client_rank, dataset, task, cfg, device=device)
         # cohort SLOT (stable per rank), not the per-round client id. The
         # hierarchical tier passes it (worker rank = 1 + edges + slot) and

@@ -10,8 +10,14 @@ It takes the JAX module's input, NHWC ``[bs, 28, 28, 1]`` (or ``[bs, 28,
 as a float32 GEMM (``conv2d``). It flattens NCHW, where
 flax flattens NHWC, so the first dense layer's input columns are a
 permutation of flax's rows (fedml_tpu_torch.convert does it).
-``CNNDropOut`` is queued in ROADMAP.md (queue A, item 3): its dropout has to
-draw from an explicit generator inside the cohort-batched fit.
+``CNNDropOut`` (the TFF/LEAF variant): conv3x3(32) -> relu -> conv3x3(64) ->
+relu -> maxpool 2 -> dropout 0.25 -> flatten -> dense 128 -> relu -> dropout
+0.5 -> dense 62 (10); flax's convolutions pad 'SAME', so 1,632,574 params
+for 62 classes. Its dropout masks are the JAX module's bit for bit: the
+batch key the fit hands the model (utils/prng ``fit_keys``) is folded with
+flax's hash of each Dropout's scope (``Dropout_0`` / ``Dropout_1``, first
+call), and the mask is ``jax.random.bernoulli``'s draw over the NHWC shape
+flax sees (transposed for the channels-first activation).
 
 ``dtype`` is the JAX module's activation dtype: ``torch.bfloat16`` runs the
 convolutions and the first dense layer in bf16 (the input is cast to it),
@@ -29,6 +35,7 @@ from torch import nn
 
 from fedml_tpu_torch.models.dtypes import promote_dtype
 from fedml_tpu_torch.models.init import reset_dense_layers
+from fedml_tpu_torch.utils import prng
 
 
 def conv2d(x, w, b, padding):
@@ -90,3 +97,54 @@ class CNNOriginalFedAvg(nn.Module):
         # the head in float32: the loss and softmax stay full precision
         return F.linear(*promote_dtype(x.float(), self.fc2.weight,
                                        self.fc2.bias))
+
+
+def flax_dropout(x, rate: float, key, scope: str, nhwc: bool = False):
+    """flax ``nn.Dropout(rate)`` in train mode at ``scope`` (the layer's
+    name in its parent, first call), keyed by the module's batch ``key``
+    (int64[2]). ``nhwc``: ``x`` is channels-first [N, C, H, W] and the
+    mask is drawn in flax's [N, H, W, C] order."""
+    keep = 1.0 - rate
+    k = prng.fold_in_torch(key, prng.flax_rng_data(scope, 1))
+    if nhwc:
+        N, C, H, W = x.shape
+        mask = prng.bernoulli_torch(k, keep, (N, H, W, C)).permute(0, 3, 1, 2)
+    else:
+        mask = prng.bernoulli_torch(k, keep, tuple(x.shape))
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class CNNDropOut(nn.Module):
+    """TFF-style dropout CNN (the JAX package's ``CNNDropOut``); see the
+    module docstring. ``forward(x, train, key, stats)``: the stateful-model
+    signature (core/tasks.py); train mode needs the batch ``key``."""
+
+    stateful_forward = True
+    needs_key = True  # its train-mode forward draws dropout masks
+
+    def __init__(self, only_digits: bool = True):
+        super().__init__()
+        self.conv1 = nn.Conv2d(1, 32, 3, padding=1)
+        self.conv2 = nn.Conv2d(32, 64, 3, padding=1)
+        self.fc1 = nn.Linear(14 * 14 * 64, 128)
+        self.fc2 = nn.Linear(128, 10 if only_digits else 62)
+        self.reset_parameters()
+
+    def reset_parameters(self, generator=None):
+        reset_dense_layers(self, generator)
+
+    def forward(self, x, train: bool = False, key=None, stats=None):
+        if x.ndim == 3:
+            x = x[..., None]
+        if train and key is None:
+            raise ValueError("CNNDropOut draws dropout masks in train mode: "
+                             "pass the batch key")
+        x = x.permute(0, 3, 1, 2)  # NHWC -> NCHW (a view)
+        x = F.relu(self.conv1(x))
+        x = F.max_pool2d(F.relu(self.conv2(x)), 2)
+        if train:
+            x = flax_dropout(x, 0.25, key, "Dropout_0", nhwc=True)
+        x = F.relu(self.fc1(x.flatten(1)))
+        if train:
+            x = flax_dropout(x, 0.5, key, "Dropout_1")
+        return self.fc2(x)

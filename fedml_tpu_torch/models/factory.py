@@ -1,7 +1,9 @@
 """Model factory, port of fedml_tpu/models/factory.py.
 
-Ported: ``lr``, ``cnn`` and the long-context models; every other reference
-name raises and names its ROADMAP.md queue.
+Ported: ``lr``, ``cnn``, ``cnn_dropout``, the CIFAR ResNets (``resnet56``,
+``resnet110``, ``resnet_wo_bn`` / ``resnet56_wo_bn``, ``resnet18_gn``) and
+the long-context models; every other reference name raises and names its
+ROADMAP.md queue.
 """
 
 from __future__ import annotations
@@ -9,11 +11,8 @@ from __future__ import annotations
 from fedml_tpu_torch.device import resolve_device
 
 _QUEUED = {
-    "cnn_dropout": "A, item 3",
     "rnn": "A, item 10", "rnn_stackoverflow": "A, item 10",
-    "resnet56": "A, item 10", "resnet110": "A, item 10",
-    "resnet_wo_bn": "A, item 10", "resnet56_wo_bn": "A, item 10",
-    "resnet18_gn": "A, item 10", "mobilenet": "A, item 10",
+    "mobilenet": "A, item 10",
     "mobilenet_v3": "A, item 10", "mobilenet_v3_large": "A, item 10",
     "efficientnet": "A, item 10", "vgg11": "A, item 10", "vgg16": "A, item 10",
     "darts": "A, item 9", "darts_cifar": "A, item 9",
@@ -36,6 +35,23 @@ def create_model(model_name: str, output_dim: int = 10, device=None,
 
         return CNNOriginalFedAvg(only_digits=(output_dim == 10)).to(
             resolve_device(device))
+    if name == "cnn_dropout":
+        from fedml_tpu_torch.models.cnn import CNNDropOut
+
+        return CNNDropOut(only_digits=(output_dim == 10)).to(
+            resolve_device(device))
+    if name in ("resnet56", "resnet110", "resnet_wo_bn", "resnet56_wo_bn"):
+        from fedml_tpu_torch.models.resnet import ResNetCIFAR
+
+        wo_bn = name in ("resnet_wo_bn", "resnet56_wo_bn")
+        return ResNetCIFAR(depth=110 if name == "resnet110" else 56,
+                           num_classes=output_dim,
+                           norm_type="none" if wo_bn else "batch").to(
+            resolve_device(device))
+    if name == "resnet18_gn":
+        from fedml_tpu_torch.models.resnet_gn import ResNet18GN
+
+        return ResNet18GN(num_classes=output_dim).to(resolve_device(device))
     if name in ("transformer", "transformer_flash"):
         from fedml_tpu_torch.models.transformer import TransformerLM
 

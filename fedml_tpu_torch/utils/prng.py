@@ -29,9 +29,22 @@ few float32 ulps of JAX's (log1p and the FMA-free sums round apart from
 XLA's in the last bit). ``torch.special.erfinv`` is not used: its float32
 path once drifted by 6.6e-5 relative inside a test process (ROADMAP.md,
 queue C, C3), and its gap to XLA's polynomial is 20 times this one's.
+
+The local fit's key chain (the JAX package's core/local.py and its
+engine): client ``i`` of round ``r`` trains on ``fold_in(fold_in(key(seed),
+r), i)`` (``client_keys``); its fit splits that key once per epoch and the
+epoch's key once per batch (``fit_keys``, host words for the whole round).
+A flax module draws ``make_rng('dropout')`` from the batch key folded with
+the SHA-1 of its scope path and call count (``flax_rng_data``, flax's
+``LazyRng`` with its default ``flax_fix_rng_separator=False``). The device
+side takes a key as a tensor (two int64 words, batched under
+``torch.func.vmap`` like any tensor): ``fold_in_torch``, ``bits_torch`` and
+``bernoulli_torch``, the last ``jax.random.bernoulli``'s ``uniform < p``.
 """
 
 from __future__ import annotations
+
+import hashlib
 
 import numpy as np
 import torch
@@ -217,3 +230,73 @@ def normal_from_bits(bits: torch.Tensor) -> torch.Tensor:
 def normal_torch(k, shape, device) -> torch.Tensor:
     """``jax.random.normal(k, shape, float32)`` drawn on ``device``."""
     return normal_from_bits(random_bits_torch(k, shape, device))
+
+
+# ------------------------------------------------------- the fit's key chain
+def _split2_many(keys: np.ndarray):
+    """``split(k)`` of every row of ``keys`` (uint32[n, 2]): the two halves,
+    each uint32[n, 2]."""
+    k0, k1 = keys[:, 0], keys[:, 1]
+    z = np.zeros(len(keys), np.uint32)
+    a0, b0 = _threefry2x32((k0, k1), z, z)
+    a1, b1 = _threefry2x32((k0, k1), z, z + np.uint32(1))
+    return np.stack([a0, b0], 1), np.stack([a1, b1], 1)
+
+
+def client_keys(seed: int, round_idx: int, ids) -> np.ndarray:
+    """The cohort's training keys, ``fold_in(fold_in(key(seed), round),
+    client)`` per sampled client id: uint32[K, 2]."""
+    base = fold_in(key(seed), round_idx)
+    return np.stack([fold_in(base, int(i)) for i in np.asarray(ids)]) \
+        if len(ids) else np.zeros((0, 2), np.uint32)
+
+
+def fit_keys(keys, epochs: int, num_batches: int) -> np.ndarray:
+    """The per-batch keys of the clients' fits (``keys``: uint32[K, 2]):
+    each epoch splits the running key into (carry, epoch key), each batch
+    splits the epoch's running key into (carry, batch key), as the JAX
+    package's two nested ``lax.scan`` do. uint32[epochs, B, K, 2]."""
+    rng = np.asarray(keys, np.uint32).reshape(-1, 2)
+    out = np.zeros((epochs, num_batches) + rng.shape, np.uint32)
+    for e in range(epochs):
+        rng, carry = _split2_many(rng)
+        for b in range(num_batches):
+            carry, out[e, b] = _split2_many(carry)
+    return out
+
+
+def flax_rng_data(*path) -> int:
+    """The word flax folds into a collection's key for ``make_rng`` at
+    ``path`` (scope names then the call count): the first four bytes of
+    the SHA-1 of the path's parts, big-endian."""
+    m = hashlib.sha1()
+    for part in path:
+        if isinstance(part, str):
+            m.update(part.encode("utf-8"))
+        else:
+            m.update(int(part).to_bytes((int(part).bit_length() + 7) // 8,
+                                        byteorder="big"))
+    return int.from_bytes(m.digest()[:4], byteorder="big")
+
+
+def fold_in_torch(k: torch.Tensor, data: int) -> torch.Tensor:
+    """``fold_in`` of a key tensor (int64[2] holding the uint32 words)."""
+    a, b = _threefry_torch(k[0], k[1], 0, int(data) & _MASK)
+    return torch.stack([a, b])
+
+
+def bits_torch(k: torch.Tensor, shape) -> torch.Tensor:
+    """``random_bits`` of a key tensor: int64 holding the uint32 words, on
+    the key's device."""
+    n = int(np.prod(tuple(shape), dtype=np.int64))
+    j = torch.arange(n, dtype=torch.int64, device=k.device)
+    a, b = _threefry_torch(k[0], k[1], j >> 32, j & _MASK)
+    return (a ^ b).reshape(tuple(shape))
+
+
+def bernoulli_torch(k: torch.Tensor, p: float, shape) -> torch.Tensor:
+    """``jax.random.bernoulli(k, p, shape)``: the float32 uniform from the
+    top 23 bits, ``m * 2^-23`` (exactly ``bitcast(m | 1.0) - 1``), below
+    ``float32(p)``. A bool tensor."""
+    u = (bits_torch(k, shape) >> 9).to(torch.float32) * (2.0 ** -23)
+    return u < float(np.float32(p))

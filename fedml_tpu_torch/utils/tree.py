@@ -5,14 +5,15 @@ The JAX package maps over pytrees; here a model state is a dict of tensors
 every entry.
 
 ``tree_vectorize`` flattens a state into ONE vector in the JAX package's
-coordinate order: its flax params (``convert.to_flax``: HWIO convolution
+coordinate order: its flax params (``convert.to_flax_net``: HWIO convolution
 kernels, ``[in, out]`` dense kernels, the first dense layer's rows in NHWC
-order) raveled leaf by leaf in sorted-path order, as ``jax.tree.leaves``
-flattens them. Coordinate k of a port vector is then coordinate k of the
+order) raveled leaf by leaf in sorted-path order, then its extras
+(BatchNorm statistics) likewise, as ``jax.tree.leaves`` flattens a
+``NetState`` (comm/message.net_items). Coordinate k of a port vector is then coordinate k of the
 JAX package's vector for the same model, so a flat vector that crosses the
 wire (a masked upload) means the same thing to both. The layout change is
 one gather over the port's concatenated entries, computed once per model
-shape from ``to_flax`` of an index-valued state.
+shape from ``net_items`` of an index-valued state.
 """
 
 from __future__ import annotations
@@ -39,8 +40,7 @@ def _flax_order(shapes: tuple, num_heads: int | None) -> np.ndarray:
     """For a state with these sorted ``(key, shape)`` entries: the index,
     into the concatenation of its raveled entries in sorted-key order, of
     each coordinate of the flax-ordered vector (int64)."""
-    from fedml_tpu_torch.comm.message import _flat_items
-    from fedml_tpu_torch.convert import to_flax
+    from fedml_tpu_torch.comm.message import net_items
 
     state, start = {}, 0
     for key, shape in shapes:
@@ -49,11 +49,12 @@ def _flax_order(shapes: tuple, num_heads: int | None) -> np.ndarray:
                                   dtype=torch.float64).reshape(shape)
         start += n
     flat = [np.asarray(leaf).reshape(-1)
-            for _, leaf in _flat_items(to_flax(state, num_heads))]
+            for _, leaf in net_items(state, num_heads)]
     order = (np.concatenate(flat) if flat
              else np.zeros(0)).astype(np.int64)
     if not np.array_equal(np.sort(order), np.arange(start)):
-        raise ValueError("to_flax does not permute this state's entries")
+        raise ValueError("to_flax_net does not permute this state's "
+                         "entries")
     return order
 
 

@@ -116,7 +116,8 @@ def test_classification_task_metrics_match_jax(uint8):
         je = jtask.eval_batch(params, {}, x, y, mask)
         args = (torch.from_numpy(x), torch.from_numpy(y),
                 torch.from_numpy(mask))
-        loss, m = task.loss(net, *args, True)
+        loss, extra, m = task.loss(net, {}, *args, None, True)
+        assert extra == {}
         e = task.eval_batch(net, *args)
         np.testing.assert_allclose(float(loss), float(jl), rtol=TOL, atol=TOL)
         for k in ("loss_sum", "correct", "count"):

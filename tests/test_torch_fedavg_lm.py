@@ -114,13 +114,13 @@ def _softmax_regression_task():
     the engine test below, which needs no model: params kernel [F, C] and
     bias [C] as flax's Dense keeps them."""
 
-    def loss(params, x, y, mask, train):
+    def loss(params, extra, x, y, mask, key, train):
         logits = x @ params["kernel"] + params["bias"]
         per_ex = F.cross_entropy(logits, y, reduction="none") * mask
         metrics = {"loss_sum": per_ex.sum().detach(),
                    "correct": ((logits.argmax(-1) == y) * mask).sum(),
                    "count": mask.sum()}
-        return per_ex.sum() / mask.sum().clamp_min(1.0), metrics
+        return per_ex.sum() / mask.sum().clamp_min(1.0), extra, metrics
 
     return Task(None, loss, None, None)
 
@@ -213,13 +213,14 @@ def test_entry_points_need_a_device_without_cuda():
         FedAvgAPI(_data(), task, FedAvgConfig(**CFG))
 
 
-# prefetch and precision='bf16' run now (tests/test_torch_pipeline.py,
-# tests/test_torch_bf16.py): their cases pair them with an option still
-# refused, the block working set (item 5) and remat (item 4)
+# prefetch, precision='bf16' and remat run now (tests/test_torch_pipeline.py,
+# tests/test_torch_bf16.py, tests/test_torch_extras.py): their cases pair
+# them with an option still refused, the block working set and donate
+# (item 5)
 @pytest.mark.parametrize("kwargs,cfg", [
     (dict(mesh=object()), {}),
     (dict(prefetch=2, block_working_set=True), {}),
-    ({}, dict(precision="bf16", remat=True)),
+    (dict(donate=True), dict(precision="bf16", remat=True)),
 ])
 def test_unported_engine_options_raise(kwargs, cfg):
     task = sequence_task(create_model("transformer", device="cpu", **WIDTHS))

@@ -95,7 +95,7 @@ def test_unported_options_name_their_roadmap_item(kwargs, item):
         model.to(dtype)(torch.zeros(1, 4, dtype=torch.long))
 
 
-@pytest.mark.parametrize("name", ["cnn_dropout", "resnet56", "darts"])
+@pytest.mark.parametrize("name", ["mobilenet", "vgg11", "darts"])
 def test_create_model_names_the_queue_of_unported_models(name):
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue"):
         create_model(name, device="cpu")
