@@ -6,10 +6,12 @@
 
 Phases, in order:
   device   the card's name and power limit (nvidia-smi); TF32 switched off
-  build    nvcc builds every kernel source in fedml_tpu_torch/ops/csrc;
-           ptxas's registers and spills and the count of tensor-core
-           (HMMA) instructions in the built SASS, per instantiation; fails
-           if an instantiation of any of the three kernels has none
+  build    nvcc builds every kernel source in fedml_tpu_torch/ops/csrc
+           (the float32 and the bf16 entry points, one nvcc each, side by
+           side; the build's seconds); ptxas's registers and spills and the
+           count of tensor-core (HMMA) instructions in the built SASS, per
+           instantiation; fails if an instantiation of any of the three
+           kernels, in either element type, has none
   kernels  each kernel against its plain PyTorch version on the card, at the
            shape the slice's training steps give it (the cohort folded into
            B), at its eval's shape and at ragged shapes of every head dim
@@ -19,14 +21,31 @@ Phases, in order:
            F32_ERR_FACTOR x its plain float32 version's error; its time,
            the plain version's time and scaled_dot_product_attention's,
            whose CUDA kernels are named; a [B,T,H,D] view off a 16-byte
-           boundary refused by all three wrappers before any launch
+           boundary refused by all three wrappers before any launch. Then
+           the bf16 kernels on bf16 q, k, v, dO at the same shapes: each
+           bf16 output within one bf16 ulp of its largest |entry| of the
+           plain version's (lse within 1e-4), bitwise on a rerun, within the
+           plain version's error plus one ulp against float64; their times
+           beside the bf16 bound, the plain versions' and SDPA's bf16 times;
+           bf16 views off a 16-byte boundary, mixed dtypes, float16 and a
+           bf16 lse refused before any launch
   slice    FedAvg over TransformerLM("transformer_flash", vocab 1024, dim
            256, depth 4, heads 8, T 2048): 2 rounds of 4 clients x 2 local
            SGD steps, the cohort batched (torch.func.vmap) and folded into
            the kernels' B, so each attention call of a step launches once
            for the cohort (launch counters); the same rounds from the same
            weights with plain attention must agree; one more round under
-           torch.profiler
+           torch.profiler. Then the same 2 rounds under the bf16 policy
+           (FedAvgAPI(precision='bf16')), each round timed alone: the fit's
+           launches the bf16 kernels' only (16 / 16 / 16), the eval's
+           float32 forwards (the f32 masters, as the reference evaluates);
+           the mean training loss within 2e-2 of the bf16 round with plain
+           attention and of the f32 flash round, each tensor within 1/8 of
+           its largest update entry of both; within TOL_SLICE_BF16 of the
+           update from the same round through the kernels' plain versions
+           on the card, and a planted control (the round that skips the
+           casts) outside it; tokens/s and peak device memory of bf16
+           beside f32
   main     the system's main path, bench.py:206-232's workload: FedAvg of
            CNNOriginalFedAvg (62 classes) on FEMNIST-shaped data (3,400
            clients, uint8 pixels parked on the card by device_data), 10
@@ -251,9 +270,16 @@ Phases, in order:
            lse cotangent); a planted control, round 0 again with
            seq_invariant's gradient all-reduce taken out, must land
            outside TOL_SEQ_ROUND; (c) one Ulysses + flash round on 1 x 2
-           against the same oracle; then the three kernels timed at the
-           path's shapes ([8, 1024, 8, 32] causal and not, [16, 2048, 4,
-           32]) beside their bounds, plain versions and SDPA
+           against the same oracle; (d) 2 ring + flash rounds on 2 x 2
+           under a bf16 LocalSpec (the reference's way to ask for bf16 on
+           the seq engine), each held to the single-process bf16 round
+           within TOL_SEQ_ROUND_BF16 of that round's update, 16 / 16 / 16
+           bf16 launches a rank a round; a planted control, (b)'s f32 ring
+           round 0 from the same entering weights, must land outside it;
+           then the three kernels, float32 and bf16, held as in kernels
+           and timed at the path's shapes ([8, 1024, 8, 32] causal and
+           not, [16, 2048, 4, 32]) beside their bounds, plain versions and
+           SDPA
   resnet   the fit's model state and randomness with the CIFAR ResNets,
            on cuDNN / cuBLAS and plain torch ops (no kernel of its own;
            no flash kernel may launch): (a) the reference's cross-silo
@@ -334,6 +360,22 @@ F32_ERR_FACTOR = 4
 # weights: history metrics (relative) and final params (absolute) are 4
 # layers x 4 SGD steps of float32 rounding apart
 TOL_SLICE = 1e-3
+# the slice's bf16 rounds (precision='bf16'). bf16 rounding at every layer
+# makes training at the ulp level chaotic: a float32-level difference
+# inside attention (the kernels' summation order against their plain
+# versions') flips some bf16 roundings of o, dQ, dK and dV, and the flips
+# spread through every later rounding. Measured with the plain versions on
+# the CPU at dim 64-256, T 256-512, with attention through float64 instead
+# of float32 internals standing in for the kernel: the stand-in lands
+# 1.9e-3 - 3.2e-3 of the update from the plain versions' round, a round
+# that skips the casts 7.6e-3 - 9.2e-3. TOL_SLICE_BF16 sits between them; the
+# reference's loss bound (tests/test_fused_bf16.py:379) and a per-tensor
+# bound (the worst tensor's max |diff| over its max |update|; 1.1e-2 -
+# 1.7e-2 in the rehearsal) hold the round against plain attention in bf16
+# and the f32 flash round.
+TOL_SLICE_BF16 = 5e-3
+TOL_BF16_LOSS = 2e-2
+TOL_BF16_TENSOR = 2.0 ** -3
 # the long-context slice: the widest TransformerLM the repository runs
 # (scripts/bench_longctx.py:111-114), 4 clients a round of batch 4
 SLICE_WIDTHS = dict(vocab_size=1024, dim=256, depth=4, num_heads=8,
@@ -354,12 +396,26 @@ RAGGED_SHAPES = (dict(B=SLICE_FED["eval_batch_size"], T=_T, H=_H, D=_D,
                  dict(B=2, T=1000, H=4, D=64, causal=False),
                  dict(B=1, T=300, H=2, D=16, causal=True),
                  dict(B=1, T=300, H=2, D=128, causal=False))
-SLICE_KERNELS = ("flash_fwd_kernel<32,1>", "flash_dq_kernel<32,1>",
-                 "flash_dkv_kernel<32,1>")
-SOURCE = "fedml_tpu_torch/ops/csrc/flash_attention.cu"
+# the slice's instantiations (D = 32, causal) in each element type
+SLICE_KERNELS = tuple(f"flash_{k}_kernel<32,1,{t}>" for t in ("f32", "bf16")
+                      for k in ("fwd", "dq", "dkv"))
+# the kernels' C entry points by element type (the templates live in
+# flash_attention.cuh, which both sources include)
+SOURCES = {"": "fedml_tpu_torch/ops/csrc/flash_attention.cu",
+           "_bf16": "fedml_tpu_torch/ops/csrc/flash_attention_bf16.cu"}
 REPLACES = {"flash_fwd": "fedml_tpu/ops/flash_attention.py:79",
             "flash_bwd_dq": "fedml_tpu/ops/flash_attention.py:213",
             "flash_bwd_dkv": "fedml_tpu/ops/flash_attention.py:238"}
+# H100 SXM dense bf16 tensor-core peak (NVIDIA data sheet, 700 W): a product
+# of two bf16 tiles (Q K^T, dO V^T) is exact there with an f32 accumulator
+PEAK_BF16_FLOPS = 989.4e12
+# the bf16 kernels against their plain versions on the card, output by
+# output: each bf16 output within BF16_ULPS bf16 ulps of its largest |entry|
+# (both sides compute the same f32 values up to summation order, ~1e-6
+# relative, then round each once to nearest: at most one ulp apart); lse is
+# float32 and keeps TOL_FWD. Against float64 on the same bf16 inputs: the
+# kernel's max |err| within the plain version's plus BF16_ULPS ulps
+BF16_ULPS = 1
 
 
 def phase_device(report):
@@ -378,12 +434,16 @@ def phase_device(report):
 
 def _kernel_label(mangled):
     """kernel<args> from a mangled entry name, every int and bool template
-    argument kept in order (flash_dq_kernel<32,1>)."""
-    k = re.search(r"_kernelI((?:L[ib]\d+E)+)E", mangled)
+    argument kept in order and the element type last, f32 or bf16
+    (flash_dq_kernel<32,1,bf16>)."""
+    k = re.search(r"_kernelI((?:L[ib]\d+E)+)(f|\d+\w*?bfloat16)?E", mangled)
     if not k:
         return mangled
     end = k.start() + len("_kernel")
-    args = ",".join(re.findall(r"L[ib](\d+)E", k.group(1)))
+    args = re.findall(r"L[ib](\d+)E", k.group(1))
+    if k.group(2):
+        args.append("f32" if k.group(2) == "f" else "bf16")
+    args = ",".join(args)
     for start in range(end - 1, 0, -1):  # the identifier is <length><name>
         if mangled[:start].endswith(str(end - start)):
             return f"{mangled[start:end]}<{args}>"
@@ -430,23 +490,25 @@ def _sass_counts(lib):
 def phase_build(report):
     t0 = time.perf_counter()
     libs = loader.build_all()
-    print(f"build: {len(libs)} source(s) in {time.perf_counter() - t0:.1f} s")
+    report["build_s"] = time.perf_counter() - t0
+    print(f"build: {len(libs)} source(s), one nvcc each side by side, in "
+          f"{report['build_s']:.1f} s")
+    hmma = {}
     for lib in libs:
         sass = _sass_counts(lib)
-        hmma = {fn: c[0] for fn, c in sass.items()}
+        hmma.update({fn: c[0] for fn, c in sass.items()})
+        print(f"  {lib.name}: {len(sass)} kernels")
         for fn, regs, spill in _ptxas_report(lib.with_suffix(".log").read_text()):
             n_hmma, n_all = sass.get(fn, (0, 0))
-            print(f"  ptxas: {fn:28s} {regs:3d} registers, {spill} bytes "
+            print(f"  ptxas: {fn:33s} {regs:3d} registers, {spill} bytes "
                   f"spilled; SASS {n_hmma} HMMA of {n_all} instructions")
-        # every instantiation of the three kernels runs on the tensor
-        # cores, the slice's (D=32, causal) first of all
-        flash = {fn for fn in hmma
-                 if re.match(r"flash_(fwd|dq|dkv)_kernel<", fn)}
-        zero = sorted(fn for fn in flash | set(SLICE_KERNELS)
-                      if not hmma.get(fn))
-        if zero:
-            raise AssertionError(f"no tensor-core (HMMA) instruction in the "
-                                 f"SASS of {zero}")
+    # every instantiation of the three kernels, in both element types, runs
+    # on the tensor cores, the slice's (D=32, causal) first of all
+    flash = {fn for fn in hmma if re.match(r"flash_(fwd|dq|dkv)_kernel<", fn)}
+    zero = sorted(fn for fn in flash | set(SLICE_KERNELS) if not hmma.get(fn))
+    if zero:
+        raise AssertionError(f"no tensor-core (HMMA) instruction in the "
+                             f"SASS of {zero}")
 
 
 def _time_ms(fn, reps=7, inner=5):
@@ -512,6 +574,14 @@ def _f64_bwd(q, k, v, do, lse, corr, causal):
 
 def _max_err(pairs):
     return max(float((a - b).abs().max()) for a, b in pairs)
+
+
+def _want(fwd, dq, dkv, bf16=False):
+    """Expected fa.LAUNCHES: these counts for the float32 kernels (the bf16
+    ones with ``bf16``), 0 for every other kernel."""
+    sfx = "_bf16" if bf16 else ""
+    return {**dict.fromkeys(fa.LAUNCHES, 0), f"flash_fwd{sfx}": fwd,
+            f"flash_bwd_dq{sfx}": dq, f"flash_bwd_dkv{sfx}": dkv}
 
 
 def _check_close(name, pairs, tol, where):
@@ -628,7 +698,8 @@ def _time_sdpa(q, k, v, do, causal):
 
 def _name_sdpa_kernels(qt, kt, vt, dot, causal):
     """The CUDA kernels torch.profiler sees for one SDPA forward and one
-    backward call on these f32 inputs: which backend serves them."""
+    backward call on these inputs (f32 or bf16): which backend serves
+    them."""
     from torch.profiler import ProfilerActivity, profile
 
     for what in ("forward", "backward"):
@@ -646,6 +717,164 @@ def _name_sdpa_kernels(qt, kt, vt, dot, causal):
         print(f"  sdpa {what} CUDA kernels: {names or 'none seen'}")
 
 
+def _bf16_ulp(m):
+    """One bf16 ulp at magnitude ``m`` (8 significant bits)."""
+    return 2.0 ** (math.floor(math.log2(m)) - 7) if m > 0 else 0.0
+
+
+def _bound_bf16(B, T, H, D, causal):
+    """{kernel: (bound_ms, bound_by)} of the bf16 kernels on these inputs:
+    the reference's work at its accuracy. 2*D flops a product per unmasked
+    (query, key) pair; a product of two bf16 tiles (Q K^T, dO V^T) is exact
+    on the bf16 tensor cores (PEAK_BF16_FLOPS); one of an f32 score tile and
+    a bf16 tile (P V, dS K, P^T dO, dS^T Q) takes the cheaper of two TF32
+    passes (the f32 operand split in two: 22 bits, 2 x flops at
+    PEAK_TF32_FLOPS) and three bf16 passes (split in three: 24 bits, 3 x
+    flops at PEAK_BF16_FLOPS), on an H100 the three bf16 passes. Bytes: the
+    bf16 [B,T,H,D] inputs read once and outputs written once, lse and corr
+    float32."""
+    pairs = B * H * (T * (T + 1) // 2 if causal else T * T)
+    f = 2 * D * pairs
+    x, row = 2 * B * T * H * D, 4 * B * H * T
+    # kernel -> (exact products, f32 x bf16 products, bytes)
+    spec = {"flash_fwd": (1, 1, 3 * x + x + row),
+            "flash_bwd_dq": (2, 1, 4 * x + 2 * row + x),
+            "flash_bwd_dkv": (2, 2, 4 * x + 2 * row + 2 * x)}
+    mixed_s = min(2 / PEAK_TF32_FLOPS, 3 / PEAK_BF16_FLOPS)  # a flop
+    out = {}
+    for name, (exact, mixed, nbytes) in spec.items():
+        t_ops = exact * f / PEAK_BF16_FLOPS + mixed * f * mixed_s
+        t_bytes = nbytes / PEAK_BYTES_PER_S
+        out[name] = (1e3 * max(t_ops, t_bytes),
+                     "operations" if t_ops >= t_bytes else "bytes")
+    return out
+
+
+def check_kernels_bf16(B, T, H, D, causal, timed):
+    """The bf16 kernels on bf16 q, k, v, dO (lse, corr float32): each
+    against its plain version on the same inputs (bf16 outputs within
+    BF16_ULPS ulps of their largest |entry|, lse within TOL_FWD), a second
+    run of itself (bitwise) and float64 (at most the plain version's error
+    plus BF16_ULPS ulps); times, the bf16 bounds and SDPA's bf16 times when
+    ``timed``. Returns {kernel: stats}."""
+    g = torch.Generator(device="cuda").manual_seed(T * 7 + D + 1)
+    shape = (B, T, H, D)
+    q, k, v, do = (torch.randn(shape, generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    g_lse = torch.randn((B, H, T), generator=g, device="cuda")
+    where = f"bf16 B={B} T={T} H={H} D={D} causal={causal}"
+
+    o_ref, lse_ref = fa.dense_fwd(q, k, v, causal)
+    # corr as FlashAttentionBwd forms it: f32 from the bf16 dO and o
+    corr = (g_lse - (do.float() * o_ref.float()).sum(-1)
+            .transpose(1, 2)).contiguous()
+    runs = {
+        "flash_fwd": (lambda: fa.flash_fwd(q, k, v, causal),
+                      lambda: fa.dense_fwd(q, k, v, causal), TOL_FWD),
+        "flash_bwd_dq": (
+            lambda: (fa.flash_bwd_dq(q, k, v, do, lse_ref, corr, causal),),
+            lambda: (fa.dense_bwd_dq(q, k, v, do, lse_ref, corr, causal),),
+            None),
+        "flash_bwd_dkv": (
+            lambda: fa.flash_bwd_dkv(q, k, v, do, lse_ref, corr, causal),
+            lambda: fa.dense_bwd_dkv(q, k, v, do, lse_ref, corr, causal),
+            None),
+    }
+    bounds = _bound_bf16(B, T, H, D, causal)
+    stats = {}
+    for name, (kern, plain, tol) in runs.items():
+        before = fa.LAUNCHES[name + "_bf16"]
+        got = kern()
+        torch.cuda.synchronize()
+        if fa.LAUNCHES[name + "_bf16"] != before + 1:
+            raise AssertionError(f"{name} on bf16 did not launch its bf16 "
+                                 f"kernel: {fa.LAUNCHES}")
+        want = plain()
+        errs, tols = [], []
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.dtype != b.dtype:
+                raise AssertionError(f"{name} output {i} at {where}: "
+                                     f"{a.dtype} vs plain {b.dtype}")
+            err = float((a.float() - b.float()).abs().max())
+            if a.dtype == torch.bfloat16:
+                lim = BF16_ULPS * _bf16_ulp(float(b.float().abs().max()))
+                ok = err <= lim
+            else:  # lse, float32
+                lim = tol
+                ok = torch.allclose(a, b, rtol=tol, atol=tol)
+            print(f"  {name}_bf16 output {i} ({str(a.dtype)[6:]}) {where}: "
+                  f"max|err| vs plain {err:.3e} (limit {lim:.3e})")
+            if not ok:
+                raise AssertionError(f"{name}_bf16 output {i} disagrees with "
+                                     f"its plain version at {where}: {err:.3e}"
+                                     f" > {lim:.3e}")
+            errs.append(err)
+            tols.append(lim)
+        again = kern()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError(f"{name}_bf16 is not deterministic at {where}")
+        bound, bound_by = bounds[name]
+        st = {"max_abs_err": max(errs), "tol": tols, "bound_ms": bound,
+              "bound_by": bound_by}
+        if timed:
+            st["ms"] = _time_ms(kern)
+            st["plain_ms"] = _time_ms(plain, reps=3, inner=2)
+            print(f"  {name}_bf16 {where}: kernel {st['ms']:.4f} ms  plain "
+                  f"{st['plain_ms']:.4f} ms  bound {bound:.4f} ms "
+                  f"({bound_by}; {bound / st['ms']:.1%} of it)")
+        stats[name] = st
+    for exact in (_f64_fwd(q, k, v, causal),
+                  _f64_bwd(q, k, v, do, lse_ref, corr, causal)):
+        for name, ref in exact.items():
+            kern, plain, _ = runs[name]
+            outs = [f() for f in (kern, plain)]
+            for i, r in enumerate(ref):
+                err = [float((out[i].double() - r).abs().max())
+                       for out in outs]
+                lim = (err[1] + BF16_ULPS * _bf16_ulp(float(r.abs().max()))
+                       if outs[1][i].dtype == torch.bfloat16
+                       else F32_ERR_FACTOR * err[1])
+                print(f"  {name}_bf16 output {i} vs float64: kernel max|err| "
+                      f"{err[0]:.3e}, plain {err[1]:.3e}, limit {lim:.3e} "
+                      f"(max|ref| {float(r.abs().max()):.3f})")
+                if err[0] > lim:
+                    raise AssertionError(
+                        f"{name}_bf16 output {i} at {where}: max |err| vs "
+                        f"float64 {err[0]:.3e} > {lim:.3e}")
+    if timed:
+        stats["sdpa"] = _time_sdpa(q, k, v, do, causal)
+    return stats
+
+
+def check_dtypes(B=1, T=64, H=1, D=32):
+    """The wrappers refuse q, k, v, dO of mixed dtypes, float16, and lse or
+    corr not float32 (TypeError), before any launch."""
+    x = torch.randn(B, T, H, D, device="cuda")
+    b16, f16 = x.to(torch.bfloat16), x.half()
+    row = torch.zeros(B, H, T, device="cuda")
+    before = dict(fa.LAUNCHES)
+    calls = {
+        "flash_fwd: bf16 q, f32 k and v": (fa.flash_fwd, (b16, x, x, True)),
+        "flash_fwd: float16": (fa.flash_fwd, (f16, f16, f16, True)),
+        "flash_bwd_dq: bf16 q/k/v, f32 dO": (
+            fa.flash_bwd_dq, (b16, b16, b16, x, row, row, True)),
+        "flash_bwd_dkv: bf16 lse": (
+            fa.flash_bwd_dkv, (b16, b16, b16, b16, row.to(torch.bfloat16),
+                               row, True)),
+    }
+    for label, (fn, args) in calls.items():
+        try:
+            fn(*args)
+        except TypeError as e:
+            print(f"  {label} raises: {e}")
+        else:
+            raise AssertionError(f"{label}: the wrapper took it")
+    torch.cuda.synchronize()
+    if fa.LAUNCHES != before:
+        raise AssertionError(f"launches on refused dtypes: {fa.LAUNCHES}")
+
+
 def phase_kernels(report):
     s = SLICE_SHAPE
     report["kernels"] = check_kernels(s["B"], s["T"], s["H"], s["D"],
@@ -654,14 +883,21 @@ def phase_kernels(report):
         check_kernels(r["B"], r["T"], r["H"], r["D"], r["causal"],
                       timed=False)
     check_misaligned()
+    report["kernels_bf16"] = check_kernels_bf16(
+        s["B"], s["T"], s["H"], s["D"], s["causal"], timed=True)
+    for r in RAGGED_SHAPES:
+        check_kernels_bf16(r["B"], r["T"], r["H"], r["D"], r["causal"],
+                           timed=False)
+    check_misaligned(dtype=torch.bfloat16)
+    check_dtypes()
 
 
-def check_misaligned(B=1, T=64, H=1, D=32):
-    """A contiguous [B,T,H,D] view one float off a 16-byte boundary: each
+def check_misaligned(B=1, T=64, H=1, D=32, dtype=torch.float32):
+    """A contiguous [B,T,H,D] view one element off a 16-byte boundary: each
     wrapper raises ValueError and launches nothing (its kernel copies 16
     bytes a thread)."""
     n = B * T * H * D
-    x = torch.randn(n + 1, device="cuda")
+    x = torch.randn(n + 1, device="cuda").to(dtype)
     off, ok = x[1:].view(B, T, H, D), x[:n].view(B, T, H, D)
     row = torch.zeros(B, H, T, device="cuda")
     before = dict(fa.LAUNCHES)
@@ -709,8 +945,7 @@ def phase_slice(report):
     # every client of the round
     steps = api.num_batches * widths["depth"]
     evals = widths["depth"] * math.ceil(len(data.test_x) / cfg.eval_batch_size)
-    want = {"flash_fwd": rounds * (steps + evals),
-            "flash_bwd_dq": rounds * steps, "flash_bwd_dkv": rounds * steps}
+    want = _want(rounds * (steps + evals), rounds * steps, rounds * steps)
     print(f"slice: {n_params} params, launches {launches}, expected {want}")
     if launches != want:
         raise AssertionError(f"kernel launches {launches} != {want}")
@@ -749,6 +984,158 @@ def phase_slice(report):
     profile_round(api, rounds, tokens, "train tokens",
                   {"flash kernels": "flash_",
                    "matmul": "gemm|cutlass|cublas"})
+    report["slice_bf16"] = _slice_bf16(report, data, cfg, start, tokens)
+
+
+@contextlib.contextmanager
+def _plain_twins():
+    """The flash wrappers replaced by their plain versions, so the model's
+    attention runs the kernels' function in plain torch ops on the card (no
+    launch is counted)."""
+    saved = fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv
+    fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = (
+        fa.dense_fwd, fa.dense_bwd_dq, fa.dense_bwd_dkv)
+    try:
+        yield
+    finally:
+        fa.flash_fwd, fa.flash_bwd_dq, fa.flash_bwd_dkv = saved
+
+
+def _update_rel(a, b, start):
+    """||a - b|| / ||b - start|| over every parameter: the distance of two
+    rounds from the same weights relative to ``b``'s update."""
+    num = sum(float((a[k].double() - b[k].double()).square().sum()) for k in b)
+    den = sum(float((b[k].double() - start[k].double()).square().sum())
+              for k in b)
+    return (num / den) ** 0.5
+
+
+def _worst_tensor(a, b, start):
+    """(name, max over tensors of max|a - b| / max|b - start|)."""
+    return max(((k, float((a[k] - b[k]).abs().max())
+                 / float((b[k] - start[k]).abs().max())) for k in b),
+               key=lambda kv: kv[1])
+
+
+def _slice_bf16(report, data, cfg, start, tokens):
+    """The slice's rounds under the bf16 client-compute policy
+    (FedAvgAPI(precision='bf16') on transformer_flash, SLICE_SHAPE's bf16
+    kernels), each engine from the same weights, every round timed alone
+    (host clock after a device sync, the peak reset before it): launches of
+    the fit (the bf16 kernels only) and of the eval (float32, as the
+    reference evaluates the f32 masters); the mean training loss within
+    TOL_BF16_LOSS of the bf16 round with plain attention and of the f32
+    flash round; the params within TOL_BF16_TENSOR of their updates, tensor
+    by tensor, against both; the update-relative distance to the same round
+    through the kernels' plain versions on the card within TOL_SLICE_BF16,
+    and the planted control (the round that skips the casts, precision f32)
+    outside it; tokens/s and peak device memory of bf16 beside f32; one more
+    bf16 round under torch.profiler."""
+    from fedml_tpu_torch.algorithms.fedavg import FedAvgAPI
+    from fedml_tpu_torch.core.tasks import sequence_task
+    from fedml_tpu_torch.models import create_model
+
+    rounds, depth = 2, SLICE_WIDTHS["depth"]
+    cfg16 = dataclasses.replace(cfg, precision="bf16")
+
+    def run(model, c, count=False):
+        api = FedAvgAPI(data, sequence_task(create_model(model,
+                                                         **SLICE_WIDTHS)), c)
+        api.load_state(start)
+        recs = []
+        fa.reset_launches()
+        for r in range(rounds):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            m = api.run_round(r)
+            torch.cuda.synchronize()
+            recs.append(dict(wall_s=time.perf_counter() - t0,
+                             peak_bytes=torch.cuda.max_memory_allocated(),
+                             loss=float(m["loss_sum"]) / float(m["count"]),
+                             count=float(m["count"])))
+        launches = dict(fa.LAUNCHES)
+        net = {k: v.clone() for k, v in api.net.items()}
+        return api, net, recs, launches
+
+    out = {}
+    f32, f32_net, f32_recs, _ = run("transformer_flash", cfg)
+    del f32
+    bf, bf_net, bf_recs, launches = run("transformer_flash", cfg16)
+    steps = bf.num_batches * depth
+    want = _want(rounds * steps, rounds * steps, rounds * steps, bf16=True)
+    report["launches_bf16"] = launches
+    print(f"slice bf16: fit launches over {rounds} rounds {launches}, "
+          f"expected {want}")
+    if launches != want:
+        raise AssertionError(f"bf16 fit launches {launches} != {want}")
+    if not all(v.dtype == torch.float32 for v in bf.net.values()):
+        raise AssertionError("slice bf16: the masters left float32")
+    fa.reset_launches()
+    ev = bf.evaluate()
+    torch.cuda.synchronize()
+    evals = depth * math.ceil(len(data.test_x) / cfg.eval_batch_size)
+    print(f"slice bf16: eval (f32 masters, as the reference) test_loss "
+          f"{float(ev['loss']):.6f}, launches {dict(fa.LAUNCHES)}")
+    if dict(fa.LAUNCHES) != _want(evals, 0, 0):
+        raise AssertionError(f"slice bf16 eval launches {fa.LAUNCHES}")
+    out["busy_share"] = profile_round(bf, rounds, tokens, "train tokens",
+                                      {"flash kernels": "flash_",
+                                       "matmul": "gemm|cutlass|cublas"})
+    del bf
+    _, plain_net, plain_recs, _ = run("transformer", cfg16)
+    with _plain_twins():
+        _, twin_net, twin_recs, twin_launches = run("transformer_flash", cfg16)
+    if any(twin_launches.values()):
+        raise AssertionError(f"the plain-version round launched kernels: "
+                             f"{twin_launches}")
+    for r in range(rounds):
+        for other, recs in (("plain attention bf16", plain_recs),
+                            ("f32 flash", f32_recs),
+                            ("plain versions bf16", twin_recs)):
+            d = abs(bf_recs[r]["loss"] - recs[r]["loss"])
+            print(f"slice bf16: round {r} train_loss {bf_recs[r]['loss']:.7f}"
+                  f" vs {other} {recs[r]['loss']:.7f}: |diff| {d:.3e} (tol "
+                  f"{TOL_BF16_LOSS})")
+            if d > TOL_BF16_LOSS or bf_recs[r]["count"] != recs[r]["count"]:
+                raise AssertionError(f"slice bf16 round {r}: loss vs {other} "
+                                     f"{d:.3e}, counts {bf_recs[r]['count']} "
+                                     f"{recs[r]['count']}")
+    for other, net in (("plain attention bf16", plain_net),
+                       ("f32 flash", f32_net), ("plain versions bf16",
+                                                twin_net)):
+        k, worst = _worst_tensor(bf_net, net, start)
+        rel = _update_rel(bf_net, net, start)
+        out[other] = dict(worst_tensor=worst, update_rel=rel)
+        print(f"slice bf16: params after {rounds} rounds vs {other}: worst "
+              f"tensor max|diff| / max|update| {worst:.3e} ({k}; tol "
+              f"{TOL_BF16_TENSOR}), ||diff|| / ||update|| {rel:.3e}")
+        if worst > TOL_BF16_TENSOR:
+            raise AssertionError(f"slice bf16 vs {other}: {k} {worst:.3e}")
+    rel = out["plain versions bf16"]["update_rel"]
+    control = _update_rel(f32_net, twin_net, start)
+    out["control_update_rel"] = control
+    print(f"slice bf16: kernels vs their plain versions, ||diff|| / "
+          f"||update|| {rel:.3e} (tol {TOL_SLICE_BF16}); planted control, "
+          f"the round that skips the casts (precision f32) vs the same: "
+          f"{control:.3e} (must exceed the tol) {_card_tag()}")
+    if rel > TOL_SLICE_BF16:
+        raise AssertionError(f"slice bf16: {rel:.3e} from the plain versions'"
+                             f" round > {TOL_SLICE_BF16}")
+    if not control > TOL_SLICE_BF16:
+        raise AssertionError(f"slice bf16: the control that skips the casts "
+                             f"lands at {control:.3e}, inside "
+                             f"{TOL_SLICE_BF16}: the check cannot tell the "
+                             "policy ran")
+    for r in range(rounds):
+        print(f"slice bf16: round {r} (train only): bf16 "
+              f"{bf_recs[r]['wall_s']:.4f} s, {tokens / bf_recs[r]['wall_s']:.0f}"
+              f" tokens/s, peak {bf_recs[r]['peak_bytes']} B; f32 "
+              f"{f32_recs[r]['wall_s']:.4f} s, "
+              f"{tokens / f32_recs[r]['wall_s']:.0f} tokens/s, peak "
+              f"{f32_recs[r]['peak_bytes']} B {_card_tag()}")
+    out.update(bf16=bf_recs, f32=f32_recs, plain=plain_recs, twin=twin_recs)
+    return out
 
 
 def profile_round(api, round_idx, units, unit_name, groups):
@@ -1472,9 +1859,8 @@ def _transformer_job(report):
     evals = SLICE_WIDTHS["depth"] * math.ceil(len(data.test_x)
                                               / cfg.eval_batch_size)
     K = cfg.client_num_per_round
-    want = {"flash_fwd": rounds * (K * steps + evals),
-            "flash_bwd_dq": rounds * K * steps,
-            "flash_bwd_dkv": rounds * K * steps}
+    want = _want(rounds * (K * steps + evals), rounds * K * steps,
+                 rounds * K * steps)
     report["launches_transformer_job"] = launches
     print(f"distributed: TransformerLM job ({sum(v.numel() for v in start.values())}"
           f" params, 1 server + {K} client ranks over loopback, {rounds} "
@@ -4452,7 +4838,7 @@ def phase_pipeline(report):
 # device). (a) runs on a 1 x 2 mesh, (b) on 2 x 2, (c) on 1 x 2; the
 # ranks outside a 1 x 2 mesh wait at the next mesh's groups.
 SEQ_WORLD = 4
-SEQ_ROUNDS = 2             # (b)
+SEQ_ROUNDS = 2             # (b) and (d)
 SEQ_DEADLINE_S = 300.0     # the world's join deadline
 SEQ_ATTN = dict(B=4, T=_T, H=_H, D=_D)   # (a): [4, 2048, 8, 32] f32
 # (a) against the single-rank kernels / plain attention on the card: the
@@ -4465,6 +4851,15 @@ TOL_SEQ_GRAD = 2e-3
 # and the planted control (no gradient all-reduce in seq_invariant) lands
 # near 6e-4: the phase runs that control and fails if it lands inside
 TOL_SEQ_ROUND = 1e-6
+# (d), the bf16 ring round against the single-process bf16 round, as
+# ||diff|| / ||the single-process round's update||: the ring merges each
+# block's bf16 o in float32 and sums the bf16 gradients over 'seq', where
+# the single process rounds once; bf16 training spreads such rounding
+# flips through every later rounding (TOL_SLICE_BF16's note). On an H100
+# sound rounds land at 2.4e-3 - 2.9e-3 of the update, and (b)'s f32 ring
+# round from the same weights (the casts skipped) near 1.3e-2: the phase
+# runs that control and fails if it lands inside
+TOL_SEQ_ROUND_BF16 = TOL_SLICE_BF16
 # the seq path's kernel shapes: ring blocks of 2 clients x batch 4 at
 # T/2, causal (s = 0) and not (s = 1), and Ulysses' 4 clients x batch 4
 # at full T with H/2 heads
@@ -4526,23 +4921,30 @@ def _seq_attention(mesh):
     return out
 
 
-def _seq_engine(mesh, work, impl, rounds, tag, control=False):
+def _seq_engine(mesh, work, impl, rounds, tag, control=False, bf16=False):
     """(b) / (c) on this rank: FedAvgSeqAPI at the slice's full width,
     each round timed on its own (counts and the peak reset just before,
     read just after a device sync); rank 0 saves each round's entering
     and resulting weights for the parent's oracle. With ``control``,
     round 0 runs once more from its entering weights with seq_invariant's
     backward all-reduce taken out (each shard keeps its own partial
-    gradient), for the parent to show the oracle sees that fault."""
+    gradient), for the parent to show the oracle sees that fault. With
+    ``bf16``, the fit runs the bf16 client-compute policy, asked for as the
+    reference's FedAvgSeqAPI takes it: a LocalSpec with compute_dtype
+    'bf16'."""
     from fedml_tpu_torch.algorithms import FedAvgConfig, FedAvgSeqAPI
+    from fedml_tpu_torch.algorithms.fedavg import make_client_optimizer
     from fedml_tpu_torch.collectives import ops
+    from fedml_tpu_torch.core.local import LocalSpec
     from fedml_tpu_torch.models import create_model
     from fedml_tpu_torch.obs import memwatch
 
     cfg = FedAvgConfig(comm_round=rounds, **SLICE_FED)
+    spec = (LocalSpec(optimizer=make_client_optimizer(cfg), epochs=cfg.epochs,
+                      compute_dtype="bf16") if bf16 else None)
     api = FedAvgSeqAPI(_seq_data(), lambda ax: create_model(
         "transformer_flash", seq_axis=ax, seq_impl=impl, **SLICE_WIDTHS),
-        cfg, mesh)
+        cfg, mesh, local_spec=spec)
     rank = torch.distributed.get_rank()
     recs = []
     for r in range(rounds):
@@ -4606,6 +5008,8 @@ def seq_rank(work):
     mesh = make_2d_mesh(None, 2, ("clients", "seq"))
     lap("ring", lambda: _seq_engine(mesh, work, "ring", SEQ_ROUNDS, "ring",
                                     control=True))
+    lap("ring_bf16", lambda: _seq_engine(mesh, work, "ring", SEQ_ROUNDS,
+                                         "ring_bf16", bf16=True))
     mesh = make_2d_mesh(2, 2, ("clients", "seq"))
     if mesh.member:
         lap("ulysses", lambda: _seq_engine(mesh, work, "ulysses", 1,
@@ -4613,19 +5017,28 @@ def seq_rank(work):
     return out
 
 
-def _seq_rel(a, b):
+def _seq_rel(a, b, base=None):
+    """||a - b|| over ||a|| (over ||a - base|| given ``base``), across
+    every tensor."""
     num = sum(float((a[k].double() - b[k].double()).square().sum())
               for k in a)
-    return (num / sum(float(a[k].double().square().sum()) for k in a)) ** 0.5
+    den = sum(float((a[k].double() - (0 if base is None
+                                      else base[k].double())).square().sum())
+              for k in a)
+    return (num / den) ** 0.5
 
 
-def _seq_oracle(work, ranks, tag, rounds, data, cfg):
+def _seq_oracle(work, ranks, tag, rounds, data, cfg, tol=TOL_SEQ_ROUND,
+                f32_twin=None):
     """Each round of ``tag`` against the single-process FedAvgAPI (flash)
-    from the same entering weights: relative parameter distance within
-    TOL_SEQ_ROUND, count exact; the oracle round's update relative to the
-    weights (``upd``), its wall and its peak beside. Where the ranks left
-    a control round (``_seq_engine``), its distance to the oracle's round
-    0 must exceed TOL_SEQ_ROUND."""
+    at ``cfg`` from the same entering weights: relative parameter distance
+    (``rel``) within ``tol``, count exact; the oracle round's update
+    relative to the weights (``upd``), its wall and its peak beside. Where
+    the ranks left a control round (``_seq_engine``), its distance to the
+    oracle's round 0 must exceed TOL_SEQ_ROUND. With ``f32_twin`` (a bf16
+    run), ``rel`` is taken over the oracle round's update, not the
+    weights, and the f32 run ``f32_twin``'s round 0, which entered with
+    the same weights, is the control that must land outside ``tol``."""
     from fedml_tpu_torch.algorithms import FedAvgAPI
     from fedml_tpu_torch.core.tasks import sequence_task
     from fedml_tpu_torch.models import create_model
@@ -4644,15 +5057,15 @@ def _seq_oracle(work, ranks, tag, rounds, data, cfg):
         wall = time.perf_counter() - t0
         got = torch.load(work / f"{tag}-result{r}.pt")
         want = {k: v.cpu() for k, v in api.net.items()}
-        rel = _seq_rel(want, got)
+        rel = _seq_rel(want, got, enter if f32_twin else None)
         counts = [rk[tag]["rounds"][r]["metrics"]["count"] for rk in ranks
                   if tag in rk]
         out.append(dict(rel=rel, upd=_seq_rel(enter, want),
                         count=float(m["count"]), counts=counts,
                         wall_s=wall, peak_bytes=torch.cuda.max_memory_allocated()))
-        if rel > TOL_SEQ_ROUND or any(c != float(m["count"]) for c in counts):
+        if rel > tol or any(c != float(m["count"]) for c in counts):
             raise AssertionError(f"seq: {tag} round {r}: rel {rel:.3e} "
-                                 f"(tol {TOL_SEQ_ROUND}), count {counts} vs "
+                                 f"(tol {tol}), count {counts} vs "
                                  f"{float(m['count'])}")
         control = work / f"{tag}-control{r}.pt"
         if control.exists():
@@ -4665,6 +5078,21 @@ def _seq_oracle(work, ranks, tag, rounds, data, cfg):
                     f"seq: {tag}: the control without seq_invariant's "
                     f"reduce lands at rel {c:.3e}, inside TOL_SEQ_ROUND "
                     f"{TOL_SEQ_ROUND}: the oracle cannot see that fault")
+        if f32_twin and r == 0:
+            twin = torch.load(work / f"{f32_twin}-enter0.pt")
+            if not all(torch.equal(twin[k], enter[k]) for k in enter):
+                raise AssertionError(f"seq: {f32_twin} and {tag} entered "
+                                     "round 0 with different weights")
+            out[-1]["control_rel"] = c = _seq_rel(
+                want, torch.load(work / f"{f32_twin}-result0.pt"), enter)
+            print(f"seq: {tag} round 0, planted control (the f32 round "
+                  f"{f32_twin} 0 from the same weights, the casts skipped): "
+                  f"||diff|| / ||update|| {c:.3e}, must exceed {tol}")
+            if not c > tol:
+                raise AssertionError(
+                    f"seq: {tag}: the f32 round lands at {c:.3e} of the "
+                    f"update, inside {tol}: the oracle cannot tell a bf16 "
+                    "round from an f32 one")
     return out
 
 
@@ -4672,11 +5100,11 @@ def _shares(per, key):
     return ", ".join(f"{p[key] / p['wall_s']:.1%}" for p in per)
 
 
-def _seq_want(steps, depth, per_layer):
+def _seq_want(steps, depth, per_layer, bf16=False):
     """Launches a rank makes in one round: per_layer of each kernel per
-    layer and local step."""
+    layer and local step (the bf16 kernels' with ``bf16``)."""
     n = steps * depth * per_layer
-    return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    return _want(n, n, n, bf16)
 
 
 def phase_seq(report):
@@ -4713,18 +5141,26 @@ def phase_seq(report):
         depth = SLICE_WIDTHS["depth"]
         tokens = cfg.client_num_per_round * ranks[0]["ring"]["num_batches"] \
             * cfg.batch_size * _T
-        for tag, rounds, per_layer, n in (("ring", SEQ_ROUNDS, 2, 4),
-                                          ("ulysses", 1, 1, 2)):
-            label = "(b) ring + flash, 2 x 2" if tag == "ring" else \
-                "(c) Ulysses + flash, 1 x 2"
-            oracle = _seq_oracle(work, ranks, tag, rounds, data, cfg)
+        cfg16 = dataclasses.replace(cfg, precision="bf16")
+        for tag, rounds, per_layer, n, label, c, tol, twin in (
+                ("ring", SEQ_ROUNDS, 2, 4, "(b) ring + flash, 2 x 2", cfg,
+                 TOL_SEQ_ROUND, None),
+                ("ulysses", 1, 1, 2, "(c) Ulysses + flash, 1 x 2", cfg,
+                 TOL_SEQ_ROUND, None),
+                ("ring_bf16", SEQ_ROUNDS, 2, 4,
+                 "(d) ring + flash in bf16, 2 x 2",
+                 cfg16, TOL_SEQ_ROUND_BF16, "ring")):
+            oracle = _seq_oracle(work, ranks, tag, rounds, data, c, tol,
+                                 f32_twin=twin)
             rec[f"{tag}_oracle"] = oracle
-            want = _seq_want(ranks[0][tag]["num_batches"], depth, per_layer)
+            want = _seq_want(ranks[0][tag]["num_batches"], depth, per_layer,
+                             bf16=tag.endswith("_bf16"))
             for r in range(rounds):
                 per = [rk[tag]["rounds"][r] for rk in ranks[:n]]
                 wall = max(p["wall_s"] for p in per)
                 print(f"seq: {label} round {r}: rel {oracle[r]['rel']:.3e} "
-                      f"(tol {TOL_SEQ_ROUND}; the round's update is "
+                      f"of the {'update' if twin else 'weights'} "
+                      f"(tol {tol}; the round's update is "
                       f"{oracle[r]['upd']:.3e} of the weights) count "
                       f"{oracle[r]['count']:.0f}; "
                       f"wall {wall:.4f} s, {tokens / wall:.0f} train tokens/s"
@@ -4750,17 +5186,19 @@ def phase_seq(report):
                             for rk in ranks if tag in rk
                             for r in range(len(rk[tag]["rounds"])))
                   for name in fa.LAUNCHES}
-            for tag in ("ring", "ulysses")}
+            for tag in ("ring", "ulysses", "ring_bf16")}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    # the kernels at the seq path's shapes: times beside their bounds and
-    # SDPA's (the parent process, after the world has gone)
+    # the kernels at the seq path's shapes, float32 and bf16, each held to
+    # its plain version and float64 as in phase_kernels: times beside their
+    # bounds and SDPA's (the parent process, after the world has gone)
     rec["shapes"] = []
     for s in SEQ_SHAPES:
-        st = check_kernels(s["B"], s["T"], s["H"], s["D"], s["causal"],
-                           timed=True)
-        rec["shapes"].append(dict(shape=[s["B"], s["T"], s["H"], s["D"]],
-                                  causal=s["causal"], stats=st))
+        args = (s["B"], s["T"], s["H"], s["D"], s["causal"])
+        rec["shapes"].append(dict(
+            shape=list(args[:4]), causal=s["causal"],
+            stats=check_kernels(*args, timed=True),
+            stats_bf16=check_kernels_bf16(*args, timed=True)))
 
 
 # The CIFAR ResNets and the fit's state and randomness (the resnet phase).
@@ -5121,14 +5559,16 @@ def _initial_state(data, cfg):
                      data.train_x[:cfg.batch_size])
 
 
-def _seq_rows(report, name):
-    """The seq phase's part of a kernel's row: its launches on the seq
-    path (summed over the ranks and rounds of (b) and (c)) and its time,
-    bounds and SDPA's at each of the path's shapes."""
+def _seq_rows(report, name, sfx):
+    """The seq phase's part of a kernel's row (``sfx`` '' for float32,
+    '_bf16'): its launches on the seq path (summed over the ranks and
+    rounds of each of (b), (c) and (d)) and its error, time, bound and
+    SDPA's at each of the path's shapes."""
     seq = report.get("seq", {})
     shapes = []
     for s in seq.get("shapes", []):
-        st, sdpa = s["stats"][name], s["stats"]["sdpa"]
+        stats = s["stats" + sfx]
+        st, sdpa = stats[name], stats["sdpa"]
         shapes.append({
             "shape": s["shape"], "causal": s["causal"], "ms": st["ms"],
             "plain_ms": st["plain_ms"], "bound_ms": st["bound_ms"],
@@ -5136,32 +5576,38 @@ def _seq_rows(report, name):
             "library_ms": sdpa["fwd_ms"] if name == "flash_fwd" else None,
             "library_pair_ms": None if name == "flash_fwd"
             else sdpa["bwd_ms"]})
-    return {"seq_launches": {tag: n[name] for tag, n in
+    return {"seq_launches": {tag: n[name + sfx] for tag, n in
                              seq.get("launches", {}).items()},
             "seq_shapes": shapes}
 
 
 def kernel_line(report):
-    stats, launches = report.get("kernels", {}), report.get("launches", {})
-    sdpa = stats.get("sdpa", {})
-    pair = sdpa.get("bwd_ms")
     rows = []
-    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
-        st = stats.get(name, {})
-        rows.append({
-            "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches.get(name),
-            "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
-            "plain_ms": st.get("plain_ms"), "bound_ms": st.get("bound_ms"),
-            "bound_by": st.get("bound_by"), "bound_tc_ms": st.get("bound_tc_ms"),
-            "bound_f32_ms": st.get("bound_f32_ms"),
-            # one library call computes the forward alone; its backward
-            # computes dQ, dK and dV together, so it is set against the two
-            # backward kernels together and charged to neither alone
-            "library_ms": sdpa.get("fwd_ms") if name == "flash_fwd" else None,
-            "library_pair_ms": None if name == "flash_fwd" else pair,
-            **_seq_rows(report, name),
-        })
+    for sfx, key in (("", "kernels"), ("_bf16", "kernels_bf16")):
+        stats = report.get(key, {})
+        launches = report.get("launches" + sfx, {})
+        sdpa = stats.get("sdpa", {})
+        pair = sdpa.get("bwd_ms")
+        for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            st = stats.get(name, {})
+            rows.append({
+                "name": name + sfx, "route": "cuda", "source": SOURCES[sfx],
+                "replaces": REPLACES[name],
+                "launches": launches.get(name + sfx),
+                "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
+                "plain_ms": st.get("plain_ms"),
+                "bound_ms": st.get("bound_ms"),
+                "bound_by": st.get("bound_by"),
+                "bound_tc_ms": st.get("bound_tc_ms"),
+                "bound_f32_ms": st.get("bound_f32_ms"),
+                # one library call computes the forward alone; its backward
+                # computes dQ, dK and dV together, so it is set against the
+                # two backward kernels together and charged to neither alone
+                "library_ms": (sdpa.get("fwd_ms") if name == "flash_fwd"
+                               else None),
+                "library_pair_ms": None if name == "flash_fwd" else pair,
+                **_seq_rows(report, name, sfx),
+            })
     return {"kernels": rows}
 
 

@@ -43,7 +43,7 @@ from fedml_tpu_torch.algorithms.fedavg import (
     agg_weights,
     eval_subset,
     float32_compute,
-    resolve_local_spec,
+    make_client_optimizer,
 )
 from fedml_tpu_torch.collectives.ops import psum
 from fedml_tpu_torch.core.client_data import (
@@ -154,10 +154,16 @@ class FedAvgSeqAPI:
         b_needed = int(np.ceil(max(counts) / config.batch_size))
         self.num_batches = min(config.max_batches or b_needed, b_needed)
 
-        # local_spec composes as on FedAvgAPI: a prox_mu > 0 spec gives
-        # FedProx on long context (the proximal term is over the raw,
-        # seq-invariant params: the same on every rank, no exchange)
-        self.local_spec = resolve_local_spec(local_spec, config)
+        # the reference's spec (fedml_tpu/algorithms/fedavg_seq.py:116-118):
+        # with none passed, (optimizer, epochs, remat) from the config, which
+        # leaves config.precision unread (f32); a passed spec as it is, so
+        # bf16 on the seq path is LocalSpec(..., compute_dtype='bf16'), and
+        # a prox_mu > 0 spec gives FedProx on long context (the proximal
+        # term is over the raw, seq-invariant params: the same on every
+        # rank, no exchange)
+        self.local_spec = local_spec or LocalSpec(
+            optimizer=make_client_optimizer(config), epochs=config.epochs,
+            remat=config.remat)
         self.local_update = make_local_update(self.task_sharded,
                                               self.local_spec)
 

@@ -149,7 +149,10 @@ def sequence_task(module, pad_id: int = 0, seq_axis=None) -> Task:
         logits, new = call(net, x, train, key)
         per_tok = F.cross_entropy(logits.flatten(0, 1), y.flatten(),
                                   reduction="none").view_as(y)
-        tm = (y != pad_id).to(per_tok.dtype) * mask[:, None]
+        # the token mask in float32 whatever the logits' dtype (the
+        # reference's, core/tasks.py:122): under bf16 compute the count stays
+        # exact and loss_sum sums bf16 per-token losses in float32
+        tm = (y != pad_id).float() * mask[:, None].float()
         correct = ((logits.argmax(-1) == y) * tm).sum()
         return (per_tok * tm).sum(), correct.detach(), tm.sum(), new
 

@@ -23,6 +23,16 @@ on converted weights (fedml_tpu_torch.convert):
   weights on every device, though not flax's bits.
 The parameter names do not depend on ``seq_axis`` / ``seq_impl``, so a
 sequence-parallel model takes the plain model's weights unchanged.
+
+Under the bf16 client-compute policy (core/local.py casts the params to
+bfloat16) every layer runs in bf16 with flax's dtype rules, which torch's
+layers already follow up to rounding: the embedding and ``pos_emb`` add in
+bf16 (flax's ``Embed`` keeps its table's dtype); ``nn.LayerNorm`` reduces
+and normalizes in float32 and rounds its output to bf16 once (flax's
+``_compute_stats`` promotes to float32 and ``_normalize`` casts back to
+the input's dtype); the projections, gelu and ``lm_head`` compute in bf16
+(flax's ``nn.gelu`` runs in the input's dtype); the flash kernels take
+bf16 q/k/v and return bf16 (their lse float32), and the logits are bf16.
 """
 
 from __future__ import annotations
@@ -143,11 +153,6 @@ class TransformerLM(nn.Module):
         self.pos_emb.copy_(draw(self.pos_emb.shape, 0.02))
 
     def forward(self, tokens):
-        if self.embed.weight.dtype != torch.float32:
-            raise NotImplementedError(
-                "TransformerLM under the bf16 client-compute policy is not "
-                "ported yet (the flash kernels are float32): ROADMAP.md "
-                "queue A, item 7's remainder")
         T = tokens.shape[1]
         # with seq_axis, T is the rank's block: offset into the global
         # position table by the block's place on the axis

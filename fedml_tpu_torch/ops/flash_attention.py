@@ -2,8 +2,14 @@
 
 Port of fedml_tpu/ops/flash_attention.py. The three Pallas TPU kernels
 (_fwd_kernel, _bwd_dq_kernel, _bwd_dkv_kernel) become the three CUDA kernels
-of ``csrc/flash_attention.cu``; ``jax.custom_vjp`` becomes
-``torch.autograd.Function``.
+of ``csrc/flash_attention.cuh``; ``jax.custom_vjp`` becomes
+``torch.autograd.Function``. As the reference's, they take q, k, v and dO
+in float32 or bfloat16 (one dtype for all four), compute in float32 and
+write o, dQ, dK and dV in that dtype; lse and corr are float32. Each dtype
+has its own library (``csrc/flash_attention.cu``,
+``csrc/flash_attention_bf16.cu``) and its own launch counts: a bf16 call
+launches the bf16 kernels on the bf16 tensors as they are, with no float32
+copy around a float32 launch.
 
 Layout: [B, T, H, D] in and out, as in the JAX package, and lse is
 [B, H, T]. The kernels index that layout with strides and mask the ragged
@@ -29,17 +35,25 @@ import torch
 NEG_INF = -1e30
 HEAD_DIMS = (16, 32, 64, 128)  # the head dims the kernels are built for
 
-# kernel name -> launches since the last reset_launches()
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# the dtypes the kernels take -> (library source, suffix of the entry points
+# and of the launch counts)
+DTYPES = {torch.float32: ("flash_attention.cu", ""),
+          torch.bfloat16: ("flash_attention_bf16.cu", "_bf16")}
+
+# kernel name -> launches since the last reset_launches(); the bf16 kernels
+# count apart ("flash_fwd_bf16", ...)
+LAUNCHES = {name + suffix: 0 for _, suffix in DTYPES.values()
+            for name in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    "flash_attention_fwd": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
-    "flash_attention_bwd_dq": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
-    "flash_attention_bwd_dkv": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
+    "fwd": [_P] * 5 + [_I] * 5 + [ctypes.c_float, _P],
+    "bwd_dq": [_P] * 7 + [_I] * 5 + [ctypes.c_float, _P],
+    "bwd_dkv": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
 }
-_lib = None
+_libs: dict = {}
 
 
 def reset_launches() -> None:
@@ -47,18 +61,21 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
-def _kernels():
-    global _lib
-    if _lib is None:
+def _entry(dtype, which: str):
+    """The C entry point ``which`` ('fwd', 'bwd_dq', 'bwd_dkv') of the
+    library for ``dtype``, loaded (and built) on first use."""
+    lib = _libs.get(dtype)
+    if lib is None:
         from fedml_tpu_torch.ops.loader import load_library
 
-        lib = load_library("flash_attention.cu")
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
+        source, suffix = DTYPES[dtype]
+        lib = load_library(source)
+        for w, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, f"flash_attention{suffix}_{w}")
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+        _libs[dtype] = lib
+    return getattr(lib, f"flash_attention{DTYPES[dtype][1]}_{which}")
 
 
 def _scale(D: int) -> float:
@@ -113,19 +130,26 @@ def dense_bwd_dkv(q, k, v, do, lse, corr, causal: bool):
 
 
 # ------------------------------------------------------------ kernel wrappers
-def _check(name, *tensors):
-    B, T, H, D = tensors[0].shape
-    for t in tensors:
-        if not t.is_cuda or t.device != tensors[0].device:
+def _check(name, xs, rows=()):
+    """``xs``: the [B,T,H,D] tensors (q, k, v, dO), one dtype of DTYPES;
+    ``rows``: the [B,H,T] float32 tensors (lse, corr). Returns the dims."""
+    B, T, H, D = xs[0].shape
+    dtype = xs[0].dtype
+    for t in (*xs, *rows):
+        if not t.is_cuda or t.device != xs[0].device:
             raise ValueError(f"{name}: every tensor must be on one CUDA device")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: float32 only, got {t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: tensors must be contiguous")
-    for t in tensors[1:]:
-        if t.shape not in (tensors[0].shape, (B, H, T)):
+    if dtype not in DTYPES or any(t.dtype != dtype for t in xs):
+        raise TypeError(f"{name}: q, k, v (and dO) must share one dtype of "
+                        f"float32 / bfloat16, got {[t.dtype for t in xs]}")
+    if any(t.dtype != torch.float32 for t in rows):
+        raise TypeError(f"{name}: lse and corr must be float32, got "
+                        f"{[t.dtype for t in rows]}")
+    for t in (*xs[1:], *rows):
+        if t.shape not in (xs[0].shape, (B, H, T)):
             raise ValueError(f"{name}: shape {tuple(t.shape)} does not match "
-                             f"[B,T,H,D]={tuple(tensors[0].shape)}")
+                             f"[B,T,H,D]={tuple(xs[0].shape)}")
     if D not in HEAD_DIMS:
         raise ValueError(f"{name}: head dim {D} not in {HEAD_DIMS}")
     if -(-T // 64) > 65535:  # the grid is (B*H, 64-row tiles); its y is ≤ 65535
@@ -136,8 +160,8 @@ def _check(name, *tensors):
 
 def _check_aligned(name, *tensors):
     """The kernels copy [B,T,H,D] rows 16 bytes a thread (cp.async) and
-    store 8: a view off a 16-byte boundary must raise here, not fault on
-    the card."""
+    store two values at a time: a view off a 16-byte boundary must raise
+    here, not fault on the card."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: [B,T,H,D] tensors must start on a "
@@ -145,46 +169,50 @@ def _check_aligned(name, *tensors):
                              f"{t.storage_offset()})")
 
 
-def _launch(name, fn, tensors, dims, causal):
+def _launch(name, which, tensors, dims, causal):
+    """Launch entry ``which`` of the library for q's dtype on ``tensors``
+    and count it under ``name`` (+ '_bf16' for the bf16 kernels)."""
     B, T, H, D = dims
+    dtype = tensors[0].dtype
+    fn = _entry(dtype, which)
     with torch.cuda.device(tensors[0].device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(*(t.data_ptr() for t in tensors), B, T, H, D, int(causal),
                  _scale(D), stream)
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
-    LAUNCHES[name] += 1
+    LAUNCHES[name + DTYPES[dtype][1]] += 1
 
 
 def flash_fwd(q, k, v, causal: bool):
-    """Forward kernel: (o [B,T,H,D], lse [B,H,T]) for CUDA float32 q/k/v."""
-    dims = _check("flash_fwd", q, k, v)
+    """Forward kernel: (o [B,T,H,D] in q's dtype, lse [B,H,T] float32) for
+    CUDA float32 or bfloat16 q/k/v."""
+    dims = _check("flash_fwd", (q, k, v))
     _check_aligned("flash_fwd", q, k, v)
     B, T, H, _ = dims
     o = torch.empty_like(q)
     lse = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", _kernels().flash_attention_fwd, (q, k, v, o, lse),
-            dims, causal)
+    _launch("flash_fwd", "fwd", (q, k, v, o, lse), dims, causal)
     return o, lse
 
 
 def flash_bwd_dq(q, k, v, do, lse, corr, causal: bool):
-    """dQ kernel."""
-    dims = _check("flash_bwd_dq", q, k, v, do, lse, corr)
+    """dQ kernel (dQ in q's dtype)."""
+    dims = _check("flash_bwd_dq", (q, k, v, do), (lse, corr))
     _check_aligned("flash_bwd_dq", q, k, v, do)
     dq = torch.empty_like(q)
-    _launch("flash_bwd_dq", _kernels().flash_attention_bwd_dq,
-            (q, k, v, do, lse, corr, dq), dims, causal)
+    _launch("flash_bwd_dq", "bwd_dq", (q, k, v, do, lse, corr, dq), dims,
+            causal)
     return dq
 
 
 def flash_bwd_dkv(q, k, v, do, lse, corr, causal: bool):
-    """dK/dV kernel."""
-    dims = _check("flash_bwd_dkv", q, k, v, do, lse, corr)
+    """dK/dV kernel (dK, dV in q's dtype)."""
+    dims = _check("flash_bwd_dkv", (q, k, v, do), (lse, corr))
     _check_aligned("flash_bwd_dkv", q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    _launch("flash_bwd_dkv", _kernels().flash_attention_bwd_dkv,
-            (q, k, v, do, lse, corr, dk, dv), dims, causal)
+    _launch("flash_bwd_dkv", "bwd_dkv", (q, k, v, do, lse, corr, dk, dv),
+            dims, causal)
     return dk, dv
 
 
@@ -228,6 +256,9 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(q, k, v, causal):
+        if not q.dtype == k.dtype == v.dtype:  # on either device
+            raise TypeError(f"flash attention: q, k and v must share one "
+                            f"dtype, got {q.dtype}, {k.dtype}, {v.dtype}")
         if _on_cpu(q):
             return dense_fwd(q, k, v, causal)
         return flash_fwd(q, k, v, causal)
@@ -294,5 +325,6 @@ def flash_attention_with_lse(q, k, v, causal: bool = False):
 
 
 def flash_attention(q, k, v, causal: bool = False):
-    """softmax(QK^T/sqrt(D))V with O(T) memory. [B, T, H, D] in/out; any T."""
+    """softmax(QK^T/sqrt(D))V with O(T) memory. [B, T, H, D] in/out (float32
+    or bfloat16, out in the input's dtype); any T."""
     return FlashAttention.apply(q, k, v, causal)[0]

@@ -1,7 +1,7 @@
 """Build the port's CUDA sources with nvcc and load them through ctypes.
 
-Each ``csrc/*.cu`` file exposes a plain C interface and is compiled at first
-use, for Hopper only (``sm_90a``), into ``fedml_tpu_torch/_build/`` (listed in
+Each ``csrc/*.cu`` file (with the ``csrc/*.cuh`` headers it includes)
+exposes a plain C interface and is compiled at first use, for Hopper only (``sm_90a``), into ``fedml_tpu_torch/_build/`` (listed in
 .gitignore). The library name carries a hash of the source and the flags, so
 an edited source is rebuilt and a stale library is never loaded. The compiler
 log, with ptxas's register and spill report, is kept beside the library.
@@ -41,10 +41,14 @@ def cuda_tool(name: str) -> str:
 
 
 def library_path(source: str) -> Path:
-    """Where the library built from ``csrc/<source>`` lives."""
+    """Where the library built from ``csrc/<source>`` lives. The hash
+    covers the headers of ``csrc/`` too, so an edited header rebuilds every
+    source that may include it."""
     src = CSRC / source
+    headers = b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+        src.read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
     return BUILD_DIR / f"{src.stem}-{digest}.so"
 
 

@@ -7,7 +7,18 @@ round, batch 6) from the same converted weights.
 The port runs in one gloo world of 4 CPU processes for the whole file
 (tests/test_torch_seq_ranks.engine, a 2 x 2 mesh), which also runs the
 port's single-process oracles (one a rank) while the JAX engine runs
-here."""
+here.
+
+The bf16 client-compute policy reaches the seq engine as the reference's
+does, through a LocalSpec with compute_dtype 'bf16' (flash ring, 2 rounds):
+held to the JAX seq engine given the same spec at tests/test_torch_bf16.py's
+bound (each tensor within 2**-4 of its largest update entry; measured 1.3e-2)
+and to the port's single-process bf16 round within 1e-2 of the update,
+||diff|| / ||update|| (measured 3.7e-3: the ring rounds each block's o to
+bf16 and sums bf16 gradients over 'seq', and bf16 training spreads those
+flips; the f32 flash ring lands 5.9e-3 from it, so the policy is shown by
+every tensor differing from the f32 rounds'). precision='bf16' in the
+config without a spec is the f32 round."""
 
 import re
 from pathlib import Path
@@ -19,7 +30,9 @@ import torch
 
 import test_torch_seq_ranks as ranks
 from fedml_tpu.algorithms.fedavg import FedAvgConfig as JaxConfig
+from fedml_tpu.algorithms.fedavg import make_client_optimizer as jax_client_optimizer
 from fedml_tpu.algorithms.fedavg_seq import FedAvgSeqAPI as JaxFedAvgSeqAPI
+from fedml_tpu.core.local import LocalSpec as JaxLocalSpec
 from fedml_tpu.data.synthetic import synthetic_sequences as jax_sequences
 from fedml_tpu.models.transformer import TransformerLM as JaxTransformerLM
 from fedml_tpu_torch import convert
@@ -38,6 +51,32 @@ def _rel(a: dict, b: dict) -> float:
     num = sum(float(np.sum((np.asarray(a[k]) - np.asarray(b[k])) ** 2))
               for k in a)
     den = sum(float(np.sum(np.asarray(a[k]) ** 2)) for k in a)
+    return (num / den) ** 0.5
+
+
+def _jax_bf16(jdata, mesh, start):
+    """The JAX seq engine, flash ring, under a bf16 LocalSpec: 2 rounds from
+    ``start``."""
+    jcfg = JaxConfig(**ranks.SEQ_CFG)
+    api = JaxFedAvgSeqAPI(
+        jdata, lambda ax: JaxTransformerLM(**ranks.SEQ_WIDTHS, seq_axis=ax,
+                                           use_flash=True),
+        jcfg, mesh=mesh, local_spec=JaxLocalSpec(
+            optimizer=jax_client_optimizer(jcfg), epochs=jcfg.epochs,
+            compute_dtype="bf16"))
+    api.load_state(api.net._replace(params=convert.to_flax(
+        start, ranks.SEQ_WIDTHS["num_heads"])), api.server_opt_state, api.rng)
+    for r in range(2):
+        api.run_round(r)
+    return convert.from_flax(jax.tree.map(np.asarray, api.net.params))
+
+
+def _update_rel(a: dict, b: dict, start: dict) -> float:
+    """||a - b|| / ||b - start|| over every parameter."""
+    num = sum(float(np.sum((np.asarray(a[k]) - np.asarray(b[k])) ** 2))
+              for k in b)
+    den = sum(float(np.sum((np.asarray(b[k]) - np.asarray(start[k])) ** 2))
+              for k in b)
     return (num / den) ** 0.5
 
 
@@ -73,10 +112,14 @@ def runs(tmp_path_factory):
             jm = [jax_api.run_round(r) for r in range(3)]
             out = {"jax": convert.from_flax(
                        jax.tree.map(np.asarray, jax_api.net.params)),
-                   "jax_metrics": {k: float(v) for k, v in jm[-1].items()}}
+                   "jax_metrics": {k: float(v) for k, v in jm[-1].items()},
+                   "jax_bf16": _jax_bf16(jdata, mesh, start)}
         finally:
             port = world.join()
     dense, sw, prox, train = (p["oracle"] for p in port)
+    out.update(start={k: v.numpy() for k, v in start.items()},
+               bf16=port[1]["oracle_bf16"]["nets"],
+               bf16_ids=port[1]["oracle_bf16"]["ids"])
     out.update(port=port, dense=dense["nets"],
                dense_metrics=dense["metrics"], size_weighted=sw["nets"],
                size_weighted_ids=sw["ids"], size_weighted_uniform=sw["uniform"],
@@ -128,6 +171,40 @@ def test_fedprox_matches_the_single_process_engine(runs):
     assert _rel(runs["prox"][1], port["prox"]) < TOL
     # mu bites: the proximal fit is not plain FedAvg's
     assert _rel(runs["dense"][1], port["prox"]) > 1e-5
+
+
+def test_bf16_spec_matches_the_jax_seq_engine(runs):
+    """A bf16 LocalSpec on the flash ring, 2 rounds, against the JAX seq
+    engine given the same spec: each tensor within 2**-4 of its largest
+    update entry; the masters stay float32."""
+    start, want, got = runs["start"], runs["jax_bf16"], runs["port"][0]["bf16"]
+    for k in want:
+        assert got[k].dtype == np.float32, k
+        upd = np.abs(want[k].numpy() - start[k]).max()
+        assert np.abs(got[k] - want[k].numpy()).max() <= 2.0 ** -4 * upd, k
+
+
+def test_bf16_spec_matches_the_single_process_engine(runs):
+    """The same rounds against FedAvgAPI(precision='bf16') on the flash
+    model: within 1e-2 of the update; every tensor differs from the f32
+    flash rounds' (the policy ran); every rank ends with one model."""
+    port = runs["port"]
+    assert _update_rel(port[0]["bf16"], runs["bf16"][1], runs["start"]) < 1e-2
+    assert all(not np.array_equal(port[0]["bf16"][k], port[0]["flash"][k])
+               for k in port[0]["flash"])
+    assert port[0]["bf16_ids"] == runs["bf16_ids"]
+    for p in port[1:]:
+        assert all(np.array_equal(p["bf16"][k], port[0]["bf16"][k])
+                   for k in p["bf16"])
+
+
+def test_precision_without_a_spec_is_the_f32_round(runs):
+    """FedAvgConfig(precision='bf16') with no spec: the reference's
+    FedAvgSeqAPI builds LocalSpec(optimizer, epochs, remat) and never reads
+    the precision, so the round is the f32 round, bitwise."""
+    for port in runs["port"]:
+        assert port["no_spec_dtype"] == "f32"
+        assert port["no_spec_bitwise"]
 
 
 def test_run_rounds_is_the_run_round_loop_bitwise(runs):

@@ -163,6 +163,20 @@ def prox_spec(cfg):
                      prox_mu=PROX_MU)
 
 
+def bf16_spec(cfg):
+    """The bf16 client-compute policy as the reference's FedAvgSeqAPI takes
+    it: a LocalSpec, not the config's precision."""
+    from fedml_tpu_torch.algorithms.fedavg import make_client_optimizer
+    from fedml_tpu_torch.core.local import LocalSpec
+
+    return LocalSpec(optimizer=make_client_optimizer(cfg), epochs=cfg.epochs,
+                     compute_dtype="bf16")
+
+
+def flash_model(seq_axis):
+    return seq_model(seq_axis, use_flash=True)
+
+
 def _net(api):
     return {k: _np(v) for k, v in api.net.items()}
 
@@ -173,9 +187,10 @@ def _floats(m):
 
 def engine(path):
     """FedAvgSeqAPI on a 2 x 2 mesh from the start weights in ``path``:
-    ring (3 rounds, and as run_rounds), Ulysses, size_weighted, flash and
-    FedProx (2 rounds), a checkpoint round trip, train(), and the
-    constructor's refusals."""
+    ring (3 rounds, and as run_rounds), Ulysses, size_weighted, flash,
+    FedProx and flash under a bf16 LocalSpec (2 rounds), a checkpoint round
+    trip, a round with precision='bf16' in the config and no spec, train(),
+    and the constructor's refusals."""
     from fedml_tpu_torch.algorithms import FedAvgConfig, FedAvgSeqAPI
     from fedml_tpu_torch.core import checkpoint
 
@@ -205,7 +220,9 @@ def engine(path):
                          c=FedAvgConfig(**dict(SEQ_CFG,
                                                sampling="size_weighted")),
                          d=skewed(data))),
-                     ("prox", dict(local_spec=prox_spec(cfg)))):
+                     ("prox", dict(local_spec=prox_spec(cfg))),
+                     ("bf16", dict(ctor=flash_model,
+                                   local_spec=bf16_spec(cfg)))):
         a = api(**kw)
         out[f"{name}_ids"] = [a._sampled_ids(r).tolist() for r in range(2)]
         for r in range(2):
@@ -235,6 +252,15 @@ def engine(path):
     out["restored_trains"] = all(bool(torch.isfinite(v).all())
                                  for v in second.net.values())
 
+    # the config's precision without a spec: the reference's FedAvgSeqAPI
+    # never reads it (fedml_tpu/algorithms/fedavg_seq.py:116-118), so this
+    # is round 0 in f32, the same as ``first``'s
+    no_spec = api(c=FedAvgConfig(**dict(SEQ_CFG, precision="bf16")))
+    out["no_spec_dtype"] = no_spec.local_spec.compute_dtype
+    no_spec.run_round(0)
+    out["no_spec_bitwise"] = all(torch.equal(first.net[k], no_spec.net[k])
+                                 for k in first.net)
+
     tr = api(c=FedAvgConfig(**TRAIN_CFG))
     tr.train()
     out["history"] = tr.history
@@ -242,6 +268,8 @@ def engine(path):
     out["errors"] = _refusals(data, cfg, mesh)
     # the single-process oracles, one a rank, side by side
     out["oracle"] = ORACLES[dist.get_rank()](data, cfg, start)
+    if dist.get_rank() == 1:
+        out["oracle_bf16"] = _oracle_bf16(data, cfg, start)
     return out
 
 
@@ -279,6 +307,18 @@ def _oracle_size_weighted(data, cfg, start):
 def _oracle_prox(data, cfg, start):
     return _oracle_rounds(_oracle_engine(data, cfg, start,
                                          local_spec=prox_spec(cfg)), 2)
+
+
+def _oracle_bf16(data, cfg, start):
+    """FedAvgAPI(precision='bf16') on the flash model, 2 rounds."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.core.tasks import sequence_task
+
+    api = FedAvgAPI(data, sequence_task(flash_model(None)),
+                    FedAvgConfig(**dict(SEQ_CFG, precision="bf16")),
+                    device="cpu")
+    api.load_state(start)
+    return _oracle_rounds(api, 2)
 
 
 def _oracle_train(data, cfg, start):
