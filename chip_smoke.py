@@ -3,15 +3,20 @@
 
     python3 chip_smoke.py                         # every phase, one card
     python3 chip_smoke.py --phases build,kernels  # a subset, for debugging
+    python3 chip_smoke.py --phases device,build,kernels --bf16-repeats 5000
 
 Phases, in order:
   device   the card's name and power limit (nvidia-smi); TF32 switched off
   build    nvcc builds every kernel source in fedml_tpu_torch/ops/csrc
            (the float32 and the bf16 entry points, one nvcc each, side by
            side; the build's seconds); ptxas's registers and spills and the
-           count of tensor-core (HMMA) instructions in the built SASS, per
-           instantiation; fails if an instantiation of any of the three
-           kernels, in either element type, has none
+           counts of tensor-core instructions in the built SASS (HMMA for
+           mma.sync, HGMMA for wgmma), per instantiation; fails unless every
+           instantiation of the bf16 forward and dK/dV (wgmma) has HGMMA
+           and ptxas serialized none of their wgmma, every one of the
+           float32 kernels and bf16 dQ has HMMA, and no bf16 instantiation
+           of the mma.sync forward or dK/dV is left (the register share
+           that setmaxnreg needs is checked by the host code at launch)
   kernels  each kernel against its plain PyTorch version on the card, at the
            shape the slice's training steps give it (the cohort folded into
            B), at its eval's shape and at ragged shapes of every head dim
@@ -22,13 +27,18 @@ Phases, in order:
            the plain version's time and scaled_dot_product_attention's,
            whose CUDA kernels are named; a [B,T,H,D] view off a 16-byte
            boundary refused by all three wrappers before any launch. Then
-           the bf16 kernels on bf16 q, k, v, dO at the same shapes: each
+           the bf16 kernels (the forward and dK/dV on wgmma, dQ on
+           mma.sync) on bf16 q, k, v, dO at the same shapes and at small
+           ones that complete every head dim x causal pair of the wgmma
+           kernels and leave consumer warpgroups with no key below T: each
            bf16 output within one bf16 ulp of its largest |entry| of the
            plain version's (lse within 1e-4), bitwise on a rerun, within the
            plain version's error plus one ulp against float64; their times
            beside the bf16 bound, the plain versions' and SDPA's bf16 times;
            bf16 views off a 16-byte boundary, mixed dtypes, float16 and a
-           bf16 lse refused before any launch
+           bf16 lse refused before any launch; at the small shapes the
+           wgmma forward and dK/dV rerun BF16_REPEATS times, each run
+           synchronized and bitwise the first
   slice    FedAvg over TransformerLM("transformer_flash", vocab 1024, dim
            256, depth 4, heads 8, T 2048): 2 rounds of 4 clients x 2 local
            SGD steps, the cohort batched (torch.func.vmap) and folded into
@@ -396,13 +406,33 @@ RAGGED_SHAPES = (dict(B=SLICE_FED["eval_batch_size"], T=_T, H=_H, D=_D,
                  dict(B=2, T=1000, H=4, D=64, causal=False),
                  dict(B=1, T=300, H=2, D=16, causal=True),
                  dict(B=1, T=300, H=2, D=128, causal=False))
-# the slice's instantiations (D = 32, causal) in each element type
-SLICE_KERNELS = tuple(f"flash_{k}_kernel<32,1,{t}>" for t in ("f32", "bf16")
-                      for k in ("fwd", "dq", "dkv"))
-# the kernels' C entry points by element type (the templates live in
-# flash_attention.cuh, which both sources include)
-SOURCES = {"": "fedml_tpu_torch/ops/csrc/flash_attention.cu",
-           "_bf16": "fedml_tpu_torch/ops/csrc/flash_attention_bf16.cu"}
+# bf16 only (the f32 kernels' time stays put): with RAGGED_SHAPES every head
+# dim of the wgmma kernels causal and not, and grids whose last block holds
+# consumer warpgroups that own only keys >= T (three consumers of 64 keys a
+# block at D <= 32)
+BF16_SMALL_SHAPES = (dict(B=1, T=128, H=1, D=32, causal=False),
+                     dict(B=1, T=128, H=1, D=32, causal=True),
+                     dict(B=1, T=256, H=2, D=32, causal=True),
+                     dict(B=1, T=300, H=2, D=128, causal=True),
+                     dict(B=1, T=300, H=2, D=16, causal=False))
+BF16_REPEATS = 200  # reruns of the wgmma kernels at each small shape
+# the slice's instantiations (D = 32, causal): float32 (mma.sync), bf16
+# (the forward and dK/dV on wgmma, dQ on mma.sync)
+SLICE_KERNELS = ("flash_fwd_kernel<32,1>", "flash_dq_kernel<32,1,f32>",
+                 "flash_dkv_kernel<32,1>", "flash_fwd_wgmma_kernel<32,1>",
+                 "flash_dq_kernel<32,1,bf16>", "flash_dkv_wgmma_kernel<32,1>")
+# the kernel template behind each wrapper and element type, and the file
+# that holds it
+_CSRC = "fedml_tpu_torch/ops/csrc/"
+KERNEL_OF = {
+    "flash_fwd": ("flash_fwd_kernel", _CSRC + "flash_attention.cuh"),
+    "flash_bwd_dq": ("flash_dq_kernel", _CSRC + "flash_attention.cuh"),
+    "flash_bwd_dkv": ("flash_dkv_kernel", _CSRC + "flash_attention.cuh"),
+    "flash_fwd_bf16": ("flash_fwd_wgmma_kernel",
+                       _CSRC + "flash_attention_sm90_bf16.cuh"),
+    "flash_bwd_dq_bf16": ("flash_dq_kernel", _CSRC + "flash_attention.cuh"),
+    "flash_bwd_dkv_bf16": ("flash_dkv_wgmma_kernel",
+                           _CSRC + "flash_attention_sm90_bf16.cuh")}
 REPLACES = {"flash_fwd": "fedml_tpu/ops/flash_attention.py:79",
             "flash_bwd_dq": "fedml_tpu/ops/flash_attention.py:213",
             "flash_bwd_dkv": "fedml_tpu/ops/flash_attention.py:238"}
@@ -470,8 +500,9 @@ def _ptxas_report(log):
 
 
 def _sass_counts(lib):
-    """{kernel<args>: (HMMA instructions, all instructions)} in the
-    library's SASS (static counts, loops as compiled)."""
+    """{kernel<args>: (HMMA instructions, HGMMA instructions, all
+    instructions)} in the library's SASS (static counts, loops as
+    compiled)."""
     sass = subprocess.run([loader.cuda_tool("cuobjdump"), "-sass", str(lib)],
                           capture_output=True, text=True, check=True,
                           timeout=120).stdout
@@ -480,10 +511,11 @@ def _sass_counts(lib):
         m = re.search(r"Function : (\w+)", line)
         if m:
             fn = _kernel_label(m.group(1))
-            counts[fn] = [0, 0]
+            counts[fn] = [0, 0, 0]
         elif fn and re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+\S", line):
             counts[fn][0] += "HMMA" in line
-            counts[fn][1] += 1
+            counts[fn][1] += "HGMMA" in line
+            counts[fn][2] += 1
     return counts
 
 
@@ -493,22 +525,49 @@ def phase_build(report):
     report["build_s"] = time.perf_counter() - t0
     print(f"build: {len(libs)} source(s), one nvcc each side by side, in "
           f"{report['build_s']:.1f} s")
-    hmma = {}
+    counts, ptxas, serialized = {}, {}, []
     for lib in libs:
         sass = _sass_counts(lib)
-        hmma.update({fn: c[0] for fn, c in sass.items()})
+        counts.update(sass)
+        log = lib.with_suffix(".log").read_text()
         print(f"  {lib.name}: {len(sass)} kernels")
-        for fn, regs, spill in _ptxas_report(lib.with_suffix(".log").read_text()):
-            n_hmma, n_all = sass.get(fn, (0, 0))
+        for fn, regs, spill in _ptxas_report(log):
+            n_hmma, n_hgmma, n_all = sass.get(fn, (0, 0, 0))
+            ptxas[fn] = {"registers": regs, "spill_bytes": spill}
             print(f"  ptxas: {fn:33s} {regs:3d} registers, {spill} bytes "
-                  f"spilled; SASS {n_hmma} HMMA of {n_all} instructions")
-    # every instantiation of the three kernels, in both element types, runs
-    # on the tensor cores, the slice's (D=32, causal) first of all
-    flash = {fn for fn in hmma if re.match(r"flash_(fwd|dq|dkv)_kernel<", fn)}
-    zero = sorted(fn for fn in flash | set(SLICE_KERNELS) if not hmma.get(fn))
-    if zero:
-        raise AssertionError(f"no tensor-core (HMMA) instruction in the "
-                             f"SASS of {zero}")
+                  f"spilled; SASS {n_hmma} HMMA, {n_hgmma} HGMMA of {n_all} "
+                  f"instructions")
+        for line in log.splitlines():
+            if "warning" in line.lower():
+                print(f"  {lib.name}: {line.strip()}")
+            if "Potential Performance Loss" in line:  # a wgmma waited on
+                fn = re.search(r"'(\w+)'", line)
+                fn = _kernel_label(fn.group(1)) if fn else "?"
+                serialized.append(fn)
+                print(f"  ptxas: {fn}: {line.split('due to')[-1].strip()}")
+    report["ptxas"] = ptxas
+    # the bf16 forward and dK/dV run on wgmma at every head dim, causal and
+    # not; the float32 kernels and bf16 dQ on mma.sync; the slice's
+    # instantiations (D=32, causal) first of all
+    wgmma = {f"flash_{k}_wgmma_kernel<{d},{c}>" for k in ("fwd", "dkv")
+             for d in fa.HEAD_DIMS for c in (0, 1)}
+    sync = {fn for fn in counts
+            if re.match(r"flash_(fwd|dq|dkv)_kernel<", fn)} | (
+        set(SLICE_KERNELS) - wgmma)
+    missing = sorted(fn for fn in wgmma | sync if fn not in counts)
+    no_hgmma = sorted(fn for fn in wgmma & set(counts) if not counts[fn][1])
+    no_hmma = sorted(fn for fn in sync & set(counts) if not counts[fn][0])
+    stale = sorted(fn for fn in counts
+                   if re.match(r"flash_(fwd|dkv)_kernel<.*bf16>", fn))
+    # ptxas waits after every wgmma of a kernel it cannot pipeline
+    serial = sorted(fn for fn in serialized if "wgmma" in fn)
+    if missing or no_hgmma or no_hmma or stale or serial:
+        raise AssertionError(
+            f"kernels missing from the SASS {missing}; without HGMMA "
+            f"{no_hgmma}; without HMMA {no_hmma}; bf16 mma.sync forward or "
+            f"dK/dV left {stale}; wgmma serialized by ptxas in {serial}")
+    print(f"  HGMMA in all {len(wgmma)} wgmma instantiations, HMMA in all "
+          f"{len(sync)} mma.sync ones")
 
 
 def _time_ms(fn, reps=7, inner=5):
@@ -885,11 +944,44 @@ def phase_kernels(report):
     check_misaligned()
     report["kernels_bf16"] = check_kernels_bf16(
         s["B"], s["T"], s["H"], s["D"], s["causal"], timed=True)
-    for r in RAGGED_SHAPES:
+    for r in RAGGED_SHAPES + BF16_SMALL_SHAPES:
         check_kernels_bf16(r["B"], r["T"], r["H"], r["D"], r["causal"],
                            timed=False)
     check_misaligned(dtype=torch.bfloat16)
     check_dtypes()
+    for r in BF16_SMALL_SHAPES:
+        check_repeats_bf16(r["B"], r["T"], r["H"], r["D"], r["causal"])
+
+
+def check_repeats_bf16(B, T, H, D, causal, n=None):
+    """The wgmma forward and dK/dV run ``n`` (BF16_REPEATS) times on one
+    set of inputs, each launch synchronized (a fault or a trapped wait names
+    its run) and bitwise the first run's outputs."""
+    n = BF16_REPEATS if n is None else n
+    g = torch.Generator(device="cuda").manual_seed(T * 7 + D + 2)
+    q, k, v, do = (torch.randn((B, T, H, D), generator=g, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    lse = fa.dense_fwd(q, k, v, causal)[1]
+    corr = torch.randn((B, H, T), generator=g, device="cuda")
+    where = f"bf16 B={B} T={T} H={H} D={D} causal={causal}"
+    runs = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal),
+            "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, corr,
+                                                      causal)}
+    for name, run in runs.items():
+        first = run()
+        t0 = time.perf_counter()
+        for i in range(n):
+            try:
+                out = run()
+                torch.cuda.synchronize()
+            except RuntimeError as e:
+                raise AssertionError(f"{name}_bf16 run {i + 2} of {n + 1} at "
+                                     f"{where} failed: {e}") from e
+            if not all(torch.equal(a, b) for a, b in zip(first, out)):
+                raise AssertionError(f"{name}_bf16 run {i + 2} at {where} "
+                                     f"differs from the first")
+        print(f"  {name}_bf16 {where}: {n} more runs, each bitwise the "
+              f"first, in {time.perf_counter() - t0:.2f} s")
 
 
 def check_misaligned(B=1, T=64, H=1, D=32, dtype=torch.float32):
@@ -5590,9 +5682,10 @@ def kernel_line(report):
         pair = sdpa.get("bwd_ms")
         for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             st = stats.get(name, {})
+            kernel, source = KERNEL_OF[name + sfx]
             rows.append({
-                "name": name + sfx, "route": "cuda", "source": SOURCES[sfx],
-                "replaces": REPLACES[name],
+                "name": name + sfx, "kernel": kernel, "route": "cuda",
+                "source": source, "replaces": REPLACES[name],
                 "launches": launches.get(name + sfx),
                 "max_abs_err": st.get("max_abs_err"), "ms": st.get("ms"),
                 "plain_ms": st.get("plain_ms"),
@@ -5612,10 +5705,15 @@ def kernel_line(report):
 
 
 def main(argv=None):
+    global BF16_REPEATS
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--phases", default=",".join(PHASES),
                     help=f"comma-separated subset of {','.join(PHASES)}")
+    ap.add_argument("--bf16-repeats", type=int, default=BF16_REPEATS,
+                    help="reruns of the wgmma kernels at each small shape "
+                         "in the kernels phase")
     args = ap.parse_args(argv)
+    BF16_REPEATS = args.bf16_repeats
     phases = [p for p in args.phases.split(",") if p]
     unknown = set(phases) - set(PHASES)
     if unknown:

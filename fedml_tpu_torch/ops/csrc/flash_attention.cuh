@@ -1,13 +1,17 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels, templated
-// on the element type E of q, k, v, dO and of the outputs o, dQ, dK, dV (float
-// or __nv_bfloat16); lse and corr are float32 for both. flash_attention.cu
-// instantiates the float kernels, flash_attention_bf16.cu the bf16 ones, each
-// behind its own C entry points (two nvcc processes build them side by side).
+// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels on float32
+// q, k, v, dO (outputs o, dQ, dK, dV float32), and the dQ kernel also on bf16
+// (the template's element type E; lse and corr are float32 for both).
+// flash_attention.cu instantiates the float kernels; flash_attention_bf16.cu
+// the bf16 dQ beside the bf16 forward and dK/dV of
+// flash_attention_sm90_bf16.cuh, each source behind its own C entry points
+// (two nvcc processes build them side by side).
 //
 // Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel  <- _fwd_kernel      (:79, launched by _pallas_fwd)
-//   flash_dq_kernel   <- _bwd_dq_kernel   (:213, launched by _pallas_bwd, first call)
-//   flash_dkv_kernel  <- _bwd_dkv_kernel  (:238, launched by _pallas_bwd, second call)
+//   flash_fwd_kernel  <- _fwd_kernel      (:79, launched by _pallas_fwd), float32
+//   flash_dq_kernel   <- _bwd_dq_kernel   (:213, launched by _pallas_bwd, first call),
+//                        float32 and bf16
+//   flash_dkv_kernel  <- _bwd_dkv_kernel  (:238, launched by _pallas_bwd, second call),
+//                        float32
 //
 // What bounds them: matrix products, 4*D (forward), 6*D (dQ) and 8*D (dK/dV)
 // flops per unmasked (query, key) pair, in two, three and four products per
@@ -74,26 +78,28 @@
 //   so every head's heaviest tile goes first: a query tile i visits i+1 key
 //   tiles, so the forward and dQ walk their tiles in reverse; a dK/dV key
 //   tile i visits n-i query tiles, so it walks them in order.
-// - Why mma.sync and not wgmma: for tf32, wgmma takes both operands K-major
-//   from shared memory (only 16-bit types may be transposed), and P V, dS K,
-//   P^T dO and dS^T Q contract over a tile's rows, so wgmma would need
-//   transposed copies of V, K, dO and Q, and the split big and small tiles,
-//   in shared memory. mma.sync loads its fragments per thread in any order.
-//   That redesign is later work.
+// - Why mma.sync and not wgmma here: the bf16 forward and dK/dV run on
+//   wgmma (flash_attention_sm90_bf16.cuh), because wgmma may read a 16-bit B
+//   operand transposed (MN-major), so P V, P^T dO and dS^T Q read V, dO and Q
+//   as they are stored. For tf32 wgmma takes both operands K-major from
+//   shared memory, and P V, dS K, P^T dO and dS^T Q contract over a tile's
+//   rows, so the float32 kernels would need transposed copies of V, K, dO
+//   and Q, and the split big and small tiles, in shared memory. mma.sync
+//   loads its fragments per thread in any order. That redesign is later
+//   work, as is bf16 dQ's.
 //
-// bf16 (E = __nv_bfloat16) computes what the reference computes for bf16
-// inputs: every tile becomes float32 as it is read (:84, :90-91, :218-219 and
-// the dK/dV loop's loads), the math is the float32 kernels', and each output
-// is rounded to bf16 once, to nearest even (:107, :235, :264-265, `astype`).
-// The tiles are staged in shared memory as bf16 by the same cp.async copies
-// (rows padded to D+8 values: 16-byte aligned, and every fragment load still
-// hits 32 distinct banks, two lanes sharing a word), and each value becomes
-// float32 in the fragment load. A bf16 value is exact in TF32, so its small
-// split is zero: a product of two bf16 tiles (Q K^T, dO V^T) runs as one TF32
-// pass, and one of a float32 score tile and a bf16 tile (P V, dS K, P^T dO,
-// dS^T Q) as two (big*big + small*big); float32 E keeps all three passes of
-// every product. The global memory traffic is bf16 both ways: no float32
-// copy of an input or an output exists.
+// bf16 dQ (E = __nv_bfloat16) computes what the reference computes for bf16
+// inputs: every tile becomes float32 as it is read (:218-219 and the loop's
+// loads), the math is the float32 kernel's, and dQ is rounded to bf16 once,
+// to nearest even (:235, `astype`). The tiles are staged in shared memory as
+// bf16 by the same cp.async copies (rows padded to D+8 values: 16-byte
+// aligned, and every fragment load still hits 32 distinct banks, two lanes
+// sharing a word), and each value becomes float32 in the fragment load. A
+// bf16 value is exact in TF32, so its small split is zero: a product of two
+// bf16 tiles (Q K^T, dO V^T) runs as one TF32 pass, and dS K (dS float32) as
+// two (big*big + small*big); float32 E keeps all three passes of every
+// product. The global memory traffic is bf16 both ways: no float32 copy of
+// an input or an output exists.
 //
 // All three kernels skip tiles wholly above the causal diagonal (the TPU
 // kernels did the full T^2 work) and mask the ragged edge k >= T here, so the
@@ -309,17 +315,18 @@ __device__ __forceinline__ void accum_to_a(Frag<4>& f, const float (&c)[4]) {
 
 // O and lse for one 64-row query tile, looping over streamed key tiles with
 // an online softmax (source note above).
-template <int D, bool kCausal, typename E>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                 E* __restrict__ o, float* __restrict__ lse, int T, int H, float scale) {
-  constexpr int LD = tile_ld<D, E>(), BN = stream_rows<D, false>(), KD = D / 8, NJ = BN / 8,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int T, int H, float scale) {
+  constexpr int LD = tile_ld<D, float>(), BN = stream_rows<D, false>(), KD = D / 8, NJ = BN / 8,
                 KC = col_groups<D>();
-  constexpr bool kQInRegs = D <= 32, kEx = kExactIn<E>;
+  constexpr bool kQInRegs = D <= 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  E* Qs = reinterpret_cast<E*>(smem_raw);
-  E* Ks = Qs + kOwn * LD;  // [2][BN][LD]
-  E* Vs = Ks + 2 * BN * LD;
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* Ks = Qs + kOwn * LD;  // [2][BN][LD]
+  float* Vs = Ks + 2 * BN * LD;
 
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;  // heaviest causal tiles first
@@ -365,8 +372,8 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
       cp_async_wait<0>();
     }
     __syncthreads();
-    const E* Kt = Ks + cur * BN * LD;
-    const E* Vt = Vs + cur * BN * LD;
+    const float* Kt = Ks + cur * BN * LD;
+    const float* Vt = Vs + cur * BN * LD;
     const int k0 = kt * BN;
 
     // S = Q K^T, summed from zero in the tensor cores over each 32 columns
@@ -388,7 +395,7 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
         for (int j = 0; j < NJ; ++j) {
           Frag<2> bk;
           load_b_trans(bk, Kt + j * 8 * LD + kd * 8, LD, g, t4);
-          mma_split<kEx, kEx>(part[j], aq, bk);
+          mma_split<false, false>(part[j], aq, bk);
         }
       }
 #pragma unroll
@@ -455,7 +462,7 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
         for (int nd = 0; nd < KC; ++nd) {
           Frag<2> bv;
           load_b_perm(bv, Vt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
-          mma_split<false, kEx>(part[nd], ap, bv);
+          mma_split<false, false>(part[nd], ap, bv);
         }
       }
 #pragma unroll
@@ -476,7 +483,7 @@ flash_fwd_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
     const int t = q0 + r0 + g + 8 * i;
     if (t < T) {
       const float l_safe = fmaxf(l, 1e-30f);
-      E* row = o + base + (size_t)t * stride + 2 * t4;
+      float* row = o + base + (size_t)t * stride + 2 * t4;
 #pragma unroll
       for (int nd = 0; nd < KD; ++nd)
         store2(row + nd * 8, acc[nd][2 * i] / l_safe, acc[nd][2 * i + 1] / l_safe);
@@ -612,20 +619,19 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
 // dK, dV for one 64-row key tile, looping over streamed query tiles: with the
 // scores held transposed (key rows x query cols), dV += P^T dO and
 // dK += scale * dS^T Q.
-template <int D, bool kCausal, typename E>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                 const E* __restrict__ dout, const float* __restrict__ lse,
-                 const float* __restrict__ corr, E* __restrict__ dk, E* __restrict__ dv,
-                 int T, int H, float scale) {
-  constexpr int LD = tile_ld<D, E>(), BN = stream_rows<D, true>(), KD = D / 8, NJ = BN / 8,
+flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ dout,
+                 const float* __restrict__ lse, const float* __restrict__ corr,
+                 float* __restrict__ dk, float* __restrict__ dv, int T, int H, float scale) {
+  constexpr int LD = tile_ld<D, float>(), BN = stream_rows<D, true>(), KD = D / 8, NJ = BN / 8,
                 KC = col_groups<D>();
-  constexpr bool kEx = kExactIn<E>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  E* Ks = reinterpret_cast<E*>(smem_raw);
-  E* Vs = Ks + kOwn * LD;
-  E* Qs = Vs + kOwn * LD;     // [2][BN][LD]
-  E* dOs = Qs + 2 * BN * LD;  // [2][BN][LD]
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + kOwn * LD;
+  float* Qs = Vs + kOwn * LD;     // [2][BN][LD]
+  float* dOs = Qs + 2 * BN * LD;  // [2][BN][LD]
   float* Ls = reinterpret_cast<float*>(dOs + 2 * BN * LD);  // [2][BN]
   float* Cs = Ls + 2 * BN;                                   // [2][BN]
 
@@ -669,8 +675,8 @@ flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
       cp_async_wait<0>();
     }
     __syncthreads();
-    const E* Qt = Qs + cur * BN * LD;
-    const E* dOt = dOs + cur * BN * LD;
+    const float* Qt = Qs + cur * BN * LD;
+    const float* dOt = dOs + cur * BN * LD;
     const float* Lt = Ls + cur * BN;
     const float* Ct = Cs + cur * BN;
     const int q0 = qt * BN;
@@ -690,8 +696,8 @@ flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
         Frag<2> bq, bdo;
         load_b_trans(bq, Qt + j * 8 * LD + kd * 8, LD, g, t4);
         load_b_trans(bdo, dOt + j * 8 * LD + kd * 8, LD, g, t4);
-        mma_split<kEx, kEx>(s[j], ak, bq);
-        mma_split<kEx, kEx>(dp[j], av, bdo);
+        mma_split<false, false>(s[j], ak, bq);
+        mma_split<false, false>(dp[j], av, bdo);
       }
     }
 
@@ -722,8 +728,8 @@ flash_dkv_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __re
           Frag<2> bdo, bq;
           load_b_perm(bdo, dOt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
           load_b_perm(bq, Qt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
-          mma_split<false, kEx>(part_v[nd], ap, bdo);
-          mma_split<false, kEx>(part_k[nd], ads, bq);
+          mma_split<false, false>(part_v[nd], ap, bdo);
+          mma_split<false, false>(part_k[nd], ads, bq);
         }
       }
 #pragma unroll
@@ -765,14 +771,14 @@ constexpr size_t tiles_smem() {
   return (kOwned * kOwn + 4 * kStreamRows) * tile_ld<D, E>() * sizeof(E);
 }
 
-template <int D, bool kCausal, typename E>
-cudaError_t run_fwd(const E* q, const E* k, const E* v, E* o, float* lse, int B, int T, int H,
-                    float scale, cudaStream_t st) {
-  const size_t smem = tiles_smem<D, 1, stream_rows<D, false>(), E>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal, E>, smem);
+template <int D, bool kCausal>
+cudaError_t run_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B,
+                    int T, int H, float scale, cudaStream_t st) {
+  const size_t smem = tiles_smem<D, 1, stream_rows<D, false>(), float>();
+  cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
-  flash_fwd_kernel<D, kCausal, E><<<tile_grid(B, T, H), kThreads, smem, st>>>(q, k, v, o, lse,
-                                                                              T, H, scale);
+  flash_fwd_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(q, k, v, o, lse, T,
+                                                                           H, scale);
   return cudaGetLastError();
 }
 
@@ -787,51 +793,52 @@ cudaError_t run_dq(const E* q, const E* k, const E* v, const E* dout, const floa
   return cudaGetLastError();
 }
 
-template <int D, bool kCausal, typename E>
-cudaError_t run_dkv(const E* q, const E* k, const E* v, const E* dout, const float* lse,
-                    const float* corr, E* dk, E* dv, int B, int T, int H, float scale,
-                    cudaStream_t st) {
+template <int D, bool kCausal>
+cudaError_t run_dkv(const float* q, const float* k, const float* v, const float* dout,
+                    const float* lse, const float* corr, float* dk, float* dv, int B, int T,
+                    int H, float scale, cudaStream_t st) {
   // + lse and corr, double-buffered
   constexpr int BN = stream_rows<D, true>();
-  const size_t smem = tiles_smem<D, 2, BN, E>() + 4 * BN * sizeof(float);
-  cudaError_t err = allow_smem(flash_dkv_kernel<D, kCausal, E>, smem);
+  const size_t smem = tiles_smem<D, 2, BN, float>() + 4 * BN * sizeof(float);
+  cudaError_t err = allow_smem(flash_dkv_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
-  flash_dkv_kernel<D, kCausal, E><<<tile_grid(B, T, H), kThreads, smem, st>>>(
+  flash_dkv_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(
       q, k, v, dout, lse, corr, dk, dv, T, H, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Instantiate RUN<D, causal, E> for the head dims the kernels support.
-#define FLASH_DISPATCH(RUN, E, ...)                                                       \
-  switch (D) {                                                                            \
-    case 16: return causal ? RUN<16, true, E>(__VA_ARGS__) : RUN<16, false, E>(__VA_ARGS__); \
-    case 32: return causal ? RUN<32, true, E>(__VA_ARGS__) : RUN<32, false, E>(__VA_ARGS__); \
-    case 64: return causal ? RUN<64, true, E>(__VA_ARGS__) : RUN<64, false, E>(__VA_ARGS__); \
-    case 128:                                                                             \
-      return causal ? RUN<128, true, E>(__VA_ARGS__) : RUN<128, false, E>(__VA_ARGS__);   \
-    default: return cudaErrorInvalidValue;                                                \
+// Instantiate RUN<D, causal> for the head dims the kernels support (run_dq's
+// element type follows its arguments).
+#define FLASH_DISPATCH(RUN, ...)                                                   \
+  switch (D) {                                                                     \
+    case 16: return causal ? RUN<16, true>(__VA_ARGS__) : RUN<16, false>(__VA_ARGS__); \
+    case 32: return causal ? RUN<32, true>(__VA_ARGS__) : RUN<32, false>(__VA_ARGS__); \
+    case 64: return causal ? RUN<64, true>(__VA_ARGS__) : RUN<64, false>(__VA_ARGS__); \
+    case 128:                                                                      \
+      return causal ? RUN<128, true>(__VA_ARGS__) : RUN<128, false>(__VA_ARGS__);  \
+    default: return cudaErrorInvalidValue;                                         \
   }
 
-// The three C entry points for element type E, named NAME_fwd, NAME_bwd_dq and
-// NAME_bwd_dkv.
-#define FLASH_ENTRY_POINTS(NAME, E)                                                        \
+// The three C entry points for element type E, named NAME_fwd, NAME_bwd_dq
+// and NAME_bwd_dkv, over the run functions FWD, DQ and DKV.
+#define FLASH_ENTRY_POINTS(NAME, E, FWD, DQ, DKV)                                          \
   extern "C" int NAME##_fwd(const E* q, const E* k, const E* v, E* o, float* lse, int B,   \
                             int T, int H, int D, int causal, float scale, void* stream) {  \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);                             \
-    FLASH_DISPATCH(run_fwd, E, q, k, v, o, lse, B, T, H, scale, st)                        \
+    FLASH_DISPATCH(FWD, q, k, v, o, lse, B, T, H, scale, st)                               \
   }                                                                                        \
   extern "C" int NAME##_bwd_dq(const E* q, const E* k, const E* v, const E* dout,          \
                                const float* lse, const float* corr, E* dq, int B, int T,   \
                                int H, int D, int causal, float scale, void* stream) {      \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);                             \
-    FLASH_DISPATCH(run_dq, E, q, k, v, dout, lse, corr, dq, B, T, H, scale, st)            \
+    FLASH_DISPATCH(DQ, q, k, v, dout, lse, corr, dq, B, T, H, scale, st)                   \
   }                                                                                        \
   extern "C" int NAME##_bwd_dkv(const E* q, const E* k, const E* v, const E* dout,         \
                                 const float* lse, const float* corr, E* dk, E* dv, int B,  \
                                 int T, int H, int D, int causal, float scale,              \
                                 void* stream) {                                            \
     const cudaStream_t st = static_cast<cudaStream_t>(stream);                             \
-    FLASH_DISPATCH(run_dkv, E, q, k, v, dout, lse, corr, dk, dv, B, T, H, scale, st)       \
+    FLASH_DISPATCH(DKV, q, k, v, dout, lse, corr, dk, dv, B, T, H, scale, st)              \
   }

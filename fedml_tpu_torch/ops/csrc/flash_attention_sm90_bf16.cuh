@@ -1,0 +1,900 @@
+// The bf16 flash forward and dK/dV kernels written for Hopper (sm_90a):
+// flash_fwd_wgmma_kernel and flash_dkv_wgmma_kernel, behind the bf16 C entry
+// points flash_attention_bf16_fwd and flash_attention_bf16_bwd_dkv
+// (flash_attention_bf16.cu). They replace, on bf16 inputs, the Pallas TPU
+// kernels _fwd_kernel (fedml_tpu/ops/flash_attention.py:79) and
+// _bwd_dkv_kernel (:238), and in this port the bf16 instantiations of
+// flash_fwd_kernel and flash_dkv_kernel (flash_attention.cuh), which ran them
+// as TF32 mma.sync products on operands converted to float32 per fragment.
+// bf16 dQ stays on flash_dq_kernel<D, causal, __nv_bfloat16>.
+//
+// What they compute is the reference's on bf16 inputs (:84-107, :243-265):
+// every tile is read as float32 and the math is float32; o, dK and dV are
+// rounded to bf16 once, to nearest even; lse and corr stay float32; masked
+// scores are -1e30, the forward's l is floored at 1e-30, tiles wholly above
+// the causal diagonal are skipped and keys k >= T are masked. No atomics, and
+// every sum runs in a fixed order, so runs repeat bitwise.
+//
+// What bounds them: tensor-core work. Per unmasked (query, key) pair the
+// forward does 2*D flops of Q K^T and 2*D of P V, dK/dV 2*D each of
+// S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q. A product of
+// two bf16 tiles (Q K^T, K Q^T, V dO^T) is exact in one bf16 pass with a
+// float32 accumulator. A product of a float32 tile (P, dS) and a bf16 tile
+// needs the float32 operand carried to float32 accuracy: each x is split in
+// registers into three bf16 parts, hi = rn(x), mid = rn(x - hi),
+// lo = rn(x - hi - mid) (each residual exact in float32, so hi + mid + lo
+// = x for |x| >= 2^-100), and the product runs as three bf16 passes,
+// smallest first (lo, mid, hi). That carries 24 significant bits where two
+// TF32 passes carry 22, at 3 x 1/989.4 against 2 x 1/495 s per PFLOP: the
+// cheapest float32-accurate recipe on the card, and the one chip_smoke.py's
+// bf16 bound prices. Two passes would be a different result.
+//
+// The design (the Hopper shape: TMA ring, warp-specialised warpgroups):
+// - Block: warpgroup 0 is the producer: one thread issues every TMA copy
+//   (for dK/dV its warp also stages lse and corr). Each consumer warpgroup
+//   owns 64 rows (queries in the forward, keys in dK/dV). Three consumers at
+//   D <= 32, two above; dK/dV at D = 128 has one. setmaxnreg hands the
+//   producer's registers to the consumers (WgBlock).
+// - Loads: the owned tiles (Q; K and V) come once, the streamed tiles (K and
+//   V; Q and dO) through a ring of kStages buffers in shared memory, each by
+//   cp.async.bulk.tensor over the [B, T, H, D] tensor (dims D, H, T, B; box
+//   min(D, 64) x 1 x rows x 1), completing on an mbarrier per buffer; the
+//   consumers free a buffer with an arrive per warp. Rows at or beyond T
+//   arrive zero-filled. A row of D bf16 values is 32, 64 or 128 bytes and
+//   takes the swizzle of that width; D = 128 is two 64-column panels.
+// - Products: wgmma.mma_async m64nNk16, bf16 x bf16 -> float32. The
+//   exact products read both operands from shared memory, K-major (Q, K, V,
+//   dO rows as they are stored). The split products take A from registers:
+//   the m64 accumulator layout of S (or S^T, dS^T) is the A fragment layout,
+//   so P and dS are split and packed where they lie. B (V; dO and Q) is read
+//   MN-major, transposed by the tensor core, which wgmma allows for 16-bit
+//   types. O, dK and dV accumulate across tiles in the wgmma accumulator
+//   (their outputs are bf16: the drift of the accumulator's truncating adds,
+//   ~1e-6 relative, is far inside one bf16 ulp).
+// - Overlap: every product batch is its own wgmma group behind its own
+//   fence. The forward issues tile k+1's S before tile k's P V and runs tile
+//   k+1's softmax while P V is on the tensor cores; dK/dV computes P^T while
+//   dP^T runs and dS^T while P^T dO runs. The forward's last tile is peeled,
+//   so no wgmma issues under a branch.
+// - Softmax: online, in the accumulator's registers; a row lies in a quad,
+//   so its max takes a tree over the lane's values and two shuffles; scores
+//   in log2 units, one ex2 each; masking only on tiles that cross the
+//   diagonal or the ragged edge.
+// - Registers bound the tiles. ptxas compiles a consumer to the block's
+//   launch share (168 registers at two consumers, 128 at three), not to the
+//   count setmaxnreg raises it to at run time, and it serializes every wgmma
+//   (a wait after each) when a thread's accumulators, the next product's
+//   scores and the split fragments in flight do not fit: the forward streams
+//   64 keys (32 at D = 128), dK/dV 32 queries (16 at D = 128, where dK and
+//   dV hold 128 registers a thread and one consumer gets 255). The host
+//   refuses to launch a kernel that ptxas gave other than the block's share
+//   (kErrRegisterShare), since the raise would then wait forever.
+// - A wait that never completes traps after 2^34 SM cycles (9-17 s at the
+//   card's clocks) instead of hanging the card.
+//
+// The tensor maps are built on the host per call with cuTensorMapEncodeTiled,
+// reached through cudaGetDriverEntryPoint (no -lcuda), and passed as
+// __grid_constant__ kernel parameters. q, k, v and dO must start on a 16-byte
+// boundary (the Python wrappers refuse other views).
+
+#pragma once
+
+#include <cuda.h>  // CUtensorMap and the driver's enums; the entry point is fetched at run time
+
+#include "flash_attention.cuh"
+
+namespace {
+
+constexpr int kWgThreads = 128;
+constexpr int kStages = 3;
+
+// A block: the producer warpgroup and kConsumers consumer warpgroups of 64
+// owned rows each. A thread of it has kRegisters registers at launch (the
+// register file over the block's threads, in units of 8): ptxas compiles
+// the consumers to that count, and setmaxnreg hands the producer's unused
+// registers to them at run time (24 left to the producer, exactly what the
+// consumers' raise needs; a raise the pool cannot meet would wait forever).
+template <int kConsumers_>
+struct WgBlock {
+  static constexpr int kConsumers = kConsumers_;
+  static constexpr int kThreads = (1 + kConsumers) * kWgThreads;
+  static constexpr int kRows = 64 * kConsumers;  // rows a block owns
+  static constexpr int kConsumerWarps = 4 * kConsumers;
+  static constexpr int kShare = 65536 / kThreads / 8 * 8;
+  static constexpr int kRegisters = kShare > 255 ? 255 : kShare;
+  static constexpr int kProducerRegisters = 24;
+  static constexpr int kConsumerRegisters =
+      kRegisters + (kRegisters - kProducerRegisters) / kConsumers / 8 * 8;
+};
+// Consumer warpgroups a block, by what a thread's accumulators need: three
+// at D <= 32 (128 registers each), two up to D = 64 (168), and for dK/dV at
+// D = 128, whose dK and dV alone hold 128, one (255, no rebalancing).
+template <int D>
+__host__ __device__ constexpr int fwd_consumers() { return D <= 32 ? 3 : 2; }
+template <int D>
+__host__ __device__ constexpr int dkv_consumers() { return D <= 32 ? 3 : D <= 64 ? 2 : 1; }
+
+// The columns of one shared-memory panel (a swizzle row: 32, 64 or 128 B).
+template <int D>
+__host__ __device__ constexpr int panel() { return D < 64 ? D : 64; }
+// Bytes of a rows x D bf16 tile: its panels one after the other.
+template <int D>
+__host__ __device__ constexpr uint32_t tile_bytes(int rows) { return (uint32_t)rows * D * 2; }
+// Key rows of the forward's streamed tiles, and query rows of dK/dV's: sized
+// so that a consumer thread's accumulators, the next product's scores and
+// the split A fragments in flight fit its registers (WgBlock); fewer at
+// D = 128, where O (dK and dV) hold 64 (128) of them.
+template <int D>
+__host__ __device__ constexpr int fwd_stream_rows() { return D > 64 ? 32 : 64; }
+template <int D>
+__host__ __device__ constexpr int dkv_stream_rows() { return D > 64 ? 16 : 32; }
+static_assert(WgBlock<2>::kConsumerRegisters == 240 && WgBlock<3>::kConsumerRegisters == 160,
+              "the consumers' raise is what the producer frees");
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ------------------------------------------------------------ mbarriers, TMA
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+// Wait for the phase of parity `parity` to complete; trap after 2^34 cycles
+// of this SM's clock, so a fault in the pipeline ends the launch with an
+// error instead of a hang. (The SM's own counter: a step of %globaltimer,
+// which the driver keeps in line with the host's clock, could trap a sound
+// wait.)
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const long long t0 = clock64();
+  while (!mbar_try_wait(bar, parity))
+    if (clock64() - t0 > (1ll << 34)) __trap();
+}
+
+// Rows t0 .. t0+rows-1 of head h of batch b, columns d0 .. d0+panel-1, into
+// the panel at shared address dst.
+__device__ __forceinline__ void tma_rows(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int d0, int h, int t0, int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(d0), "r"(h), "r"(t0), "r"(b)
+      : "memory");
+}
+// A rows x D tile: one copy per panel.
+template <int D>
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int rows, int h, int t0, int b) {
+#pragma unroll
+  for (int p = 0; p < D / panel<D>(); ++p)
+    tma_rows(dst + p * rows * panel<D>() * 2, map, bar, p * panel<D>(), h, t0, b);
+}
+
+// ------------------------------------------------------------------- wgmma
+// Shared-memory matrix descriptor: start address, leading and stride byte
+// offsets, and the swizzle of a D-wide tile's panels (128 B: 1, 64 B: 2,
+// 32 B: 3).
+template <int D>
+__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  constexpr uint64_t kSwizzle = panel<D>() == 64 ? 1 : panel<D>() == 32 ? 2 : 3;
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (kSwizzle << 62);
+}
+// Operand contracted over D (K-major): rows row0 .. of a ROWS x D tile at
+// `tile`, the 16 columns of step kk. Eight-row groups lie a panel row x 8
+// apart; a step moves 32 bytes along the (swizzled) row, or to the next panel.
+template <int D, int ROWS>
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
+  constexpr int P = panel<D>(), PB = 2 * P;
+  return wg_desc<D>(tile + (kk * 16 / P) * ROWS * PB + row0 * PB + (kk * 16 % P) * 2, 16,
+                    8 * PB);
+}
+// Operand contracted over its rows (MN-major, N = D): rows 16kk .. 16kk+15
+// of a ROWS x D tile. Eight-row groups lie 8 panel rows apart, panels (the
+// next 64 columns of N) ROWS panel rows apart.
+template <int D, int ROWS>
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
+  constexpr int PB = 2 * panel<D>();
+  return wg_desc<D>(tile + kk * 16 * PB, ROWS * PB, 8 * PB);
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Wait until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wg_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pin accumulator registers: no read of them moves above the wait, no write
+// below the next product's issue.
+template <int N>
+__device__ __forceinline__ void pin(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// wgmma.mma_async m64nNk16, f32 += bf16 x bf16: ss takes A and B from
+// shared-memory descriptors, rs takes A from four registers per thread (the
+// m64k16 A fragment); kTransB = 1 reads B MN-major. scale_d = 0 overwrites d.
+template <int N>
+struct Wg;
+
+template <>
+struct Wg<16> {
+  template <int kTransB>
+  static __device__ __forceinline__ void ss(float (&d)[8], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "%8, %9, p, 1, 1, 0, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float (&d)[8], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+        "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(kTransB));
+  }
+};
+
+template <>
+struct Wg<32> {
+  template <int kTransB>
+  static __device__ __forceinline__ void ss(float (&d)[16], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float (&d)[16], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(kTransB));
+  }
+};
+
+template <>
+struct Wg<64> {
+  template <int kTransB>
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t da, uint64_t db,
+                                            int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(scale_d), "n"(kTransB));
+  }
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float (&d)[32], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(kTransB));
+  }
+};
+
+template <>
+struct Wg<128> {  // O, dK and dV at D = 128 (no 128-wide score tile)
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float (&d)[64], const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+          "n"(kTransB));
+  }
+};
+
+// ----------------------------------------------------------- the 3 x bf16 split
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+// Two float32 values (columns c, c+1 of an accumulator row) split into hi,
+// mid and lo bf16 pairs, packed as A-fragment registers (c in the low half).
+__device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                       uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  x0 -= __low2float(h);
+  x1 -= __high2float(h);
+  const __nv_bfloat162 m = __floats2bfloat162_rn(x0, x1);
+  x0 -= __low2float(m);
+  x1 -= __high2float(m);
+  hi = bf16x2_bits(h);
+  mid = bf16x2_bits(m);
+  lo = bf16x2_bits(__floats2bfloat162_rn(x0, x1));
+}
+// The float32 m64 accumulator x as A fragments of a product contracted over
+// its columns: a[kk][0..2] are the lo, mid and hi parts of columns
+// 16kk .. 16kk+15.
+template <int NX>
+__device__ __forceinline__ void split_frags(uint32_t (&a)[NX / 8][3][4], const float (&x)[NX]) {
+#pragma unroll
+  for (int kk = 0; kk < NX / 8; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      split3(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1], a[kk][2][r], a[kk][1][r], a[kk][0][r]);
+}
+// acc += x * B in three bf16 passes a step, smallest first, B MN-major in
+// the ROWS x D tile at `tile` (its rows are the contraction).
+template <int D, int ROWS, int NK>
+__device__ __forceinline__ void mma_split3(float (&acc)[D / 2], const uint32_t (&a)[NK][3][4],
+                                           uint32_t tile) {
+#pragma unroll
+  for (int kk = 0; kk < NK; ++kk) {
+    const uint64_t db = desc_mn<D, ROWS>(tile, kk);
+#pragma unroll
+    for (int pass = 0; pass < 3; ++pass) Wg<D>::template rs<1>(acc, a[kk][pass], db, 1);
+  }
+}
+// 2^x, flushing results below 2^-126 to zero (no output can see them).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// Shared memory of a block: barriers (and dK/dV's lse and corr rows) in the
+// head, then the tiles from the first 1024-byte boundary (the 128-byte
+// swizzle's period).
+constexpr uint32_t kHeadBytes = 2048;
+__device__ __forceinline__ uint32_t tiles_base(const unsigned char* smem) {
+  return (smem_addr(smem) + kHeadBytes + 1023) & ~1023u;
+}
+
+// op over row r (0: g, 1: g+8) of this lane's part of an m64nN accumulator,
+// as a tree (a fixed order, a short dependency chain).
+template <int N, typename Op>
+__device__ __forceinline__ float row_reduce(const float (&x)[N / 2], int r, Op op) {
+  float t[N / 8];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) t[j] = op(x[4 * j + 2 * r], x[4 * j + 2 * r + 1]);
+#pragma unroll
+  for (int w = N / 16; w > 0; w /= 2)
+#pragma unroll
+    for (int j = 0; j < w; ++j) t[j] = op(t[j], t[j + w]);
+  return t[0];
+}
+
+// The register rebalancing of WgBlock<kConsumers>, one call per warpgroup
+// (none for a single consumer, which has all it can address).
+template <int kConsumers>
+__device__ __forceinline__ void producer_registers() {
+  if constexpr (kConsumers > 1)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n"
+                 ::"n"(WgBlock<kConsumers>::kProducerRegisters));
+}
+template <int kConsumers>
+__device__ __forceinline__ void consumer_registers() {
+  if constexpr (kConsumers > 1)
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n"
+                 ::"n"(WgBlock<kConsumers>::kConsumerRegisters));
+}
+
+// O and lse for one query tile (64 rows a consumer warpgroup), streaming K
+// and V tiles of fwd_stream_rows<D>() rows. Within a warpgroup the next
+// tile's S = Q K^T is issued before this tile's P V, and its softmax runs
+// while P V is on the tensor cores (two wgmma groups in flight); the last
+// tile is peeled, so no wgmma issues under a branch.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(WgBlock<fwd_consumers<D>()>::kThreads, 1)
+flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                       float* __restrict__ lse, int T, int H, float scale) {
+  using Blk = WgBlock<fwd_consumers<D>()>;
+  constexpr int BN = fwd_stream_rows<D>(), BQ = Blk::kRows;
+  constexpr uint32_t kQBytes = tile_bytes<D>(BQ), kKVBytes = tile_bytes<D>(BN);
+  extern __shared__ __align__(1024) unsigned char smem[];
+  // barriers: q_full, k_full[kStages], v_full[kStages], empty[kStages]
+  const uint32_t bar0 = smem_addr(smem);
+  const uint32_t q_full = bar0, k_full = bar0 + 8, v_full = k_full + 8 * kStages,
+                 empty = v_full + 8 * kStages;
+  const uint32_t Qs = tiles_base(smem), Ks = Qs + kQBytes, Vs = Ks + kStages * kKVBytes;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const int n_all = (T + BN - 1) / BN;
+  const int n_tiles = kCausal ? min(n_all, (q0 + BQ + BN - 1) / BN) : n_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, Blk::kConsumerWarps);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {  // producer
+    producer_registers<fwd_consumers<D>()>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, kQBytes);
+      tma_tile<D>(Qs, &tm_q, q_full, BQ, h, q0, b);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full + 8 * s, kKVBytes);
+        tma_tile<D>(Ks + s * kKVBytes, &tm_k, k_full + 8 * s, BN, h, kt * BN, b);
+        mbar_arrive_expect_tx(v_full + 8 * s, kKVBytes);
+        tma_tile<D>(Vs + s * kKVBytes, &tm_v, v_full + 8 * s, BN, h, kt * BN, b);
+      }
+    }
+  } else {  // consumers
+    consumer_registers<fwd_consumers<D>()>();
+    const int c = threadIdx.x / kWgThreads - 1, tid = threadIdx.x % kWgThreads;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int rw = q0 + 64 * c + 16 * warp;  // this warp's first query row
+    const float scale2 = scale * kLog2e;     // scores in log2 units
+
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};  // rows g, g+8
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    // S = Q K^T of key tile kt into sc: one bf16 pass, exact products, both
+    // operands K-major from shared memory; one wgmma group
+    auto issue_s = [&](float(&sc)[BN / 2], int kt) {
+      const int s = kt % kStages;
+      mbar_wait(k_full + 8 * s, (kt / kStages) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wg<BN>::template ss<0>(sc, desc_k<D, BQ>(Qs, 64 * c, kk),
+                               desc_k<D, BN>(Ks + s * kKVBytes, 0, kk), kk > 0);
+      wg_commit();
+    };
+    // O += P V of key tile kt: P split in three bf16 passes, V read MN-major;
+    // one wgmma group
+    auto issue_pv = [&](const uint32_t(&a)[BN / 16][3][4], int kt) {
+      const int s = kt % kStages;
+      mbar_wait(v_full + 8 * s, (kt / kStages) & 1);
+      wg_fence();
+      mma_split3<D, BN>(acc, a, Vs + s * kKVBytes);
+      wg_commit();
+    };
+    // online softmax of key tile kt: P (log2 units) in place of the raw
+    // scores, m and l updated, corr the rescale of O
+    auto softmax = [&](float(&sc)[BN / 2], int kt, float(&corr)[2]) {
+      const int k0 = kt * BN;
+      // mask where the tile crosses the ragged edge or, for this warp's
+      // rows, the causal diagonal (a warp-uniform test)
+      if (k0 + BN > T || (kCausal && k0 + BN - 1 > rw)) {
+#pragma unroll
+        for (int i = 0; i < BN / 2; ++i) {
+          const int qpos = rw + g + 8 * ((i >> 1) & 1);
+          const int kpos = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          if (kpos >= T || (kCausal && kpos > qpos)) sc[i] = kNegInf;
+        }
+      }
+      const auto max_op = [](float x, float y) { return fmaxf(x, y); };
+      const auto add_op = [](float x, float y) { return x + y; };
+      float mx[2], rs[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) mx[r] = row_reduce<BN>(sc, r, max_op);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        const float m_new = fmaxf(m_r[r], mx[r] * scale2);  // max commutes with scale2 > 0
+        corr[r] = ex2(m_r[r] - m_new);
+        m_r[r] = m_new;
+      }
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) sc[i] = ex2(fmaf(sc[i], scale2, -m_r[(i >> 1) & 1]));
+#pragma unroll
+      for (int r = 0; r < 2; ++r) rs[r] = row_reduce<BN>(sc, r, add_op);
+#pragma unroll
+      for (int r = 0; r < 2; ++r) l_r[r] = l_r[r] * corr[r] + rs[r];
+    };
+
+    float sc[BN / 2], corr[2];
+    uint32_t a[BN / 16][3][4];  // P split in three
+    mbar_wait(q_full, 0);
+    issue_s(sc, 0);
+    wg_wait<0>();
+    pin(sc);
+    softmax(sc, 0, corr);  // O is still zero: nothing to rescale
+    for (int kt = 0; kt + 1 < n_tiles; ++kt) {
+      split_frags(a, sc);
+      issue_s(sc, kt + 1);  // runs on the tensor cores before this tile's P V
+      issue_pv(a, kt);
+      wg_wait<1>();  // the next S is done, P V may still run
+      pin(sc);
+      softmax(sc, kt + 1, corr);
+      wg_wait<0>();
+      pin(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * (kt % kStages));  // this warp is done with it
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] *= corr[(i >> 1) & 1];
+    }
+    split_frags(a, sc);  // the last tile (its buffer is not refilled)
+    issue_pv(a, n_tiles - 1);
+    wg_wait<0>();
+    pin(acc);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = l_r[r];  // the quad's four parts of the row sum
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      const int t = rw + g + 8 * r;
+      if (t < T) {
+        const float l_safe = fmaxf(l, 1e-30f);
+        __nv_bfloat16* row = o + ((size_t)b * T + t) * H * D + (size_t)h * D + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          store2(row + 8 * j, acc[4 * j + 2 * r] / l_safe, acc[4 * j + 2 * r + 1] / l_safe);
+        if (t4 == 0) lse[(size_t)bh * T + t] = m_r[r] * kLn2 + logf(l_safe);
+      }
+    }
+  }
+}
+
+// dK and dV for one key tile (64 rows a consumer warpgroup), streaming
+// query tiles of dkv_stream_rows<D>() rows from the diagonal on: with the
+// scores held transposed (key rows x query columns), P^T = exp(S^T - lse),
+// dS^T = P^T * (dP^T + corr), dV += P^T dO and dK += scale * dS^T Q. S^T and
+// dP^T are two wgmma groups, so P^T is computed while dP^T runs; P^T dO is
+// issued before dS^T is computed, so dS^T is computed while it runs.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(WgBlock<dkv_consumers<D>()>::kThreads, 1)
+flash_dkv_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                       const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v,
+                       const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                       const float* __restrict__ corr, __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, int T, int H, float scale) {
+  using Blk = WgBlock<dkv_consumers<D>()>;
+  constexpr int BM = dkv_stream_rows<D>(), BK = Blk::kRows;
+  constexpr uint32_t kKVBytes = tile_bytes<D>(BK), kQBytes = tile_bytes<D>(BM);
+  extern __shared__ __align__(1024) unsigned char smem[];
+  // head: kv_full, full[kStages], empty[kStages], then lse * log2(e) and
+  // corr rows of each buffer
+  const uint32_t bar0 = smem_addr(smem);
+  const uint32_t kv_full = bar0, full = bar0 + 8, empty = full + 8 * kStages;
+  float* Ls = reinterpret_cast<float*>(smem + 256);  // [kStages][BM]
+  float* Cs = Ls + kStages * BM;                      // [kStages][BM]
+  const uint32_t Ks = tiles_base(smem), Vs = Ks + kKVBytes, Qs = Vs + kKVBytes,
+                 dOs = Qs + kStages * kQBytes;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int k0 = blockIdx.y * BK;  // tile 0 visits the most query tiles: first
+  const int qt0 = kCausal ? k0 / BM : 0;
+  const int n_q = (T + BM - 1) / BM;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1 + 32);                // the copies' arrive + the lse / corr warp
+      mbar_init(empty + 8 * s, Blk::kConsumerWarps);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {  // producer
+    producer_registers<dkv_consumers<D>()>();
+    if (threadIdx.x < 32) {
+      const int lane = threadIdx.x;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kv_full, 2 * kKVBytes);
+        tma_tile<D>(Ks, &tm_k, kv_full, BK, h, k0, b);
+        tma_tile<D>(Vs, &tm_v, kv_full, BK, h, k0, b);
+      }
+      const float* lse_h = lse + (size_t)bh * T;
+      const float* corr_h = corr + (size_t)bh * T;
+      for (int qt = qt0; qt < n_q; ++qt) {
+        const int it = qt - qt0, s = it % kStages;
+        if (it >= kStages) mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
+        if (lane == 0) {
+          mbar_arrive_expect_tx(full + 8 * s, 2 * kQBytes);
+          tma_tile<D>(Qs + s * kQBytes, &tm_q, full + 8 * s, BM, h, qt * BM, b);
+          tma_tile<D>(dOs + s * kQBytes, &tm_do, full + 8 * s, BM, h, qt * BM, b);
+        }
+        for (int i = lane; i < BM; i += 32) {  // entries >= T are 0 (and masked)
+          const int t = qt * BM + i;
+          Ls[s * BM + i] = t < T ? lse_h[t] * kLog2e : 0.f;  // log2 units
+          Cs[s * BM + i] = t < T ? corr_h[t] : 0.f;
+        }
+        mbar_arrive(full + 8 * s);
+      }
+    }
+  } else {  // consumers
+    consumer_registers<dkv_consumers<D>()>();
+    const int c = threadIdx.x / kWgThreads - 1, tid = threadIdx.x % kWgThreads;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int kw = k0 + 64 * c + 16 * warp;  // this warp's first key row
+    const float scale2 = scale * kLog2e;
+
+    float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+
+    mbar_wait(kv_full, 0);
+    for (int qt = qt0; qt < n_q; ++qt) {
+      const int it = qt - qt0, s = it % kStages, q0 = qt * BM;
+      const uint32_t Qt = Qs + s * kQBytes, dOt = dOs + s * kQBytes;
+      const float* Lt = Ls + s * BM;
+      const float* Ct = Cs + s * BM;
+
+      // S^T = K Q^T and dP^T = V dO^T: one bf16 pass each, two wgmma groups
+      float sc[BM / 2], dp[BM / 2];
+      mbar_wait(full + 8 * s, (it / kStages) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wg<BM>::template ss<0>(sc, desc_k<D, BK>(Ks, 64 * c, kk), desc_k<D, BM>(Qt, 0, kk),
+                               kk > 0);
+      wg_commit();
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wg<BM>::template ss<0>(dp, desc_k<D, BK>(Vs, 64 * c, kk), desc_k<D, BM>(dOt, 0, kk),
+                               kk > 0);
+      wg_commit();
+
+      // P^T = exp(S^T scale - lse) in place of S^T while dP^T runs (columns
+      // 2t4, 2t4+1 of each 8 share a float2 of lse)
+      wg_wait<1>();
+      pin(sc);
+      const bool edge = kw + 15 >= T || q0 + BM > T || (kCausal && kw + 15 > q0);
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const float2 l2 = *reinterpret_cast<const float2*>(Lt + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e, col = 8 * j + 2 * t4 + (e & 1);
+          const int kpos = kw + g + 8 * (e >> 1), qpos = q0 + col;
+          const bool ok = !edge || (kpos < T && qpos < T && (!kCausal || kpos <= qpos));
+          sc[i] = ex2(fmaf(ok ? sc[i] : kNegInf, scale2, -((e & 1) ? l2.y : l2.x)));
+        }
+      }
+      // dV += P^T dO: three bf16 passes, dO read MN-major
+      uint32_t ap[BM / 16][3][4];
+      split_frags(ap, sc);
+      wg_fence();
+      mma_split3<D, BM>(acc_v, ap, dOt);
+      wg_commit();
+      wg_wait<1>();  // dP^T done, P^T dO may still run
+      pin(dp);
+      // dS^T = P^T * (dP^T + corr) in place of dP^T, while P^T dO runs
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+        const float2 c2 = *reinterpret_cast<const float2*>(Ct + 8 * j + 2 * t4);
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dp[4 * j + e] = sc[4 * j + e] * (dp[4 * j + e] + ((e & 1) ? c2.y : c2.x));
+      }
+      // dK += dS^T Q: three bf16 passes, Q read MN-major
+      uint32_t ads[BM / 16][3][4];
+      split_frags(ads, dp);
+      wg_fence();
+      mma_split3<D, BM>(acc_k, ads, Qt);
+      wg_commit();
+      wg_wait<0>();
+      pin(acc_v);
+      pin(acc_k);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * s);
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = kw + g + 8 * r;
+      if (t < T) {
+        const size_t off = ((size_t)b * T + t) * H * D + (size_t)h * D + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          store2(dk + off + 8 * j, acc_k[4 * j + 2 * r] * scale, acc_k[4 * j + 2 * r + 1] * scale);
+          store2(dv + off + 8 * j, acc_v[4 * j + 2 * r], acc_v[4 * j + 2 * r + 1]);
+        }
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------- host
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// The driver's cuTensorMapEncodeTiled, fetched once through the runtime.
+inline EncodeTiledFn encode_tiled() {
+  static const EncodeTiledFn fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                             cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiledFn>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The tensor map of a contiguous [B, T, H, D] bf16 tensor read as tiles of
+// `rows` rows of one head, a panel of columns per copy, in the swizzle of
+// the panel's width; rows at or beyond T arrive as zeros.
+template <int D>
+cudaError_t rows_map(CUtensorMap* map, const __nv_bfloat16* x, int B, int T, int H, int rows) {
+  const EncodeTiledFn encode = encode_tiled();
+  if (encode == nullptr) return cudaErrorNotSupported;
+  constexpr int P = panel<D>();
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)T, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)D * 2, (cuuint64_t)H * D * 2,
+                                 (cuuint64_t)T * H * D * 2};
+  const cuuint32_t box[4] = {(cuuint32_t)P, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t steps[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle = P == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                                     : P == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                               : CU_TENSOR_MAP_SWIZZLE_32B;
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                            const_cast<__nv_bfloat16*>(x), dims, strides, box, steps,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// What run_fwd_wgmma / run_dkv_wgmma return, in place of a cudaError_t,
+// for a kernel that ptxas gave other than its block's register share.
+constexpr int kErrRegisterShare = -1;
+
+// setmaxnreg balances only if ptxas gave each thread of a block of several
+// consumers exactly the block's share at launch; with fewer, the consumers'
+// raise asks for more than the producer frees and waits until the trap.
+// Asked once per kernel.
+template <typename Blk, typename Kernel>
+cudaError_t check_share(Kernel kernel) {
+  if (Blk::kConsumers == 1) return cudaSuccess;  // no rebalancing
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err != cudaSuccess) return err;
+  return attr.numRegs == Blk::kRegisters ? cudaSuccess
+                                         : static_cast<cudaError_t>(kErrRegisterShare);
+}
+
+// The grid is (B*H, tiles of `rows`): blocks issue x first, so the tiles that
+// do the most causal work go first for every head.
+inline dim3 wg_grid(int B, int T, int H, int rows) { return dim3(B * H, (T + rows - 1) / rows); }
+
+template <int D, bool kCausal>
+cudaError_t run_fwd_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                          const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int B, int T,
+                          int H, float scale, cudaStream_t st) {
+  using Blk = WgBlock<fwd_consumers<D>()>;
+  constexpr int BN = fwd_stream_rows<D>();
+  static const cudaError_t share = check_share<Blk>(flash_fwd_wgmma_kernel<D, kCausal>);
+  if (share != cudaSuccess) return share;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err;
+  if ((err = rows_map<D>(&mq, q, B, T, H, Blk::kRows)) != cudaSuccess ||
+      (err = rows_map<D>(&mk, k, B, T, H, BN)) != cudaSuccess ||
+      (err = rows_map<D>(&mv, v, B, T, H, BN)) != cudaSuccess)
+    return err;
+  const size_t smem =
+      kHeadBytes + 1024 + tile_bytes<D>(Blk::kRows) + 2 * kStages * tile_bytes<D>(BN);
+  if ((err = allow_smem(flash_fwd_wgmma_kernel<D, kCausal>, smem)) != cudaSuccess) return err;
+  flash_fwd_wgmma_kernel<D, kCausal><<<wg_grid(B, T, H, Blk::kRows), Blk::kThreads, smem, st>>>(
+      mq, mk, mv, o, lse, T, H, scale);
+  return cudaGetLastError();
+}
+
+template <int D, bool kCausal>
+cudaError_t run_dkv_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                          const __nv_bfloat16* v, const __nv_bfloat16* dout, const float* lse,
+                          const float* corr, __nv_bfloat16* dk, __nv_bfloat16* dv, int B, int T,
+                          int H, float scale, cudaStream_t st) {
+  using Blk = WgBlock<dkv_consumers<D>()>;
+  constexpr int BM = dkv_stream_rows<D>();
+  static const cudaError_t share = check_share<Blk>(flash_dkv_wgmma_kernel<D, kCausal>);
+  if (share != cudaSuccess) return share;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  if ((err = rows_map<D>(&mq, q, B, T, H, BM)) != cudaSuccess ||
+      (err = rows_map<D>(&mk, k, B, T, H, Blk::kRows)) != cudaSuccess ||
+      (err = rows_map<D>(&mv, v, B, T, H, Blk::kRows)) != cudaSuccess ||
+      (err = rows_map<D>(&mdo, dout, B, T, H, BM)) != cudaSuccess)
+    return err;
+  const size_t smem =
+      kHeadBytes + 1024 + 2 * tile_bytes<D>(Blk::kRows) + 2 * kStages * tile_bytes<D>(BM);
+  if ((err = allow_smem(flash_dkv_wgmma_kernel<D, kCausal>, smem)) != cudaSuccess) return err;
+  flash_dkv_wgmma_kernel<D, kCausal><<<wg_grid(B, T, H, Blk::kRows), Blk::kThreads, smem, st>>>(
+      mq, mk, mv, mdo, lse, corr, dk, dv, T, H, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -1,8 +1,10 @@
 """Flash attention (forward + backward) as hand-written CUDA kernels.
 
 Port of fedml_tpu/ops/flash_attention.py. The three Pallas TPU kernels
-(_fwd_kernel, _bwd_dq_kernel, _bwd_dkv_kernel) become the three CUDA kernels
-of ``csrc/flash_attention.cuh``; ``jax.custom_vjp`` becomes
+(_fwd_kernel, _bwd_dq_kernel, _bwd_dkv_kernel) become CUDA kernels:
+``csrc/flash_attention.cuh``'s mma.sync kernels for float32 and for bf16
+dQ, and ``csrc/flash_attention_sm90_bf16.cuh``'s wgmma kernels, fed by TMA,
+for the bf16 forward and dK/dV; ``jax.custom_vjp`` becomes
 ``torch.autograd.Function``. As the reference's, they take q, k, v and dO
 in float32 or bfloat16 (one dtype for all four), compute in float32 and
 write o, dQ, dK and dV in that dtype; lse and corr are float32. Each dtype
@@ -15,7 +17,7 @@ Layout: [B, T, H, D] in and out, as in the JAX package, and lse is
 [B, H, T]. The kernels index that layout with strides and mask the ragged
 edge themselves, so no transpose or padding copy surrounds them. The JAX
 functions' ``block_q`` / ``block_k`` (TPU tile sizes) have no counterpart:
-the CUDA kernels' 64-row tiles are compile-time constants.
+the CUDA kernels' tiles are compile-time constants.
 
 The autograd functions run under ``torch.func`` (``grad``, ``vmap``): under
 vmap the cohort dimension is folded into B, so one launch serves the whole
@@ -54,6 +56,10 @@ _SIGNATURES = {
     "bwd_dkv": [_P] * 8 + [_I] * 5 + [ctypes.c_float, _P],
 }
 _libs: dict = {}
+# the libraries' own error codes, beside cudaError_t's
+_ERRORS = {-1: "the nvcc that built it gave the wgmma kernel other than its "
+               "block's register share, so its setmaxnreg rebalancing would "
+               "never complete; nothing was launched"}
 
 
 def reset_launches() -> None:
@@ -180,7 +186,8 @@ def _launch(name, which, tensors, dims, causal):
         err = fn(*(t.data_ptr() for t in tensors), B, T, H, D, int(causal),
                  _scale(D), stream)
     if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed (cudaError {err})")
+        raise RuntimeError(f"{name}: kernel launch failed "
+                           f"({_ERRORS.get(err, f'cudaError {err}')})")
     LAUNCHES[name + DTYPES[dtype][1]] += 1
 
 

@@ -156,10 +156,11 @@ def _tf32(x):
 
 
 def test_bf16_operands_need_no_small_split():
-    """The bf16 kernels leave out every tensor-core pass whose operand split
-    is zero: a bf16 value is exact in TF32 (its small part is 0), so Q K^T
-    in one TF32 pass and P V (P float32) in two equal the full 3xTF32
-    products bitwise, emulated here as the kernels split them."""
+    """bf16 dQ (flash_dq_kernel on bf16) leaves out every tensor-core pass
+    whose operand split is zero: a bf16 value is exact in TF32 (its small
+    part is 0), so Q K^T in one TF32 pass and P V (P float32) in two equal
+    the full 3xTF32 products bitwise, emulated here as the kernel splits
+    them."""
     rs = np.random.RandomState(4)
     q, k, v = (torch.from_numpy(rs.randn(64, 32).astype(np.float32))
                .to(BF16).float() for _ in range(3))
@@ -175,6 +176,67 @@ def test_bf16_operands_need_no_small_split():
     assert torch.equal(_tf32(q) @ _tf32(k).T, three(q, k.T.contiguous()))
     two = _tf32(p - _tf32(p)) @ _tf32(v) + _tf32(p) @ _tf32(v)
     assert torch.equal(two, three(p, v))
+
+
+
+def _split3(x):
+    """float32 x as the wgmma kernels split it in registers: hi = rn(x),
+    mid = rn(x - hi), lo = rn(x - hi - mid), each bf16 (rounded to nearest
+    even, as cvt.rn.bf16x2.f32 does; each residual exact in float32)."""
+    hi = x.to(BF16)
+    r = x - hi.float()
+    mid = r.to(BF16)
+    lo = (r - mid.float()).to(BF16)
+    return hi, mid, lo
+
+
+def test_three_bf16_passes_carry_a_float32_operand():
+    """The recipe of the bf16 forward and dK/dV kernels for a product of a
+    float32 tile (P, dS) and a bf16 tile (V, dO, Q): the split parts sum
+    back to x bitwise for |x| >= 2^-100 and for 0; three bf16 passes (lo,
+    mid, hi), each product exact in float64, land within 2^-23 of the
+    float64 product's largest |entry|; two passes (hi + mid) land outside,
+    so the third pass is needed."""
+    rs = np.random.RandomState(23)
+    p = torch.softmax(torch.from_numpy(3 * rs.randn(64, 64).astype(np.float32)), -1)
+    ds = p * torch.from_numpy(rs.randn(64, 64).astype(np.float32))  # P (dP + corr)
+    b = torch.from_numpy(rs.randn(64, 32).astype(np.float32)).to(BF16).double()
+    # every exponent from 2^-100 up, both signs, and zero
+    wide = torch.from_numpy((rs.choice([-1.0, 1.0], 4096) * (1 + rs.rand(4096))
+                             * 2.0 ** rs.randint(-100, 100, 4096)).astype(np.float32))
+    wide[:8] = 0.0
+    for x in (p, ds, wide):
+        hi, mid, lo = _split3(x)
+        assert torch.equal((hi.float() + mid.float()) + lo.float(), x)
+    for x in (p, ds):
+        hi, mid, lo = _split3(x)
+        exact = x.double() @ b
+        three = lo.double() @ b + mid.double() @ b + hi.double() @ b
+        two = mid.double() @ b + hi.double() @ b
+        lim = 2.0 ** -23 * float(exact.abs().max())
+        assert float((three - exact).abs().max()) <= lim
+        assert float((two - exact).abs().max()) > lim
+
+
+
+def test_kernel_labels_name_the_bf16_instantiations():
+    """chip_smoke.py's build phase finds each instantiation by the label it
+    reads from the mangled name (these from an sm_90a build of
+    flash_attention_bf16.cu): the wgmma forward and dK/dV carry no element
+    type, bf16 dQ keeps its own."""
+    import chip_smoke
+
+    ns = "_ZN56_GLOBAL__N__a0290591_23_flash_attention_bf16_cu_47b45561"
+    names = {
+        "22flash_fwd_wgmma_kernelILi32ELb1EEEv14CUtensorMap_stS1_S1_"
+        "P13__nv_bfloat16Pfiif": "flash_fwd_wgmma_kernel<32,1>",
+        "22flash_dkv_wgmma_kernelILi32ELb1EEEv14CUtensorMap_stS1_S1_S1_"
+        "PKfS3_P13__nv_bfloat16S5_iif": "flash_dkv_wgmma_kernel<32,1>",
+        "15flash_dq_kernelILi32ELb1E13__nv_bfloat16EEvPKT1_S4_S4_S4_PKfS6_"
+        "PS2_iif": "flash_dq_kernel<32,1,bf16>",
+    }
+    assert {chip_smoke._kernel_label(ns + k) for k in names} == set(names.values())
+    assert set(names.values()) <= set(chip_smoke.SLICE_KERNELS)
 
 
 # ---------------------------------------------------------- TransformerLM
