@@ -12,11 +12,11 @@ Phases, in order:
            side; the build's seconds); ptxas's registers and spills and the
            counts of tensor-core instructions in the built SASS (HMMA for
            mma.sync, HGMMA for wgmma), per instantiation; fails unless every
-           instantiation of the bf16 forward and dK/dV (wgmma) has HGMMA
+           instantiation of the bf16 forward, dQ and dK/dV (wgmma) has HGMMA
            and ptxas serialized none of their wgmma, every one of the
-           float32 kernels and bf16 dQ has HMMA, and no bf16 instantiation
-           of the mma.sync forward or dK/dV is left (the register share
-           that setmaxnreg needs is checked by the host code at launch)
+           float32 kernels has HMMA, and the bf16 library holds no mma.sync
+           kernel (the register share that setmaxnreg needs is checked by
+           the host code at launch)
   kernels  each kernel against its plain PyTorch version on the card, at the
            shape the slice's training steps give it (the cohort folded into
            B), at its eval's shape and at ragged shapes of every head dim
@@ -27,17 +27,17 @@ Phases, in order:
            the plain version's time and scaled_dot_product_attention's,
            whose CUDA kernels are named; a [B,T,H,D] view off a 16-byte
            boundary refused by all three wrappers before any launch. Then
-           the bf16 kernels (the forward and dK/dV on wgmma, dQ on
-           mma.sync) on bf16 q, k, v, dO at the same shapes and at small
-           ones that complete every head dim x causal pair of the wgmma
-           kernels and leave consumer warpgroups with no key below T: each
+           the bf16 kernels (all three on wgmma) on bf16 q, k, v, dO at the
+           same shapes and at small ones that complete every head dim x
+           causal pair of the wgmma kernels and leave consumer warpgroups
+           with no row below T: each
            bf16 output within one bf16 ulp of its largest |entry| of the
            plain version's (lse within 1e-4), bitwise on a rerun, within the
            plain version's error plus one ulp against float64; their times
            beside the bf16 bound, the plain versions' and SDPA's bf16 times;
            bf16 views off a 16-byte boundary, mixed dtypes, float16 and a
            bf16 lse refused before any launch; at the small shapes the
-           wgmma forward and dK/dV rerun BF16_REPEATS times, each run
+           wgmma forward, dQ and dK/dV rerun BF16_REPEATS times, each run
            synchronized and bitwise the first
   slice    FedAvg over TransformerLM("transformer_flash", vocab 1024, dim
            256, depth 4, heads 8, T 2048): 2 rounds of 4 clients x 2 local
@@ -408,8 +408,8 @@ RAGGED_SHAPES = (dict(B=SLICE_FED["eval_batch_size"], T=_T, H=_H, D=_D,
                  dict(B=1, T=300, H=2, D=128, causal=False))
 # bf16 only (the f32 kernels' time stays put): with RAGGED_SHAPES every head
 # dim of the wgmma kernels causal and not, and grids whose last block holds
-# consumer warpgroups that own only keys >= T (three consumers of 64 keys a
-# block at D <= 32)
+# consumer warpgroups that own only rows >= T (64 rows a consumer: three
+# consumers a block for the forward and dK/dV at D <= 32, two for dQ)
 BF16_SMALL_SHAPES = (dict(B=1, T=128, H=1, D=32, causal=False),
                      dict(B=1, T=128, H=1, D=32, causal=True),
                      dict(B=1, T=256, H=2, D=32, causal=True),
@@ -417,10 +417,10 @@ BF16_SMALL_SHAPES = (dict(B=1, T=128, H=1, D=32, causal=False),
                      dict(B=1, T=300, H=2, D=16, causal=False))
 BF16_REPEATS = 200  # reruns of the wgmma kernels at each small shape
 # the slice's instantiations (D = 32, causal): float32 (mma.sync), bf16
-# (the forward and dK/dV on wgmma, dQ on mma.sync)
-SLICE_KERNELS = ("flash_fwd_kernel<32,1>", "flash_dq_kernel<32,1,f32>",
+# (wgmma)
+SLICE_KERNELS = ("flash_fwd_kernel<32,1>", "flash_dq_kernel<32,1>",
                  "flash_dkv_kernel<32,1>", "flash_fwd_wgmma_kernel<32,1>",
-                 "flash_dq_kernel<32,1,bf16>", "flash_dkv_wgmma_kernel<32,1>")
+                 "flash_dq_wgmma_kernel<32,1>", "flash_dkv_wgmma_kernel<32,1>")
 # the kernel template behind each wrapper and element type, and the file
 # that holds it
 _CSRC = "fedml_tpu_torch/ops/csrc/"
@@ -430,7 +430,8 @@ KERNEL_OF = {
     "flash_bwd_dkv": ("flash_dkv_kernel", _CSRC + "flash_attention.cuh"),
     "flash_fwd_bf16": ("flash_fwd_wgmma_kernel",
                        _CSRC + "flash_attention_sm90_bf16.cuh"),
-    "flash_bwd_dq_bf16": ("flash_dq_kernel", _CSRC + "flash_attention.cuh"),
+    "flash_bwd_dq_bf16": ("flash_dq_wgmma_kernel",
+                          _CSRC + "flash_attention_sm90_bf16.cuh"),
     "flash_bwd_dkv_bf16": ("flash_dkv_wgmma_kernel",
                            _CSRC + "flash_attention_sm90_bf16.cuh")}
 REPLACES = {"flash_fwd": "fedml_tpu/ops/flash_attention.py:79",
@@ -463,17 +464,13 @@ def phase_device(report):
 
 
 def _kernel_label(mangled):
-    """kernel<args> from a mangled entry name, every int and bool template
-    argument kept in order and the element type last, f32 or bf16
-    (flash_dq_kernel<32,1,bf16>)."""
-    k = re.search(r"_kernelI((?:L[ib]\d+E)+)(f|\d+\w*?bfloat16)?E", mangled)
+    """kernel<args> from a mangled entry name, its int and bool template
+    arguments in order (flash_dq_wgmma_kernel<32,1>)."""
+    k = re.search(r"_kernelI((?:L[ib]\d+E)+)E", mangled)
     if not k:
         return mangled
     end = k.start() + len("_kernel")
-    args = re.findall(r"L[ib](\d+)E", k.group(1))
-    if k.group(2):
-        args.append("f32" if k.group(2) == "f" else "bf16")
-    args = ",".join(args)
+    args = ",".join(re.findall(r"L[ib](\d+)E", k.group(1)))
     for start in range(end - 1, 0, -1):  # the identifier is <length><name>
         if mangled[:start].endswith(str(end - start)):
             return f"{mangled[start:end]}<{args}>"
@@ -525,10 +522,13 @@ def phase_build(report):
     report["build_s"] = time.perf_counter() - t0
     print(f"build: {len(libs)} source(s), one nvcc each side by side, in "
           f"{report['build_s']:.1f} s")
-    counts, ptxas, serialized = {}, {}, []
+    counts, ptxas, serialized, stale = {}, {}, [], []
     for lib in libs:
         sass = _sass_counts(lib)
         counts.update(sass)
+        if lib.name.startswith("flash_attention_bf16-"):  # wgmma kernels only
+            stale += [fn for fn in sass
+                      if re.match(r"flash_(fwd|dq|dkv)_kernel<", fn)]
         log = lib.with_suffix(".log").read_text()
         print(f"  {lib.name}: {len(sass)} kernels")
         for fn, regs, spill in _ptxas_report(log):
@@ -546,10 +546,10 @@ def phase_build(report):
                 serialized.append(fn)
                 print(f"  ptxas: {fn}: {line.split('due to')[-1].strip()}")
     report["ptxas"] = ptxas
-    # the bf16 forward and dK/dV run on wgmma at every head dim, causal and
-    # not; the float32 kernels and bf16 dQ on mma.sync; the slice's
-    # instantiations (D=32, causal) first of all
-    wgmma = {f"flash_{k}_wgmma_kernel<{d},{c}>" for k in ("fwd", "dkv")
+    # the bf16 kernels run on wgmma at every head dim, causal and not; the
+    # float32 kernels on mma.sync; the slice's instantiations (D=32, causal)
+    # first of all
+    wgmma = {f"flash_{k}_wgmma_kernel<{d},{c}>" for k in ("fwd", "dq", "dkv")
              for d in fa.HEAD_DIMS for c in (0, 1)}
     sync = {fn for fn in counts
             if re.match(r"flash_(fwd|dq|dkv)_kernel<", fn)} | (
@@ -557,15 +557,14 @@ def phase_build(report):
     missing = sorted(fn for fn in wgmma | sync if fn not in counts)
     no_hgmma = sorted(fn for fn in wgmma & set(counts) if not counts[fn][1])
     no_hmma = sorted(fn for fn in sync & set(counts) if not counts[fn][0])
-    stale = sorted(fn for fn in counts
-                   if re.match(r"flash_(fwd|dkv)_kernel<.*bf16>", fn))
     # ptxas waits after every wgmma of a kernel it cannot pipeline
     serial = sorted(fn for fn in serialized if "wgmma" in fn)
     if missing or no_hgmma or no_hmma or stale or serial:
         raise AssertionError(
             f"kernels missing from the SASS {missing}; without HGMMA "
-            f"{no_hgmma}; without HMMA {no_hmma}; bf16 mma.sync forward or "
-            f"dK/dV left {stale}; wgmma serialized by ptxas in {serial}")
+            f"{no_hgmma}; without HMMA {no_hmma}; mma.sync kernels in the "
+            f"bf16 library {sorted(stale)}; wgmma serialized by ptxas in "
+            f"{serial}")
     print(f"  HGMMA in all {len(wgmma)} wgmma instantiations, HMMA in all "
           f"{len(sync)} mma.sync ones")
 
@@ -954,9 +953,9 @@ def phase_kernels(report):
 
 
 def check_repeats_bf16(B, T, H, D, causal, n=None):
-    """The wgmma forward and dK/dV run ``n`` (BF16_REPEATS) times on one
-    set of inputs, each launch synchronized (a fault or a trapped wait names
-    its run) and bitwise the first run's outputs."""
+    """The wgmma forward, dQ and dK/dV run ``n`` (BF16_REPEATS) times on
+    one set of inputs, each launch synchronized (a fault or a trapped wait
+    names its run) and bitwise the first run's outputs."""
     n = BF16_REPEATS if n is None else n
     g = torch.Generator(device="cuda").manual_seed(T * 7 + D + 2)
     q, k, v, do = (torch.randn((B, T, H, D), generator=g, device="cuda")
@@ -965,6 +964,8 @@ def check_repeats_bf16(B, T, H, D, causal, n=None):
     corr = torch.randn((B, H, T), generator=g, device="cuda")
     where = f"bf16 B={B} T={T} H={H} D={D} causal={causal}"
     runs = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal),
+            "flash_bwd_dq": lambda: (fa.flash_bwd_dq(q, k, v, do, lse, corr,
+                                                     causal),),
             "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, corr,
                                                       causal)}
     for name, run in runs.items():
@@ -1075,7 +1076,7 @@ def phase_slice(report):
         raise AssertionError(f"params differ by {diff} after {rounds} rounds")
     profile_round(api, rounds, tokens, "train tokens",
                   {"flash kernels": "flash_",
-                   "matmul": "gemm|cutlass|cublas"})
+                   "matmul": "gemm|cutlass|cublas|nvjet"})
     report["slice_bf16"] = _slice_bf16(report, data, cfg, start, tokens)
 
 
@@ -1173,7 +1174,7 @@ def _slice_bf16(report, data, cfg, start, tokens):
         raise AssertionError(f"slice bf16 eval launches {fa.LAUNCHES}")
     out["busy_share"] = profile_round(bf, rounds, tokens, "train tokens",
                                       {"flash kernels": "flash_",
-                                       "matmul": "gemm|cutlass|cublas"})
+                                       "matmul": "gemm|cutlass|cublas|nvjet"})
     del bf
     _, plain_net, plain_recs, _ = run("transformer", cfg16)
     with _plain_twins():

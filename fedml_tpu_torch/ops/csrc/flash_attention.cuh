@@ -1,17 +1,17 @@
 // Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels on float32
-// q, k, v, dO (outputs o, dQ, dK, dV float32), and the dQ kernel also on bf16
-// (the template's element type E; lse and corr are float32 for both).
-// flash_attention.cu instantiates the float kernels; flash_attention_bf16.cu
-// the bf16 dQ beside the bf16 forward and dK/dV of
-// flash_attention_sm90_bf16.cuh, each source behind its own C entry points
-// (two nvcc processes build them side by side).
+// q, k, v, dO (outputs o, dQ, dK, dV float32; lse and corr float32), behind
+// the C entry points of flash_attention.cu. On bf16 inputs the three
+// reference kernels are replaced by the wgmma kernels of
+// flash_attention_sm90_bf16.cuh (flash_fwd_wgmma_kernel,
+// flash_dq_wgmma_kernel, flash_dkv_wgmma_kernel) behind
+// flash_attention_bf16.cu; two nvcc processes build the two sources side by
+// side.
 //
-// Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel  <- _fwd_kernel      (:79, launched by _pallas_fwd), float32
-//   flash_dq_kernel   <- _bwd_dq_kernel   (:213, launched by _pallas_bwd, first call),
-//                        float32 and bf16
-//   flash_dkv_kernel  <- _bwd_dkv_kernel  (:238, launched by _pallas_bwd, second call),
-//                        float32
+// Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py on
+// float32 inputs:
+//   flash_fwd_kernel  <- _fwd_kernel      (:79, launched by _pallas_fwd)
+//   flash_dq_kernel   <- _bwd_dq_kernel   (:213, launched by _pallas_bwd, first call)
+//   flash_dkv_kernel  <- _bwd_dkv_kernel  (:238, launched by _pallas_bwd, second call)
 //
 // What bounds them: matrix products, 4*D (forward), 6*D (dQ) and 8*D (dK/dV)
 // flops per unmasked (query, key) pair, in two, three and four products per
@@ -78,28 +78,15 @@
 //   so every head's heaviest tile goes first: a query tile i visits i+1 key
 //   tiles, so the forward and dQ walk their tiles in reverse; a dK/dV key
 //   tile i visits n-i query tiles, so it walks them in order.
-// - Why mma.sync and not wgmma here: the bf16 forward and dK/dV run on
-//   wgmma (flash_attention_sm90_bf16.cuh), because wgmma may read a 16-bit B
-//   operand transposed (MN-major), so P V, P^T dO and dS^T Q read V, dO and Q
-//   as they are stored. For tf32 wgmma takes both operands K-major from
-//   shared memory, and P V, dS K, P^T dO and dS^T Q contract over a tile's
-//   rows, so the float32 kernels would need transposed copies of V, K, dO
-//   and Q, and the split big and small tiles, in shared memory. mma.sync
-//   loads its fragments per thread in any order. That redesign is later
-//   work, as is bf16 dQ's.
-//
-// bf16 dQ (E = __nv_bfloat16) computes what the reference computes for bf16
-// inputs: every tile becomes float32 as it is read (:218-219 and the loop's
-// loads), the math is the float32 kernel's, and dQ is rounded to bf16 once,
-// to nearest even (:235, `astype`). The tiles are staged in shared memory as
-// bf16 by the same cp.async copies (rows padded to D+8 values: 16-byte
-// aligned, and every fragment load still hits 32 distinct banks, two lanes
-// sharing a word), and each value becomes float32 in the fragment load. A
-// bf16 value is exact in TF32, so its small split is zero: a product of two
-// bf16 tiles (Q K^T, dO V^T) runs as one TF32 pass, and dS K (dS float32) as
-// two (big*big + small*big); float32 E keeps all three passes of every
-// product. The global memory traffic is bf16 both ways: no float32 copy of
-// an input or an output exists.
+// - Why mma.sync and not wgmma here: the bf16 kernels run on wgmma
+//   (flash_attention_sm90_bf16.cuh), because wgmma may read a 16-bit B
+//   operand transposed (MN-major), so P V, dS K, P^T dO and dS^T Q read V,
+//   K, dO and Q as they are stored. For tf32 wgmma takes both operands
+//   K-major from shared memory, and those four products contract over a
+//   tile's rows, so the float32 kernels would need transposed copies of V,
+//   K, dO and Q, and the split big and small tiles, in shared memory.
+//   mma.sync loads its fragments per thread in any order. That redesign is
+//   later work.
 //
 // All three kernels skip tiles wholly above the causal diagonal (the TPU
 // kernels did the full T^2 work) and mask the ragged edge k >= T here, so the
@@ -118,12 +105,9 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 namespace {
 
@@ -137,34 +121,22 @@ constexpr int kOwn = 16 * kWarps;  // rows a block owns: 16 per warp
 // Rows of the streamed tiles: 64; 32 for dK/dV from D = 64, whose two
 // accumulators would not fit in registers beside 64-row score tiles; 16 at
 // D = 128, where the tiles' shared memory would otherwise leave room for one
-// block per SM. And the padded row stride of every tile, in elements: a row
-// plus 16 bytes (D+4 floats, D+8 bf16 values).
+// block per SM. And the padded row stride of every tile, in floats: a row
+// plus 16 bytes.
 template <int D, bool kTwoAccumulators>
 __host__ __device__ constexpr int stream_rows() {
   return D > 64 ? 16 : (kTwoAccumulators && D > 32) ? 32 : 64;
 }
-template <int D, typename E>
-__host__ __device__ constexpr int tile_ld() { return D + 16 / (int)sizeof(E); }
+template <int D>
+__host__ __device__ constexpr int tile_ld() { return D + 4; }
 // Column groups of 8 whose tile partials one pass of the O/dQ/dK/dV product
 // holds in registers at once.
 template <int D>
 __host__ __device__ constexpr int col_groups() { return D / 8 < 4 ? D / 8 : 4; }
 
-// A bf16 value is exact in TF32: its fragments need no small split.
-template <typename E>
-constexpr bool kExactIn = std::is_same<E, __nv_bfloat16>::value;
-static_assert(sizeof(__nv_bfloat16) == 2, "bf16 tiles are two bytes a value");
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-
-// Two neighbouring output values (columns 2t, 2t+1 of an accumulator row),
-// rounded once to E (bf16: to nearest even, as astype does).
+// Two neighbouring output values (columns 2t, 2t+1 of an accumulator row).
 __device__ __forceinline__ void store2(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
-}
-__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
@@ -189,13 +161,12 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // Rows row0 .. row0+ROWS-1 of one head (src points at element (b, 0, h, 0);
-// row t lies at src + t * stride) into a [ROWS][tile_ld] shared tile of E,
-// 16 bytes a thread; rows >= T are zero-filled.
-template <int D, int ROWS, typename E>
-__device__ __forceinline__ void async_rows(E* dst, const E* __restrict__ src, int row0, int T,
-                                           int stride) {
-  constexpr int kPerChunk = 16 / (int)sizeof(E), kPerRow = D / kPerChunk,
-                kChunks = ROWS * kPerRow;
+// row t lies at src + t * stride) into a [ROWS][tile_ld] shared tile, 16
+// bytes a thread; rows >= T are zero-filled.
+template <int D, int ROWS>
+__device__ __forceinline__ void async_rows(float* dst, const float* __restrict__ src, int row0,
+                                           int T, int stride) {
+  constexpr int kPerChunk = 4, kPerRow = D / kPerChunk, kChunks = ROWS * kPerRow;
   static_assert(kChunks % kThreads == 0, "tile copy must split evenly over the block");
 #pragma unroll
   for (int it = 0; it < kChunks / kThreads; ++it) {
@@ -203,7 +174,7 @@ __device__ __forceinline__ void async_rows(E* dst, const E* __restrict__ src, in
     const int r = i / kPerRow, c = (i % kPerRow) * kPerChunk;
     const int t = row0 + r;
     const bool ok = t < T;
-    cp_async16(dst + r * tile_ld<D, E>() + c, src + (size_t)(ok ? t : 0) * stride + c, ok);
+    cp_async16(dst + r * tile_ld<D>() + c, src + (size_t)(ok ? t : 0) * stride + c, ok);
   }
 }
 
@@ -237,18 +208,10 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& sma
   small = tf32_rna(x - __uint_as_float(big));  // x - big is exact in f32
 }
 
-// kExact: every x is a bf16 value, exact in TF32 (big = x, small = 0).
-template <bool kExact, int N>
+template <int N>
 __device__ __forceinline__ void split_frag(Frag<N>& f, const float (&x)[N]) {
 #pragma unroll
-  for (int i = 0; i < N; ++i) {
-    if constexpr (kExact) {
-      f.big[i] = __float_as_uint(x[i]);
-      f.small[i] = 0u;
-    } else {
-      split_tf32(x[i], f.big[i], f.small[i]);
-    }
-  }
+  for (int i = 0; i < N; ++i) split_tf32(x[i], f.big[i], f.small[i]);
 }
 
 __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
@@ -259,12 +222,10 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-// c += a * b at f32 accuracy: big*small + small*big + big*big, each pass
-// whose small split is zero (an exact, bf16 operand) left out.
-template <bool kAExact, bool kBExact>
+// c += a * b at f32 accuracy: big*small + small*big + big*big.
 __device__ __forceinline__ void mma_split(float (&c)[4], const Frag<4>& a, const Frag<2>& b) {
-  if constexpr (!kBExact) mma_tf32(c, a.big, b.small);
-  if constexpr (!kAExact) mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.small, b.big);
   mma_tf32(c, a.big, b.big);
 }
 
@@ -281,28 +242,25 @@ __device__ __forceinline__ void acc_add(float (&acc)[4], const float (&part)[4])
 // A fragment (16 rows x 8 of the contraction) of a row-major [rows][ld] tile
 // p, contracted along its columns: a0 (g, t), a1 (g+8, t), a2 (g, t+4),
 // a3 (g+8, t+4).
-template <typename E>
-__device__ __forceinline__ void load_a(Frag<4>& f, const E* p, int ld, int g, int t) {
-  const float x[4] = {to_f32(p[g * ld + t]), to_f32(p[(g + 8) * ld + t]),
-                      to_f32(p[g * ld + t + 4]), to_f32(p[(g + 8) * ld + t + 4])};
-  split_frag<kExactIn<E>>(f, x);
+__device__ __forceinline__ void load_a(Frag<4>& f, const float* p, int ld, int g, int t) {
+  const float x[4] = {p[g * ld + t], p[(g + 8) * ld + t], p[g * ld + t + 4],
+                      p[(g + 8) * ld + t + 4]};
+  split_frag(f, x);
 }
 
 // B fragment (8 of the contraction x 8 columns) taken from a row-major tile p
 // whose ROWS are B's columns (B = p^T, as K in Q K^T): b0 (t, g), b1 (t+4, g).
-template <typename E>
-__device__ __forceinline__ void load_b_trans(Frag<2>& f, const E* p, int ld, int g, int t) {
-  const float x[2] = {to_f32(p[g * ld + t]), to_f32(p[g * ld + t + 4])};
-  split_frag<kExactIn<E>>(f, x);
+__device__ __forceinline__ void load_b_trans(Frag<2>& f, const float* p, int ld, int g, int t) {
+  const float x[2] = {p[g * ld + t], p[g * ld + t + 4]};
+  split_frag(f, x);
 }
 
 // B fragment taken from a row-major tile p contracted over its ROWS (as V in
 // P V, K in dS K), in the permuted contraction order that matches
 // accum_to_a: logical rows t and t+4 are physical rows 2t and 2t+1.
-template <typename E>
-__device__ __forceinline__ void load_b_perm(Frag<2>& f, const E* p, int ld, int g, int t) {
-  const float x[2] = {to_f32(p[2 * t * ld + g]), to_f32(p[(2 * t + 1) * ld + g])};
-  split_frag<kExactIn<E>>(f, x);
+__device__ __forceinline__ void load_b_perm(Frag<2>& f, const float* p, int ld, int g, int t) {
+  const float x[2] = {p[2 * t * ld + g], p[(2 * t + 1) * ld + g]};
+  split_frag(f, x);
 }
 
 // The m16n8 accumulator c (c0 (g, 2t), c1 (g, 2t+1), c2 (g+8, 2t),
@@ -310,7 +268,7 @@ __device__ __forceinline__ void load_b_perm(Frag<2>& f, const E* p, int ld, int 
 // columns, in the permuted order of load_b_perm. Scores are float32: split.
 __device__ __forceinline__ void accum_to_a(Frag<4>& f, const float (&c)[4]) {
   const float x[4] = {c[0], c[2], c[1], c[3]};
-  split_frag<false>(f, x);
+  split_frag(f, x);
 }
 
 // O and lse for one 64-row query tile, looping over streamed key tiles with
@@ -320,7 +278,7 @@ __global__ void __launch_bounds__(kThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                  int T, int H, float scale) {
-  constexpr int LD = tile_ld<D, float>(), BN = stream_rows<D, false>(), KD = D / 8, NJ = BN / 8,
+  constexpr int LD = tile_ld<D>(), BN = stream_rows<D, false>(), KD = D / 8, NJ = BN / 8,
                 KC = col_groups<D>();
   constexpr bool kQInRegs = D <= 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -395,7 +353,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int j = 0; j < NJ; ++j) {
           Frag<2> bk;
           load_b_trans(bk, Kt + j * 8 * LD + kd * 8, LD, g, t4);
-          mma_split<false, false>(part[j], aq, bk);
+          mma_split(part[j], aq, bk);
         }
       }
 #pragma unroll
@@ -462,7 +420,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         for (int nd = 0; nd < KC; ++nd) {
           Frag<2> bv;
           load_b_perm(bv, Vt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
-          mma_split<false, false>(part[nd], ap, bv);
+          mma_split(part[nd], ap, bv);
         }
       }
 #pragma unroll
@@ -494,20 +452,19 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
 // dQ for one 64-row query tile: P = exp(S - lse), dS = P * (dO V^T + corr),
 // dQ = scale * dS K, looping over streamed key tiles.
-template <int D, bool kCausal, typename E>
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kThreads)
-flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __restrict__ v,
-                const E* __restrict__ dout, const float* __restrict__ lse,
-                const float* __restrict__ corr, E* __restrict__ dq, int T, int H,
-                float scale) {
-  constexpr int LD = tile_ld<D, E>(), BN = stream_rows<D, false>(), KD = D / 8, NJ = BN / 8,
+flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, const float* __restrict__ dout,
+                const float* __restrict__ lse, const float* __restrict__ corr,
+                float* __restrict__ dq, int T, int H, float scale) {
+  constexpr int LD = tile_ld<D>(), BN = stream_rows<D, false>(), KD = D / 8, NJ = BN / 8,
                 KC = col_groups<D>();
-  constexpr bool kEx = kExactIn<E>;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  E* Qs = reinterpret_cast<E*>(smem_raw);
-  E* dOs = Qs + kOwn * LD;
-  E* Ks = dOs + kOwn * LD;  // [2][BN][LD]
-  E* Vs = Ks + 2 * BN * LD;
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* dOs = Qs + kOwn * LD;
+  float* Ks = dOs + kOwn * LD;  // [2][BN][LD]
+  float* Vs = Ks + 2 * BN * LD;
 
   const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
   const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;  // heaviest causal tiles first
@@ -548,8 +505,8 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
       cp_async_wait<0>();
     }
     __syncthreads();
-    const E* Kt = Ks + cur * BN * LD;
-    const E* Vt = Vs + cur * BN * LD;
+    const float* Kt = Ks + cur * BN * LD;
+    const float* Vt = Vs + cur * BN * LD;
     const int k0 = kt * BN;
 
     float s[NJ][4], dp[NJ][4];
@@ -567,8 +524,8 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
         Frag<2> bk, bv;
         load_b_trans(bk, Kt + j * 8 * LD + kd * 8, LD, g, t4);
         load_b_trans(bv, Vt + j * 8 * LD + kd * 8, LD, g, t4);
-        mma_split<kEx, kEx>(s[j], aq, bk);
-        mma_split<kEx, kEx>(dp[j], ado, bv);
+        mma_split(s[j], aq, bk);
+        mma_split(dp[j], ado, bv);
       }
     }
 
@@ -595,7 +552,7 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
         for (int nd = 0; nd < KC; ++nd) {
           Frag<2> bk;
           load_b_perm(bk, Kt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
-          mma_split<false, kEx>(part[nd], ads, bk);
+          mma_split(part[nd], ads, bk);
         }
       }
 #pragma unroll
@@ -608,7 +565,7 @@ flash_dq_kernel(const E* __restrict__ q, const E* __restrict__ k, const E* __res
   for (int i = 0; i < 2; ++i) {
     const int t = q0 + r0 + g + 8 * i;
     if (t < T) {
-      E* row = dq + base + (size_t)t * stride + 2 * t4;
+      float* row = dq + base + (size_t)t * stride + 2 * t4;
 #pragma unroll
       for (int nd = 0; nd < KD; ++nd)
         store2(row + nd * 8, acc[nd][2 * i] * scale, acc[nd][2 * i + 1] * scale);
@@ -625,7 +582,7 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, const float* __restrict__ dout,
                  const float* __restrict__ lse, const float* __restrict__ corr,
                  float* __restrict__ dk, float* __restrict__ dv, int T, int H, float scale) {
-  constexpr int LD = tile_ld<D, float>(), BN = stream_rows<D, true>(), KD = D / 8, NJ = BN / 8,
+  constexpr int LD = tile_ld<D>(), BN = stream_rows<D, true>(), KD = D / 8, NJ = BN / 8,
                 KC = col_groups<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Ks = reinterpret_cast<float*>(smem_raw);
@@ -696,8 +653,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
         Frag<2> bq, bdo;
         load_b_trans(bq, Qt + j * 8 * LD + kd * 8, LD, g, t4);
         load_b_trans(bdo, dOt + j * 8 * LD + kd * 8, LD, g, t4);
-        mma_split<false, false>(s[j], ak, bq);
-        mma_split<false, false>(dp[j], av, bdo);
+        mma_split(s[j], ak, bq);
+        mma_split(dp[j], av, bdo);
       }
     }
 
@@ -728,8 +685,8 @@ flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
           Frag<2> bdo, bq;
           load_b_perm(bdo, dOt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
           load_b_perm(bq, Qt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
-          mma_split<false, false>(part_v[nd], ap, bdo);
-          mma_split<false, false>(part_k[nd], ads, bq);
+          mma_split(part_v[nd], ap, bdo);
+          mma_split(part_k[nd], ads, bq);
         }
       }
 #pragma unroll
@@ -765,16 +722,16 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // most causal work go first for every head.
 inline dim3 tile_grid(int B, int T, int H) { return dim3(B * H, (T + kOwn - 1) / kOwn); }
 
-// kOwned owned tiles and two double-buffered streamed tiles, of E.
-template <int D, int kOwned, int kStreamRows, typename E>
+// kOwned owned tiles and two double-buffered streamed tiles.
+template <int D, int kOwned, int kStreamRows>
 constexpr size_t tiles_smem() {
-  return (kOwned * kOwn + 4 * kStreamRows) * tile_ld<D, E>() * sizeof(E);
+  return (kOwned * kOwn + 4 * kStreamRows) * tile_ld<D>() * sizeof(float);
 }
 
 template <int D, bool kCausal>
 cudaError_t run_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B,
                     int T, int H, float scale, cudaStream_t st) {
-  const size_t smem = tiles_smem<D, 1, stream_rows<D, false>(), float>();
+  const size_t smem = tiles_smem<D, 1, stream_rows<D, false>()>();
   cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
   flash_fwd_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(q, k, v, o, lse, T,
@@ -782,13 +739,14 @@ cudaError_t run_fwd(const float* q, const float* k, const float* v, float* o, fl
   return cudaGetLastError();
 }
 
-template <int D, bool kCausal, typename E>
-cudaError_t run_dq(const E* q, const E* k, const E* v, const E* dout, const float* lse,
-                   const float* corr, E* dq, int B, int T, int H, float scale, cudaStream_t st) {
-  const size_t smem = tiles_smem<D, 2, stream_rows<D, false>(), E>();
-  cudaError_t err = allow_smem(flash_dq_kernel<D, kCausal, E>, smem);
+template <int D, bool kCausal>
+cudaError_t run_dq(const float* q, const float* k, const float* v, const float* dout,
+                   const float* lse, const float* corr, float* dq, int B, int T, int H,
+                   float scale, cudaStream_t st) {
+  const size_t smem = tiles_smem<D, 2, stream_rows<D, false>()>();
+  cudaError_t err = allow_smem(flash_dq_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
-  flash_dq_kernel<D, kCausal, E><<<tile_grid(B, T, H), kThreads, smem, st>>>(
+  flash_dq_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(
       q, k, v, dout, lse, corr, dq, T, H, scale);
   return cudaGetLastError();
 }
@@ -799,7 +757,7 @@ cudaError_t run_dkv(const float* q, const float* k, const float* v, const float*
                     int H, float scale, cudaStream_t st) {
   // + lse and corr, double-buffered
   constexpr int BN = stream_rows<D, true>();
-  const size_t smem = tiles_smem<D, 2, BN, float>() + 4 * BN * sizeof(float);
+  const size_t smem = tiles_smem<D, 2, BN>() + 4 * BN * sizeof(float);
   cudaError_t err = allow_smem(flash_dkv_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
   flash_dkv_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(
@@ -809,8 +767,7 @@ cudaError_t run_dkv(const float* q, const float* k, const float* v, const float*
 
 }  // namespace
 
-// Instantiate RUN<D, causal> for the head dims the kernels support (run_dq's
-// element type follows its arguments).
+// Instantiate RUN<D, causal> for the head dims the kernels support.
 #define FLASH_DISPATCH(RUN, ...)                                                   \
   switch (D) {                                                                     \
     case 16: return causal ? RUN<16, true>(__VA_ARGS__) : RUN<16, false>(__VA_ARGS__); \

@@ -1,25 +1,27 @@
-// The bf16 flash forward and dK/dV kernels written for Hopper (sm_90a):
-// flash_fwd_wgmma_kernel and flash_dkv_wgmma_kernel, behind the bf16 C entry
-// points flash_attention_bf16_fwd and flash_attention_bf16_bwd_dkv
-// (flash_attention_bf16.cu). They replace, on bf16 inputs, the Pallas TPU
-// kernels _fwd_kernel (fedml_tpu/ops/flash_attention.py:79) and
-// _bwd_dkv_kernel (:238), and in this port the bf16 instantiations of
-// flash_fwd_kernel and flash_dkv_kernel (flash_attention.cuh), which ran them
-// as TF32 mma.sync products on operands converted to float32 per fragment.
-// bf16 dQ stays on flash_dq_kernel<D, causal, __nv_bfloat16>.
+// The bf16 flash kernels written for Hopper (sm_90a): flash_fwd_wgmma_kernel,
+// flash_dq_wgmma_kernel and flash_dkv_wgmma_kernel, behind the bf16 C entry
+// points flash_attention_bf16_fwd, flash_attention_bf16_bwd_dq and
+// flash_attention_bf16_bwd_dkv (flash_attention_bf16.cu). They replace, on
+// bf16 inputs, the Pallas TPU kernels _fwd_kernel
+// (fedml_tpu/ops/flash_attention.py:79), _bwd_dq_kernel (:213) and
+// _bwd_dkv_kernel (:238), and in this port the bf16 instantiations of the
+// mma.sync kernels of flash_attention.cuh, which ran them as TF32 products on
+// operands converted to float32 per fragment.
 //
-// What they compute is the reference's on bf16 inputs (:84-107, :243-265):
-// every tile is read as float32 and the math is float32; o, dK and dV are
-// rounded to bf16 once, to nearest even; lse and corr stay float32; masked
-// scores are -1e30, the forward's l is floored at 1e-30, tiles wholly above
-// the causal diagonal are skipped and keys k >= T are masked. No atomics, and
-// every sum runs in a fixed order, so runs repeat bitwise.
+// What they compute is the reference's on bf16 inputs (:84-107, :218-235,
+// :243-265): every tile is read as float32 and the math is float32; o, dQ,
+// dK and dV are rounded to bf16 once, to nearest even; lse and corr stay
+// float32; masked scores are -1e30, the forward's l is floored at 1e-30,
+// tiles wholly above the causal diagonal are skipped and keys k >= T are
+// masked. No atomics (dQ keeps its own launch, apart from dK/dV), and every
+// sum runs in a fixed order, so runs repeat bitwise.
 //
 // What bounds them: tensor-core work. Per unmasked (query, key) pair the
-// forward does 2*D flops of Q K^T and 2*D of P V, dK/dV 2*D each of
-// S^T = K Q^T, dP^T = V dO^T, dV += P^T dO and dK += dS^T Q. A product of
-// two bf16 tiles (Q K^T, K Q^T, V dO^T) is exact in one bf16 pass with a
-// float32 accumulator. A product of a float32 tile (P, dS) and a bf16 tile
+// forward does 2*D flops of Q K^T and 2*D of P V; dQ 2*D each of S = Q K^T,
+// dP = dO V^T and dQ += dS K; dK/dV 2*D each of S^T = K Q^T, dP^T = V dO^T,
+// dV += P^T dO and dK += dS^T Q. A product of two bf16 tiles (Q K^T, dO V^T,
+// K Q^T, V dO^T) is exact in one bf16 pass with a float32 accumulator. A
+// product of a float32 tile (P, dS) and a bf16 tile
 // needs the float32 operand carried to float32 accuracy: each x is split in
 // registers into three bf16 parts, hi = rn(x), mid = rn(x - hi),
 // lo = rn(x - hi - mid) (each residual exact in float32, so hi + mid + lo
@@ -31,12 +33,15 @@
 //
 // The design (the Hopper shape: TMA ring, warp-specialised warpgroups):
 // - Block: warpgroup 0 is the producer: one thread issues every TMA copy
-//   (for dK/dV its warp also stages lse and corr). Each consumer warpgroup
-//   owns 64 rows (queries in the forward, keys in dK/dV). Three consumers at
-//   D <= 32, two above; dK/dV at D = 128 has one. setmaxnreg hands the
-//   producer's registers to the consumers (WgBlock).
-// - Loads: the owned tiles (Q; K and V) come once, the streamed tiles (K and
-//   V; Q and dO) through a ring of kStages buffers in shared memory, each by
+//   (for dK/dV its warp also stages lse and corr; dQ's consumers read their
+//   rows' lse and corr into registers once). Each consumer warpgroup owns 64
+//   rows (queries in the forward and dQ, keys in dK/dV). The forward has
+//   three consumers at D <= 32, two above; dQ two; dK/dV three at D <= 32,
+//   two at D = 64, one at D = 128. setmaxnreg hands the producer's
+//   registers to the consumers (WgBlock).
+// - Loads: the owned tiles (Q; Q and dO; K and V) come once, the streamed
+//   tiles (K and V; K and V; Q and dO) through a ring of kStages buffers in
+//   shared memory, each by
 //   cp.async.bulk.tensor over the [B, T, H, D] tensor (dims D, H, T, B; box
 //   min(D, 64) x 1 x rows x 1), completing on an mbarrier per buffer; the
 //   consumers free a buffer with an arrive per warp. Rows at or beyond T
@@ -45,27 +50,38 @@
 // - Products: wgmma.mma_async m64nNk16, bf16 x bf16 -> float32. The
 //   exact products read both operands from shared memory, K-major (Q, K, V,
 //   dO rows as they are stored). The split products take A from registers:
-//   the m64 accumulator layout of S (or S^T, dS^T) is the A fragment layout,
-//   so P and dS are split and packed where they lie. B (V; dO and Q) is read
-//   MN-major, transposed by the tensor core, which wgmma allows for 16-bit
-//   types. O, dK and dV accumulate across tiles in the wgmma accumulator
-//   (their outputs are bf16: the drift of the accumulator's truncating adds,
-//   ~1e-6 relative, is far inside one bf16 ulp).
+//   the m64 accumulator layout of S (dS, S^T, dS^T) is the A fragment
+//   layout, so P and dS are split and packed where they lie. B (V; K; dO and
+//   Q) is read MN-major, transposed by the tensor core, which wgmma allows
+//   for 16-bit types: no transposed copy exists. O, dQ, dK and dV accumulate
+//   across tiles in the wgmma accumulator (their outputs are bf16: the drift
+//   of the accumulator's truncating adds, ~1e-6 relative, is far inside one
+//   bf16 ulp).
 // - Overlap: every product batch is its own wgmma group behind its own
-//   fence. The forward issues tile k+1's S before tile k's P V and runs tile
-//   k+1's softmax while P V is on the tensor cores; dK/dV computes P^T while
-//   dP^T runs and dS^T while P^T dO runs. The forward's last tile is peeled,
-//   so no wgmma issues under a branch.
+//   fence. The forward issues tile k+1's S before tile k's P V, dQ tile
+//   k+1's S and dP before tile k's dS K, so each warpgroup keeps the tensor
+//   cores fed for a whole tile; the waits are placed for the next tile's
+//   softmax (P and dS) to run while the last product runs, but ptxas
+//   schedules most of the exponentials below the final wait (the SASS shows
+//   MUFU.EX2 after WARPGROUP.DEPBAR), so the overlap comes mostly from the
+//   other consumer warpgroups. dK/dV computes P^T while dP^T runs and dS^T
+//   while P^T dO runs. The forward's and dQ's last tiles are peeled, so no
+//   wgmma issues under a branch, and no group is in flight over a loop's
+//   back edge.
 // - Softmax: online, in the accumulator's registers; a row lies in a quad,
 //   so its max takes a tree over the lane's values and two shuffles; scores
 //   in log2 units, one ex2 each; masking only on tiles that cross the
-//   diagonal or the ragged edge.
+//   diagonal or the ragged edge (in the forward and dQ behind a warp-uniform
+//   branch: a select per score on every tile was most of what slowed dQ's
+//   first build to half its speed).
 // - Registers bound the tiles. ptxas compiles a consumer to the block's
 //   launch share (168 registers at two consumers, 128 at three), not to the
 //   count setmaxnreg raises it to at run time, and it serializes every wgmma
 //   (a wait after each) when a thread's accumulators, the next product's
 //   scores and the split fragments in flight do not fit: the forward streams
-//   64 keys (32 at D = 128), dK/dV 32 queries (16 at D = 128, where dK and
+//   64 keys (32 at D = 128), dQ 64 keys (32 from D = 64: the next tile's S
+//   and dP, BK/2 floats each, beside dQ's D/2 and the 3 x BK/4 split dS
+//   registers in flight), dK/dV 32 queries (16 at D = 128, where dK and
 //   dV hold 128 registers a thread and one consumer gets 255). The host
 //   refuses to launch a kernel that ptxas gave other than the block's share
 //   (kErrRegisterShare), since the raise would then wait forever.
@@ -80,6 +96,7 @@
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and the driver's enums; the entry point is fetched at run time
+#include <cuda_bf16.h>
 
 #include "flash_attention.cuh"
 
@@ -113,6 +130,9 @@ template <int D>
 __host__ __device__ constexpr int fwd_consumers() { return D <= 32 ? 3 : 2; }
 template <int D>
 __host__ __device__ constexpr int dkv_consumers() { return D <= 32 ? 3 : D <= 64 ? 2 : 1; }
+// dQ holds two score tiles (S, dP) where the forward holds one: two
+// consumers (168) at every D.
+constexpr int kDqConsumers = 2;
 
 // The columns of one shared-memory panel (a swizzle row: 32, 64 or 128 B).
 template <int D>
@@ -120,16 +140,25 @@ __host__ __device__ constexpr int panel() { return D < 64 ? D : 64; }
 // Bytes of a rows x D bf16 tile: its panels one after the other.
 template <int D>
 __host__ __device__ constexpr uint32_t tile_bytes(int rows) { return (uint32_t)rows * D * 2; }
-// Key rows of the forward's streamed tiles, and query rows of dK/dV's: sized
-// so that a consumer thread's accumulators, the next product's scores and
-// the split A fragments in flight fit its registers (WgBlock); fewer at
-// D = 128, where O (dK and dV) hold 64 (128) of them.
+// Key rows of the forward's and dQ's streamed tiles, and query rows of
+// dK/dV's: sized so that a consumer thread's accumulators, the next
+// product's scores and the split A fragments in flight fit its registers
+// (WgBlock); fewer at D = 128, where O (dK and dV) hold 64 (128) of them,
+// and for dQ from D = 64.
 template <int D>
 __host__ __device__ constexpr int fwd_stream_rows() { return D > 64 ? 32 : 64; }
+template <int D>
+__host__ __device__ constexpr int dq_stream_rows() { return D > 32 ? 32 : 64; }
 template <int D>
 __host__ __device__ constexpr int dkv_stream_rows() { return D > 64 ? 16 : 32; }
 static_assert(WgBlock<2>::kConsumerRegisters == 240 && WgBlock<3>::kConsumerRegisters == 160,
               "the consumers' raise is what the producer frees");
+
+// Two neighbouring output values (columns 2t, 2t+1 of an accumulator row),
+// rounded once to bf16, to nearest even (as astype does).
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -188,14 +217,18 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, u
 }
 
 // ------------------------------------------------------------------- wgmma
-// Shared-memory matrix descriptor: start address, leading and stride byte
-// offsets, and the swizzle of a D-wide tile's panels (128 B: 1, 64 B: 2,
-// 32 B: 3).
+// Shared-memory matrix descriptor of the operand at byte `off` of the tile
+// at `tile`: start address, leading and stride byte offsets, and the swizzle
+// of a D-wide tile's panels (128 B: 1, 64 B: 2, 32 B: 3). A shared address
+// is below 2^18, so the start field is addr >> 4, and an offset (a multiple
+// of 16) adds to the tile's field: the compiler makes one add of a step's
+// descriptor, not a mask and shift.
 template <int D>
-__device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  constexpr uint64_t kSwizzle = panel<D>() == 64 ? 1 : panel<D>() == 32 ? 2 : 3;
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
-         ((uint64_t)(sbo >> 4) << 32) | (kSwizzle << 62);
+__device__ __forceinline__ uint64_t wg_desc(uint32_t tile, uint32_t off, uint32_t lbo,
+                                            uint32_t sbo) {
+  constexpr uint32_t kSwizzle = panel<D>() == 64 ? 1 : panel<D>() == 32 ? 2 : 3;
+  const uint32_t lo = ((tile >> 4) | (lbo >> 4) << 16) + (off >> 4);
+  return (uint64_t)((sbo >> 4) | kSwizzle << 30) << 32 | lo;
 }
 // Operand contracted over D (K-major): rows row0 .. of a ROWS x D tile at
 // `tile`, the 16 columns of step kk. Eight-row groups lie a panel row x 8
@@ -203,7 +236,7 @@ __device__ __forceinline__ uint64_t wg_desc(uint32_t addr, uint32_t lbo, uint32_
 template <int D, int ROWS>
 __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
   constexpr int P = panel<D>(), PB = 2 * P;
-  return wg_desc<D>(tile + (kk * 16 / P) * ROWS * PB + row0 * PB + (kk * 16 % P) * 2, 16,
+  return wg_desc<D>(tile, (kk * 16 / P) * ROWS * PB + row0 * PB + (kk * 16 % P) * 2, 16,
                     8 * PB);
 }
 // Operand contracted over its rows (MN-major, N = D): rows 16kk .. 16kk+15
@@ -212,7 +245,7 @@ __device__ __forceinline__ uint64_t desc_k(uint32_t tile, int row0, int kk) {
 template <int D, int ROWS>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int kk) {
   constexpr int PB = 2 * panel<D>();
-  return wg_desc<D>(tile + kk * 16 * PB, ROWS * PB, 8 * PB);
+  return wg_desc<D>(tile, kk * 16 * PB, ROWS * PB, 8 * PB);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -374,16 +407,17 @@ __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
 }
 // Two float32 values (columns c, c+1 of an accumulator row) split into hi,
 // mid and lo bf16 pairs, packed as A-fragment registers (c in the low half).
+// A bf16 value is the top half of its float32, so each part comes back out
+// of the pair with one integer instruction (the bf16 intrinsics unpack and
+// repack the halves).
 __device__ __forceinline__ void split3(float x0, float x1, uint32_t& hi, uint32_t& mid,
                                        uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  x0 -= __low2float(h);
-  x1 -= __high2float(h);
-  const __nv_bfloat162 m = __floats2bfloat162_rn(x0, x1);
-  x0 -= __low2float(m);
-  x1 -= __high2float(m);
-  hi = bf16x2_bits(h);
-  mid = bf16x2_bits(m);
+  hi = bf16x2_bits(__floats2bfloat162_rn(x0, x1));
+  x0 -= __uint_as_float(hi << 16);
+  x1 -= __uint_as_float(hi & 0xffff0000u);
+  mid = bf16x2_bits(__floats2bfloat162_rn(x0, x1));
+  x0 -= __uint_as_float(mid << 16);
+  x1 -= __uint_as_float(mid & 0xffff0000u);
   lo = bf16x2_bits(__floats2bfloat162_rn(x0, x1));
 }
 // The float32 m64 accumulator x as A fragments of a product contracted over
@@ -617,6 +651,177 @@ flash_fwd_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
+// dQ for one query tile (64 rows a consumer warpgroup), streaming K and V
+// tiles of dq_stream_rows<D>() rows: S = Q K^T and dP = dO V^T (one bf16
+// pass each), P = exp(S scale - lse), dS = P * (dP + corr), dQ += dS K (dS
+// split in three bf16 passes, K read MN-major), dQ * scale rounded to bf16
+// once. Within a warpgroup the next tile's S and dP are issued before this
+// tile's dS K (three wgmma groups in flight), and the waits let the next
+// tile's P and dS run under dP and dS K (as far as ptxas schedules them
+// there: the source note). The last tile is peeled, so no wgmma issues under
+// a branch. Every consumer walks the block's tiles, so each arrives on every
+// `empty` barrier, a consumer whose rows all lie at or beyond T too.
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(WgBlock<kDqConsumers>::kThreads, 1)
+flash_dq_wgmma_kernel(const __grid_constant__ CUtensorMap tm_q,
+                      const __grid_constant__ CUtensorMap tm_k,
+                      const __grid_constant__ CUtensorMap tm_v,
+                      const __grid_constant__ CUtensorMap tm_do, const float* __restrict__ lse,
+                      const float* __restrict__ corr, __nv_bfloat16* __restrict__ dq, int T,
+                      int H, float scale) {
+  using Blk = WgBlock<kDqConsumers>;
+  constexpr int BK = dq_stream_rows<D>(), BQ = Blk::kRows;
+  constexpr uint32_t kQBytes = tile_bytes<D>(BQ), kKVBytes = tile_bytes<D>(BK);
+  extern __shared__ __align__(1024) unsigned char smem[];
+  // barriers: q_full (Q and dO), k_full[kStages], v_full[kStages], empty[kStages]
+  const uint32_t bar0 = smem_addr(smem);
+  const uint32_t q_full = bar0, k_full = bar0 + 8, v_full = k_full + 8 * kStages,
+                 empty = v_full + 8 * kStages;
+  const uint32_t Qs = tiles_base(smem), dOs = Qs + kQBytes, Ks = dOs + kQBytes,
+                 Vs = Ks + kStages * kKVBytes;
+
+  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal tiles first
+  const int n_all = (T + BK - 1) / BK;
+  const int n_tiles = kCausal ? min(n_all, (q0 + BQ + BK - 1) / BK) : n_all;
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(k_full + 8 * s, 1);
+      mbar_init(v_full + 8 * s, 1);
+      mbar_init(empty + 8 * s, Blk::kConsumerWarps);  // one arrive per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < kWgThreads) {  // producer
+    producer_registers<kDqConsumers>();
+    if (threadIdx.x == 0) {
+      mbar_arrive_expect_tx(q_full, 2 * kQBytes);
+      tma_tile<D>(Qs, &tm_q, q_full, BQ, h, q0, b);
+      tma_tile<D>(dOs, &tm_do, q_full, BQ, h, q0, b);
+      for (int kt = 0; kt < n_tiles; ++kt) {
+        const int s = kt % kStages;
+        if (kt >= kStages) mbar_wait(empty + 8 * s, ((kt / kStages) & 1) ^ 1);
+        mbar_arrive_expect_tx(k_full + 8 * s, kKVBytes);
+        tma_tile<D>(Ks + s * kKVBytes, &tm_k, k_full + 8 * s, BK, h, kt * BK, b);
+        mbar_arrive_expect_tx(v_full + 8 * s, kKVBytes);
+        tma_tile<D>(Vs + s * kKVBytes, &tm_v, v_full + 8 * s, BK, h, kt * BK, b);
+      }
+    }
+  } else {  // consumers
+    consumer_registers<kDqConsumers>();
+    const int c = threadIdx.x / kWgThreads - 1, tid = threadIdx.x % kWgThreads;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+    const int rw = q0 + 64 * c + 16 * warp;  // this warp's first query row
+    const float scale2 = scale * kLog2e;     // scores in log2 units
+
+    // lse (log2 units) and corr of rows g, g+8; 0 at rows >= T, whose Q and
+    // dO arrive as zeros, so that their dS is 0
+    float lse2[2], corr_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = rw + g + 8 * r;
+      lse2[r] = t < T ? lse[(size_t)bh * T + t] * kLog2e : 0.f;
+      corr_r[r] = t < T ? corr[(size_t)bh * T + t] : 0.f;
+    }
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+    // S = Q K^T and dP = dO V^T of key tile kt: one bf16 pass each, both
+    // operands K-major from shared memory; two wgmma groups
+    auto issue_s_dp = [&](float(&sc)[BK / 2], float(&dp)[BK / 2], int kt) {
+      const int s = kt % kStages;
+      mbar_wait(k_full + 8 * s, (kt / kStages) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wg<BK>::template ss<0>(sc, desc_k<D, BQ>(Qs, 64 * c, kk),
+                               desc_k<D, BK>(Ks + s * kKVBytes, 0, kk), kk > 0);
+      wg_commit();
+      mbar_wait(v_full + 8 * s, (kt / kStages) & 1);
+      wg_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        Wg<BK>::template ss<0>(dp, desc_k<D, BQ>(dOs, 64 * c, kk),
+                               desc_k<D, BK>(Vs + s * kKVBytes, 0, kk), kk > 0);
+      wg_commit();
+    };
+    // dQ += dS K of key tile kt: dS split in three bf16 passes, K read
+    // MN-major; one wgmma group
+    auto issue_dsk = [&](const uint32_t(&a)[BK / 16][3][4], int kt) {
+      wg_fence();
+      mma_split3<D, BK>(acc, a, Ks + (kt % kStages) * kKVBytes);
+      wg_commit();
+    };
+    // P = exp(S scale - lse) in place of S, masked where the tile crosses
+    // the ragged edge or, for this warp's rows, the causal diagonal
+    auto probs = [&](float(&sc)[BK / 2], int kt) {
+      const int k0 = kt * BK;
+      if (k0 + BK > T || (kCausal && k0 + BK - 1 > rw)) {  // a warp-uniform test
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const int qpos = rw + g + 8 * ((i >> 1) & 1);
+          const int kpos = k0 + 8 * (i >> 2) + 2 * t4 + (i & 1);
+          if (kpos >= T || (kCausal && kpos > qpos)) sc[i] = kNegInf;
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) sc[i] = ex2(fmaf(sc[i], scale2, -lse2[(i >> 1) & 1]));
+    };
+    // dS = P * (dP + corr) in place of dP
+    auto grad_scores = [&](const float(&p)[BK / 2], float(&dp)[BK / 2]) {
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) dp[i] = p[i] * (dp[i] + corr_r[(i >> 1) & 1]);
+    };
+
+    float sc[BK / 2], dp[BK / 2];
+    uint32_t a[BK / 16][3][4];  // dS split in three
+    mbar_wait(q_full, 0);
+    issue_s_dp(sc, dp, 0);
+    wg_wait<1>();
+    pin(sc);
+    probs(sc, 0);
+    wg_wait<0>();
+    pin(dp);
+    grad_scores(sc, dp);
+    for (int kt = 0; kt + 1 < n_tiles; ++kt) {
+      split_frags(a, dp);
+      issue_s_dp(sc, dp, kt + 1);  // run on the tensor cores before this tile's dS K
+      issue_dsk(a, kt);
+      wg_wait<2>();  // the next S is done; its dP and this dS K may still run
+      pin(sc);
+      probs(sc, kt + 1);
+      wg_wait<1>();  // the next dP is done
+      pin(dp);
+      grad_scores(sc, dp);
+      wg_wait<0>();
+      pin(acc);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * (kt % kStages));  // this warp is done with it
+    }
+    split_frags(a, dp);  // the last tile (its buffers are not refilled)
+    issue_dsk(a, n_tiles - 1);
+    wg_wait<0>();
+    pin(acc);
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int t = rw + g + 8 * r;
+      if (t < T) {
+        __nv_bfloat16* row = dq + ((size_t)b * T + t) * H * D + (size_t)h * D + 2 * t4;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j)
+          store2(row + 8 * j, acc[4 * j + 2 * r] * scale, acc[4 * j + 2 * r + 1] * scale);
+      }
+    }
+  }
+}
+
 // dK and dV for one key tile (64 rows a consumer warpgroup), streaming
 // query tiles of dkv_stream_rows<D>() rows from the diagonal on: with the
 // scores held transposed (key rows x query columns), P^T = exp(S^T - lse),
@@ -829,7 +1034,7 @@ cudaError_t rows_map(CUtensorMap* map, const __nv_bfloat16* x, int B, int T, int
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// What run_fwd_wgmma / run_dkv_wgmma return, in place of a cudaError_t,
+// What the run_*_wgmma launchers return, in place of a cudaError_t,
 // for a kernel that ptxas gave other than its block's register share.
 constexpr int kErrRegisterShare = -1;
 
@@ -870,6 +1075,30 @@ cudaError_t run_fwd_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if ((err = allow_smem(flash_fwd_wgmma_kernel<D, kCausal>, smem)) != cudaSuccess) return err;
   flash_fwd_wgmma_kernel<D, kCausal><<<wg_grid(B, T, H, Blk::kRows), Blk::kThreads, smem, st>>>(
       mq, mk, mv, o, lse, T, H, scale);
+  return cudaGetLastError();
+}
+
+template <int D, bool kCausal>
+cudaError_t run_dq_wgmma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                         const __nv_bfloat16* v, const __nv_bfloat16* dout, const float* lse,
+                         const float* corr, __nv_bfloat16* dq, int B, int T, int H, float scale,
+                         cudaStream_t st) {
+  using Blk = WgBlock<kDqConsumers>;
+  constexpr int BK = dq_stream_rows<D>();
+  static const cudaError_t share = check_share<Blk>(flash_dq_wgmma_kernel<D, kCausal>);
+  if (share != cudaSuccess) return share;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t err;
+  if ((err = rows_map<D>(&mq, q, B, T, H, Blk::kRows)) != cudaSuccess ||
+      (err = rows_map<D>(&mk, k, B, T, H, BK)) != cudaSuccess ||
+      (err = rows_map<D>(&mv, v, B, T, H, BK)) != cudaSuccess ||
+      (err = rows_map<D>(&mdo, dout, B, T, H, Blk::kRows)) != cudaSuccess)
+    return err;
+  const size_t smem =
+      kHeadBytes + 1024 + 2 * tile_bytes<D>(Blk::kRows) + 2 * kStages * tile_bytes<D>(BK);
+  if ((err = allow_smem(flash_dq_wgmma_kernel<D, kCausal>, smem)) != cudaSuccess) return err;
+  flash_dq_wgmma_kernel<D, kCausal><<<wg_grid(B, T, H, Blk::kRows), Blk::kThreads, smem, st>>>(
+      mq, mk, mv, mdo, lse, corr, dq, T, H, scale);
   return cudaGetLastError();
 }
 

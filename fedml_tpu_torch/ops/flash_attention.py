@@ -2,9 +2,9 @@
 
 Port of fedml_tpu/ops/flash_attention.py. The three Pallas TPU kernels
 (_fwd_kernel, _bwd_dq_kernel, _bwd_dkv_kernel) become CUDA kernels:
-``csrc/flash_attention.cuh``'s mma.sync kernels for float32 and for bf16
-dQ, and ``csrc/flash_attention_sm90_bf16.cuh``'s wgmma kernels, fed by TMA,
-for the bf16 forward and dK/dV; ``jax.custom_vjp`` becomes
+``csrc/flash_attention.cuh``'s mma.sync kernels for float32, and
+``csrc/flash_attention_sm90_bf16.cuh``'s wgmma kernels, fed by TMA, for
+bf16; ``jax.custom_vjp`` becomes
 ``torch.autograd.Function``. As the reference's, they take q, k, v and dO
 in float32 or bfloat16 (one dtype for all four), compute in float32 and
 write o, dQ, dK and dV in that dtype; lse and corr are float32. Each dtype

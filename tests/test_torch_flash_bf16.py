@@ -49,6 +49,8 @@ from fedml_tpu_torch.core.tasks import sequence_task
 from fedml_tpu_torch.data.synthetic import synthetic_sequences
 from fedml_tpu_torch.models import create_model
 from fedml_tpu_torch.ops.flash_attention import (
+    dense_bwd_dq,
+    dense_fwd,
     flash_attention,
     flash_attention_with_lse,
     flash_fwd,
@@ -150,33 +152,37 @@ def test_mixed_dtypes_and_cpu_tensors_raise():
         flash_fwd(x.to(BF16), x.to(BF16), x.to(BF16), True)
 
 
-def _tf32(x):
-    u = x.contiguous().view(torch.int32)
-    return ((u + 0x1000) & -0x2000).view(torch.float32)
-
-
 def test_bf16_operands_need_no_small_split():
-    """bf16 dQ (flash_dq_kernel on bf16) leaves out every tensor-core pass
-    whose operand split is zero: a bf16 value is exact in TF32 (its small
-    part is 0), so Q K^T in one TF32 pass and P V (P float32) in two equal
-    the full 3xTF32 products bitwise, emulated here as the kernel splits
-    them."""
-    rs = np.random.RandomState(4)
-    q, k, v = (torch.from_numpy(rs.randn(64, 32).astype(np.float32))
-               .to(BF16).float() for _ in range(3))
-    p = torch.softmax(torch.from_numpy(rs.randn(64, 64).astype(np.float32)), -1)
-    for x in (q, k, v):
-        assert torch.equal(_tf32(x), x)  # small = x - big = 0
+    """bf16 dQ's recipe (flash_dq_wgmma_kernel), emulated on one 64 x 64
+    causal tile at D = 32: S = Q K^T and dP = dO V^T in one pass over the
+    bf16 operands (exact products, float64 sums here), P = exp2 in log2
+    units, dS = P (dP + corr), then dS K as the lo, mid and hi passes of
+    dS's three-way split. Rounded to bf16 it lands within one bf16 ulp of
+    dense_bwd_dq's largest |entry|; the hi pass alone lands outside. The
+    keys share an offset of 16, a bias along every head dim: each dS row
+    sums to about 0, so the offset cancels from dS K but not from the parts
+    the control drops."""
+    rs = np.random.RandomState(1)
+    q, k, v, do = (torch.from_numpy(rs.randn(1, 64, 1, 32).astype(np.float32))
+                   for _ in range(4))
+    q, v, do = (x.to(BF16) for x in (q, v, do))
+    k = (k + 16).to(BF16)
+    o, lse = dense_fwd(q, k, v, True)
+    corr = (-(do.float() * o.float()).sum(-1).transpose(1, 2)).contiguous()
+    want = dense_bwd_dq(q, k, v, do, lse, corr, True)[0, :, 0].float()
 
-    def three(a, b):  # big*small + small*big + big*big
-        ba, bb = _tf32(a), _tf32(b)
-        sa, sb = _tf32(a - ba), _tf32(b - bb)
-        return (ba @ sb + sa @ bb) + ba @ bb
-
-    assert torch.equal(_tf32(q) @ _tf32(k).T, three(q, k.T.contiguous()))
-    two = _tf32(p - _tf32(p)) @ _tf32(v) + _tf32(p) @ _tf32(v)
-    assert torch.equal(two, three(p, v))
-
+    log2e, scale = 1.4426950408889634, 32 ** -0.5
+    Q, K, V, dO = (x[0, :, 0].double() for x in (q, k, v, do))
+    s = (Q @ K.T).float().masked_fill(
+        ~torch.ones(64, 64, dtype=torch.bool).tril(), -1e30)
+    p = torch.exp2(s * (scale * log2e) - lse[0, 0, :, None] * log2e)
+    ds = p * ((dO @ V.T).float() + corr[0, 0, :, None])
+    hi, mid, lo = (x.double() for x in _split3(ds))
+    three = ((lo @ K + mid @ K) + hi @ K).float() * scale
+    lim = _ulp(want.numpy())
+    assert float((three.to(BF16).float() - want).abs().max()) <= lim
+    hi_only = (hi @ K).float() * scale
+    assert float((hi_only.to(BF16).float() - want).abs().max()) > lim
 
 
 def _split3(x):
@@ -222,8 +228,7 @@ def test_three_bf16_passes_carry_a_float32_operand():
 def test_kernel_labels_name_the_bf16_instantiations():
     """chip_smoke.py's build phase finds each instantiation by the label it
     reads from the mangled name (these from an sm_90a build of
-    flash_attention_bf16.cu): the wgmma forward and dK/dV carry no element
-    type, bf16 dQ keeps its own."""
+    flash_attention_bf16.cu): the three wgmma kernels of the slice."""
     import chip_smoke
 
     ns = "_ZN56_GLOBAL__N__a0290591_23_flash_attention_bf16_cu_47b45561"
@@ -232,8 +237,8 @@ def test_kernel_labels_name_the_bf16_instantiations():
         "P13__nv_bfloat16Pfiif": "flash_fwd_wgmma_kernel<32,1>",
         "22flash_dkv_wgmma_kernelILi32ELb1EEEv14CUtensorMap_stS1_S1_S1_"
         "PKfS3_P13__nv_bfloat16S5_iif": "flash_dkv_wgmma_kernel<32,1>",
-        "15flash_dq_kernelILi32ELb1E13__nv_bfloat16EEvPKT1_S4_S4_S4_PKfS6_"
-        "PS2_iif": "flash_dq_kernel<32,1,bf16>",
+        "21flash_dq_wgmma_kernelILi32ELb1EEEv14CUtensorMap_stS1_S1_S1_"
+        "PKfS3_P13__nv_bfloat16iif": "flash_dq_wgmma_kernel<32,1>",
     }
     assert {chip_smoke._kernel_label(ns + k) for k in names} == set(names.values())
     assert set(names.values()) <= set(chip_smoke.SLICE_KERNELS)
