@@ -12,11 +12,13 @@ Phases, in order:
            side; the build's seconds); ptxas's registers and spills and the
            counts of tensor-core instructions in the built SASS (HMMA for
            mma.sync, HGMMA for wgmma), per instantiation; fails unless every
-           instantiation of the bf16 forward, dQ and dK/dV (wgmma) has HGMMA
-           and ptxas serialized none of their wgmma, every one of the
-           float32 kernels has HMMA, and the bf16 library holds no mma.sync
-           kernel (the register share that setmaxnreg needs is checked by
-           the host code at launch)
+           instantiation of the wgmma kernels (the bf16 forward, dQ and
+           dK/dV, the float32 forward and dK/dV) has HGMMA and ptxas
+           serialized none of their wgmma, every one of the float32 dQ
+           (mma.sync) has HMMA, the bf16 library holds no mma.sync kernel
+           and the float32 one no mma.sync forward or dK/dV (the register
+           share that setmaxnreg needs is checked by the host code at
+           launch)
   kernels  each kernel against its plain PyTorch version on the card, at the
            shape the slice's training steps give it (the cohort folded into
            B), at its eval's shape and at ragged shapes of every head dim
@@ -25,8 +27,12 @@ Phases, in order:
            float64 at every one of those shapes, each within
            F32_ERR_FACTOR x its plain float32 version's error; its time,
            the plain version's time and scaled_dot_product_attention's,
-           whose CUDA kernels are named; a [B,T,H,D] view off a 16-byte
-           boundary refused by all three wrappers before any launch. Then
+           whose CUDA kernels are named; at small shapes that complete
+           every head dim x causal pair of the float32 wgmma kernels
+           (F32_WGMMA) and leave consumer warpgroups with no row below T,
+           the same checks untimed, of those kernels alone; a [B,T,H,D]
+           view off a 16-byte boundary refused by all three wrappers before
+           any launch. Then
            the bf16 kernels (all three on wgmma) on bf16 q, k, v, dO at the
            same shapes and at small ones that complete every head dim x
            causal pair of the wgmma kernels and leave consumer warpgroups
@@ -36,8 +42,9 @@ Phases, in order:
            plain version's error plus one ulp against float64; their times
            beside the bf16 bound, the plain versions' and SDPA's bf16 times;
            bf16 views off a 16-byte boundary, mixed dtypes, float16 and a
-           bf16 lse refused before any launch; at the small shapes the
-           wgmma forward, dQ and dK/dV rerun BF16_REPEATS times, each run
+           bf16 lse refused before any launch; at the small shapes of each
+           dtype its wgmma kernels (bf16: forward, dQ and dK/dV; float32:
+           forward and dK/dV) rerun BF16_REPEATS times, each run
            synchronized and bitwise the first
   slice    FedAvg over TransformerLM("transformer_flash", vocab 1024, dim
            256, depth 4, heads 8, T 2048): 2 rounds of 4 clients x 2 local
@@ -354,7 +361,9 @@ PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
 # 165 TFLOP/s: the least time the card needs for f32-accurate work, so each
-# kernel's bound_ms takes it; the CUDA-core f32 figure is bound_f32_ms.
+# kernel's bound_ms takes it; the CUDA-core f32 figure is bound_f32_ms. Six
+# bf16 passes at PEAK_BF16_FLOPS (the float32 forward's and dK/dV's recipe)
+# cost the same: 6 / 989.4e12 against 3 / 495e12 s a flop.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -363,8 +372,9 @@ PEAK_BYTES_PER_S = 3.35e12
 # einsum; the grads add a second such sum (dS) and sum over T queries.
 TOL_FWD = 1e-4
 TOL_BWD = 1e-3
-# the kernels (3xTF32 on the tensor cores) against a float64 oracle: max
-# |err| at most this many times that of their plain float32 versions
+# the kernels (six bf16 passes or 3xTF32 on the tensor cores) against a
+# float64 oracle: max |err| at most this many times that of their plain
+# float32 versions
 F32_ERR_FACTOR = 4
 # the slice's rounds, flash kernels vs plain attention from the same
 # weights: history metrics (relative) and final params (absolute) are 4
@@ -415,25 +425,40 @@ BF16_SMALL_SHAPES = (dict(B=1, T=128, H=1, D=32, causal=False),
                      dict(B=1, T=256, H=2, D=32, causal=True),
                      dict(B=1, T=300, H=2, D=128, causal=True),
                      dict(B=1, T=300, H=2, D=16, causal=False))
+# float32: with RAGGED_SHAPES every head dim of the float32 wgmma kernels
+# (F32_WGMMA) causal and not, and grids whose last block holds a consumer
+# warpgroup that owns only rows >= T (64 rows a consumer, two a block at
+# D <= 64). They hold those kernels only: the mma.sync dQ, never held here,
+# lands at 4.9x plain f32's error against float64 at the first (ROADMAP
+# queue C), a recipe its redesign replaces
+F32_SMALL_SHAPES = (dict(B=1, T=64, H=1, D=32, causal=False),
+                    dict(B=1, T=192, H=2, D=32, causal=True),
+                    dict(B=1, T=300, H=2, D=64, causal=True),
+                    dict(B=1, T=300, H=2, D=16, causal=False),
+                    dict(B=1, T=100, H=2, D=128, causal=True))
 BF16_REPEATS = 200  # reruns of the wgmma kernels at each small shape
-# the slice's instantiations (D = 32, causal): float32 (mma.sync), bf16
-# (wgmma)
-SLICE_KERNELS = ("flash_fwd_kernel<32,1>", "flash_dq_kernel<32,1>",
-                 "flash_dkv_kernel<32,1>", "flash_fwd_wgmma_kernel<32,1>",
+# the slice's instantiations (D = 32, causal): float32 (forward and dK/dV
+# on wgmma, dQ on mma.sync), bf16 (wgmma)
+SLICE_KERNELS = ("flash_fwd_wgmma_f32_kernel<32,1>", "flash_dq_kernel<32,1>",
+                 "flash_dkv_wgmma_f32_kernel<32,1>", "flash_fwd_wgmma_kernel<32,1>",
                  "flash_dq_wgmma_kernel<32,1>", "flash_dkv_wgmma_kernel<32,1>")
 # the kernel template behind each wrapper and element type, and the file
 # that holds it
 _CSRC = "fedml_tpu_torch/ops/csrc/"
 KERNEL_OF = {
-    "flash_fwd": ("flash_fwd_kernel", _CSRC + "flash_attention.cuh"),
+    "flash_fwd": ("flash_fwd_wgmma_f32_kernel",
+                  _CSRC + "flash_attention_sm90_f32.cuh"),
     "flash_bwd_dq": ("flash_dq_kernel", _CSRC + "flash_attention.cuh"),
-    "flash_bwd_dkv": ("flash_dkv_kernel", _CSRC + "flash_attention.cuh"),
+    "flash_bwd_dkv": ("flash_dkv_wgmma_f32_kernel",
+                      _CSRC + "flash_attention_sm90_f32.cuh"),
     "flash_fwd_bf16": ("flash_fwd_wgmma_kernel",
                        _CSRC + "flash_attention_sm90_bf16.cuh"),
     "flash_bwd_dq_bf16": ("flash_dq_wgmma_kernel",
                           _CSRC + "flash_attention_sm90_bf16.cuh"),
     "flash_bwd_dkv_bf16": ("flash_dkv_wgmma_kernel",
                            _CSRC + "flash_attention_sm90_bf16.cuh")}
+# the float32 wrappers whose kernels run on wgmma
+F32_WGMMA = tuple(n for n in fa.KERNELS if "wgmma" in KERNEL_OF[n][0])
 REPLACES = {"flash_fwd": "fedml_tpu/ops/flash_attention.py:79",
             "flash_bwd_dq": "fedml_tpu/ops/flash_attention.py:213",
             "flash_bwd_dkv": "fedml_tpu/ops/flash_attention.py:238"}
@@ -526,9 +551,12 @@ def phase_build(report):
     for lib in libs:
         sass = _sass_counts(lib)
         counts.update(sass)
-        if lib.name.startswith("flash_attention_bf16-"):  # wgmma kernels only
-            stale += [fn for fn in sass
-                      if re.match(r"flash_(fwd|dq|dkv)_kernel<", fn)]
+        # the bf16 library holds wgmma kernels only, the float32 one no
+        # mma.sync forward or dK/dV
+        retired = (r"flash_(fwd|dq|dkv)_kernel<"
+                   if lib.name.startswith("flash_attention_bf16-")
+                   else r"flash_(fwd|dkv)_kernel<")
+        stale += [fn for fn in sass if re.match(retired, fn)]
         log = lib.with_suffix(".log").read_text()
         print(f"  {lib.name}: {len(sass)} kernels")
         for fn, regs, spill in _ptxas_report(log):
@@ -546,14 +574,15 @@ def phase_build(report):
                 serialized.append(fn)
                 print(f"  ptxas: {fn}: {line.split('due to')[-1].strip()}")
     report["ptxas"] = ptxas
-    # the bf16 kernels run on wgmma at every head dim, causal and not; the
-    # float32 kernels on mma.sync; the slice's instantiations (D=32, causal)
-    # first of all
+    # the bf16 kernels and the float32 forward and dK/dV run on wgmma at
+    # every head dim, causal and not; the float32 dQ on mma.sync; the
+    # slice's instantiations (D=32, causal) among them
+    every = [(d, c) for d in fa.HEAD_DIMS for c in (0, 1)]
     wgmma = {f"flash_{k}_wgmma_kernel<{d},{c}>" for k in ("fwd", "dq", "dkv")
-             for d in fa.HEAD_DIMS for c in (0, 1)}
-    sync = {fn for fn in counts
-            if re.match(r"flash_(fwd|dq|dkv)_kernel<", fn)} | (
-        set(SLICE_KERNELS) - wgmma)
+             for d, c in every} | {f"flash_{k}_wgmma_f32_kernel<{d},{c}>"
+                                   for k in ("fwd", "dkv") for d, c in every}
+    sync = {f"flash_dq_kernel<{d},{c}>" for d, c in every}
+    assert set(SLICE_KERNELS) <= wgmma | sync
     missing = sorted(fn for fn in wgmma | sync if fn not in counts)
     no_hgmma = sorted(fn for fn in wgmma & set(counts) if not counts[fn][1])
     no_hmma = sorted(fn for fn in sync & set(counts) if not counts[fn][0])
@@ -562,9 +591,8 @@ def phase_build(report):
     if missing or no_hgmma or no_hmma or stale or serial:
         raise AssertionError(
             f"kernels missing from the SASS {missing}; without HGMMA "
-            f"{no_hgmma}; without HMMA {no_hmma}; mma.sync kernels in the "
-            f"bf16 library {sorted(stale)}; wgmma serialized by ptxas in "
-            f"{serial}")
+            f"{no_hgmma}; without HMMA {no_hmma}; retired mma.sync kernels "
+            f"{sorted(stale)}; wgmma serialized by ptxas in {serial}")
     print(f"  HGMMA in all {len(wgmma)} wgmma instantiations, HMMA in all "
           f"{len(sync)} mma.sync ones")
 
@@ -650,10 +678,10 @@ def _check_close(name, pairs, tol, where):
                                  f" > tol {tol}")
 
 
-def check_kernels(B, T, H, D, causal, timed):
-    """Each kernel against its plain version on the same inputs and
-    against a second run of itself (bitwise), the forward against float64;
-    times, SDPA's and the backward pair against float64 too when
+def check_kernels(B, T, H, D, causal, timed, only=None):
+    """Each kernel (of ``only``, if given) against its plain version on
+    the same inputs and against a second run of itself (bitwise), and the
+    forward and the backward pair against float64; times and SDPA's when
     ``timed``. Returns {kernel: stats}."""
     g = torch.Generator(device="cuda").manual_seed(T * 7 + D)
     shape = (B, T, H, D)
@@ -677,6 +705,8 @@ def check_kernels(B, T, H, D, causal, timed):
             lambda: fa.dense_bwd_dkv(q, k, v, do, lse_ref, corr, causal),
             TOL_BWD),
     }
+    if only is not None:
+        runs = {name: run for name, run in runs.items() if name in only}
     work = _work(B, T, H, D, causal)
     stats = {}
     for name, (kern, plain, tol) in runs.items():
@@ -724,6 +754,8 @@ def _check_f64(runs, exact, where):
     output: the kernel's max |err| may be at most F32_ERR_FACTOR times the
     plain's."""
     for name, ref in exact.items():
+        if name not in runs:
+            continue
         kern, plain, _ = runs[name]
         outs = [[x.double() for x in f()] for f in (kern, plain)]
         for i, r in enumerate(ref):
@@ -940,6 +972,9 @@ def phase_kernels(report):
     for r in RAGGED_SHAPES:
         check_kernels(r["B"], r["T"], r["H"], r["D"], r["causal"],
                       timed=False)
+    for r in F32_SMALL_SHAPES:  # the float32 wgmma kernels' own shapes
+        check_kernels(r["B"], r["T"], r["H"], r["D"], r["causal"],
+                      timed=False, only=F32_WGMMA)
     check_misaligned()
     report["kernels_bf16"] = check_kernels_bf16(
         s["B"], s["T"], s["H"], s["D"], s["causal"], timed=True)
@@ -948,26 +983,32 @@ def phase_kernels(report):
                            timed=False)
     check_misaligned(dtype=torch.bfloat16)
     check_dtypes()
-    for r in BF16_SMALL_SHAPES:
-        check_repeats_bf16(r["B"], r["T"], r["H"], r["D"], r["causal"])
+    for dtype, shapes in ((torch.bfloat16, BF16_SMALL_SHAPES),
+                          (torch.float32, F32_SMALL_SHAPES)):
+        for r in shapes:
+            check_repeats(r["B"], r["T"], r["H"], r["D"], r["causal"], dtype)
 
 
-def check_repeats_bf16(B, T, H, D, causal, n=None):
-    """The wgmma forward, dQ and dK/dV run ``n`` (BF16_REPEATS) times on
-    one set of inputs, each launch synchronized (a fault or a trapped wait
+def check_repeats(B, T, H, D, causal, dtype, n=None):
+    """The wgmma kernels of ``dtype`` (bf16: the forward, dQ and dK/dV;
+    float32: the forward and dK/dV) run ``n`` (BF16_REPEATS) times on one
+    set of inputs, each launch synchronized (a fault or a trapped wait
     names its run) and bitwise the first run's outputs."""
     n = BF16_REPEATS if n is None else n
+    sfx = fa.DTYPES[dtype][1]
     g = torch.Generator(device="cuda").manual_seed(T * 7 + D + 2)
     q, k, v, do = (torch.randn((B, T, H, D), generator=g, device="cuda")
-                   .to(torch.bfloat16) for _ in range(4))
+                   .to(dtype) for _ in range(4))
     lse = fa.dense_fwd(q, k, v, causal)[1]
     corr = torch.randn((B, H, T), generator=g, device="cuda")
-    where = f"bf16 B={B} T={T} H={H} D={D} causal={causal}"
+    where = f"{str(dtype)[6:]} B={B} T={T} H={H} D={D} causal={causal}"
     runs = {"flash_fwd": lambda: fa.flash_fwd(q, k, v, causal),
             "flash_bwd_dq": lambda: (fa.flash_bwd_dq(q, k, v, do, lse, corr,
                                                      causal),),
             "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, corr,
                                                       causal)}
+    runs = {name: run for name, run in runs.items()
+            if "wgmma" in KERNEL_OF[name + sfx][0]}
     for name, run in runs.items():
         first = run()
         t0 = time.perf_counter()
@@ -976,12 +1017,12 @@ def check_repeats_bf16(B, T, H, D, causal, n=None):
                 out = run()
                 torch.cuda.synchronize()
             except RuntimeError as e:
-                raise AssertionError(f"{name}_bf16 run {i + 2} of {n + 1} at "
+                raise AssertionError(f"{name}{sfx} run {i + 2} of {n + 1} at "
                                      f"{where} failed: {e}") from e
             if not all(torch.equal(a, b) for a, b in zip(first, out)):
-                raise AssertionError(f"{name}_bf16 run {i + 2} at {where} "
+                raise AssertionError(f"{name}{sfx} run {i + 2} at {where} "
                                      f"differs from the first")
-        print(f"  {name}_bf16 {where}: {n} more runs, each bitwise the "
+        print(f"  {name}{sfx} {where}: {n} more runs, each bitwise the "
               f"first, in {time.perf_counter() - t0:.2f} s")
 
 

@@ -1,30 +1,20 @@
-// Flash attention for Hopper (sm_90a): forward, dQ and dK/dV kernels on float32
-// q, k, v, dO (outputs o, dQ, dK, dV float32; lse and corr float32), behind
-// the C entry points of flash_attention.cu. On bf16 inputs the three
-// reference kernels are replaced by the wgmma kernels of
-// flash_attention_sm90_bf16.cuh (flash_fwd_wgmma_kernel,
-// flash_dq_wgmma_kernel, flash_dkv_wgmma_kernel) behind
-// flash_attention_bf16.cu; two nvcc processes build the two sources side by
-// side.
+// The float32 flash dQ kernel for Hopper (sm_90a), flash_dq_kernel on
+// mma.sync, behind the C entry point flash_attention_bwd_dq
+// (flash_attention.cu); and what every flash kernel of the port shares: the
+// mask value, the log2 constants, the dispatch over head dims and the C entry
+// points' macro. It replaces the Pallas TPU kernel _bwd_dq_kernel
+// (fedml_tpu/ops/flash_attention.py:213, the first call of _pallas_bwd) on
+// float32 inputs. The float32 forward and dK/dV run on wgmma
+// (flash_attention_sm90_f32.cuh), all three bf16 kernels too
+// (flash_attention_sm90_bf16.cuh).
 //
-// Replaces the Pallas TPU kernels of fedml_tpu/ops/flash_attention.py on
-// float32 inputs:
-//   flash_fwd_kernel  <- _fwd_kernel      (:79, launched by _pallas_fwd)
-//   flash_dq_kernel   <- _bwd_dq_kernel   (:213, launched by _pallas_bwd, first call)
-//   flash_dkv_kernel  <- _bwd_dkv_kernel  (:238, launched by _pallas_bwd, second call)
-//
-// What bounds them: matrix products, 4*D (forward), 6*D (dQ) and 8*D (dK/dV)
-// flops per unmasked (query, key) pair, in two, three and four products per
-// tile pair:
-//   forward:      S = Q K^T, O += P V (online softmax between them)
-//   dQ kernel:    S = Q K^T, dP = dO V^T, dQ += dS K
-//   dK/dV kernel: S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T Q
-// At the long-context training shape (B*H = 32 heads, T = 2048, D = 32) that
-// work exceeds the time to move 34-51 MB of inputs and outputs several
-// times over. All three run on the tensor cores, which hold most of the
-// card's arithmetic, at float32 accuracy, so their floor is 3xTF32
+// What bounds it: matrix products, 6*D flops per unmasked (query, key) pair
+// in three products per tile pair: S = Q K^T, dP = dO V^T, dQ += dS K. At
+// the long-context training shape (B*H = 128 heads, T = 2048, D = 32) that
+// work exceeds the time to move its inputs and output several times over.
+// It runs on the tensor cores, at float32 accuracy, so its floor is 3xTF32
 // tensor-core work (three TF32 products per product at 495 TFLOP/s). Above
-// that floor what limits them is instruction issue: most instructions split
+// that floor what limits it is instruction issue: most instructions split
 // operands, load fragments from shared memory, add partials and apply the
 // softmax; about one in ten is an mma. The design:
 // - 3xTF32. mma.sync m16n8k8 takes TF32 operands (10-bit mantissa), which
@@ -33,75 +23,50 @@
 //   is accumulated in f32 as big*small + small*big + big*big (small*small,
 //   ~2^-22 relative, is dropped), at a third of the TF32 rate: ~165 TFLOP/s
 //   of f32-accurate work against 67 on the CUDA cores. No product runs as a
-//   single TF32 pass. The tensor cores add with truncation, so the sums over
-//   the streamed rows (O, dQ, dK, dV) start from zero in each tile and each
-//   tile's partial is added into an f32 register sum, rounded (acc_add, or
-//   the forward's rescale-and-add). Against a float64 oracle the outputs are
-//   then as accurate as the plain f32 version (chip_smoke.py checks it).
-// - Scores stay in registers. One block of 4 warps owns a 64-row tile
-//   (queries for the forward and dQ, keys for dK/dV), 16 rows per warp. The
-//   m16n8 accumulator fragments of S and dP become the A fragments of the
-//   next product (P V, dS K, P^T dO, dS^T Q) without a trip through shared
-//   memory. An accumulator holds columns (2t, 2t+1) where an A fragment
-//   wants (t, t+4), so the contraction index is permuted instead of the
-//   registers: logical k = t is physical row 2t and t+4 is 2t+1, and the B
-//   rows are loaded in that order (a sum does not depend on its order).
-// - Forward's online softmax. A row's scores lie in the 4 lanes of a quad;
-//   its running max m is taken across the quad with two shuffles per tile,
-//   its running sum l is kept per lane and added across the quad once at
-//   the end. Scores are kept in log2 units (scale * log2(e) folded into the
-//   scale), so each exponential is one exp2. Per tile: m_new = max(m, rowmax
-//   S), corr = exp(m - m_new), P = exp(S - m_new), l = l corr + rowsum P,
-//   O = O corr + P V with the tile's P V from zero. Q does not change across
-//   key tiles, so for D <= 32 its split A fragments are made once and held
-//   in registers (32 of them at D = 32); from D = 64 they would crowd out
-//   the O accumulators, and are loaded and split per tile as in dQ.
-// - Asynchronous loads. The streamed tiles (K, V in the forward and dQ; Q,
-//   dO, lse, corr in dK/dV) arrive by cp.async, 16 bytes a thread,
-//   double-buffered, so the next tile's copy runs under this tile's
-//   products. Rows are padded to D+4 floats: 16-byte aligned for cp.async,
-//   and every fragment load, including those of the operands contracted
-//   over a tile's rows (V in P V, K in dS K; dO and Q in dK/dV), hits 32
+//   single TF32 pass. The tensor cores add with truncation, so the sum over
+//   the streamed rows (dQ) starts from zero in each tile and each tile's
+//   partial is added into an f32 register sum, rounded (acc_add). Against a
+//   float64 oracle the output is then as accurate as the plain f32 version
+//   (chip_smoke.py checks it).
+// - Scores stay in registers. One block of 4 warps owns a 64-row query tile,
+//   16 rows per warp. The m16n8 accumulator fragments of dP become the A
+//   fragments of dS K without a trip through shared memory. An accumulator
+//   holds columns (2t, 2t+1) where an A fragment wants (t, t+4), so the
+//   contraction index is permuted instead of the registers: logical k = t is
+//   physical row 2t and t+4 is 2t+1, and K's rows are loaded in that order
+//   (a sum does not depend on its order).
+// - Asynchronous loads. The streamed K and V tiles arrive by cp.async, 16
+//   bytes a thread, double-buffered, so the next tile's copy runs under this
+//   tile's products. Rows are padded to D+4 floats: 16-byte aligned for
+//   cp.async, and every fragment load, K's in dS K included, hits 32
 //   distinct banks.
-// - Operands are split per warp. Each warp splits the K and V fragments it
+// - Operands are split per warp: each warp splits the K and V fragments it
 //   loads, so the four warps of a block split every streamed element four
-//   times. Splitting each element once per tile into big and small tiles in
-//   shared memory removes those repeats but doubles the bytes read from
-//   shared memory per fragment and adds a pass and a barrier per tile; tried
-//   for the forward, it was slower on the card (PERF.md).
-// - Registers and shared memory. Streamed tiles are 64 rows; 32 for dK/dV
-//   from D = 64, whose two accumulators need the registers; 16 at D = 128,
-//   where the tiles would otherwise fill shared memory for one block per SM.
-//   O, dQ, dK and dV are summed tile by tile in passes of at most 32
-//   columns.
+//   times.
+// - Registers and shared memory. Streamed tiles are 64 rows, 16 at D = 128,
+//   where they would otherwise fill shared memory for one block per SM. dQ
+//   is summed tile by tile in passes of at most 32 columns.
 // - Causal balance. The grid is (B*H, tiles) and blocks are issued x first,
 //   so every head's heaviest tile goes first: a query tile i visits i+1 key
-//   tiles, so the forward and dQ walk their tiles in reverse; a dK/dV key
-//   tile i visits n-i query tiles, so it walks them in order.
-// - Why mma.sync and not wgmma here: the bf16 kernels run on wgmma
-//   (flash_attention_sm90_bf16.cuh), because wgmma may read a 16-bit B
-//   operand transposed (MN-major), so P V, dS K, P^T dO and dS^T Q read V,
-//   K, dO and Q as they are stored. For tf32 wgmma takes both operands
-//   K-major from shared memory, and those four products contract over a
-//   tile's rows, so the float32 kernels would need transposed copies of V,
-//   K, dO and Q, and the split big and small tiles, in shared memory.
-//   mma.sync loads its fragments per thread in any order. That redesign is
-//   later work.
+//   tiles, so the blocks walk the query tiles in reverse.
+// - Why mma.sync and not wgmma here: the float32 forward and dK/dV run on
+//   wgmma on operands split into three bf16 parts, six passes a product
+//   (flash_attention_sm90_f32.cuh's note says why that recipe and not TF32);
+//   dQ is to follow on the same design.
 //
-// All three kernels skip tiles wholly above the causal diagonal (the TPU
-// kernels did the full T^2 work) and mask the ragged edge k >= T here, so the
-// caller passes unpadded [B, T, H, D] tensors and no padding copy exists. The
-// forward's per-row l is floored at 1e-30 and lse = m + log(l), as in the
-// TPU kernel. The dQ / dK,dV split of the TPU version is kept: no atomics,
-// and every output element is summed in a fixed order, so results are the
-// same bitwise from run to run.
+// The kernel skips tiles wholly above the causal diagonal (the TPU kernel
+// did the full T^2 work) and masks the ragged edge k >= T here, so the
+// caller passes unpadded [B, T, H, D] tensors and no padding copy exists.
+// The dQ / dK,dV split of the TPU version is kept: no atomics, and every
+// output element is summed in a fixed order, so results are the same
+// bitwise from run to run.
 //
-// Layouts: q, k, v, o, dO, dQ, dK, dV are contiguous [B, T, H, D]; lse and
-// corr (= lse cotangent - rowsum(dO * O)) are contiguous [B, H, T]. The
-// kernels need q, k, v and dO to start on a 16-byte boundary (the Python
-// wrappers refuse other views) and write o, dQ, dK, dV two values at a time.
-// Kernels launch on the caller's stream, allocate nothing, and each C entry
-// point returns cudaGetLastError() of its launch.
+// Layouts: q, k, v, dO, dQ are contiguous [B, T, H, D]; lse and corr
+// (= lse cotangent - rowsum(dO * O)) are contiguous [B, H, T]. The kernel
+// needs q, k, v and dO to start on a 16-byte boundary (the Python wrappers
+// refuse other views) and writes dQ two values at a time. Kernels launch on
+// the caller's stream, allocate nothing, and each C entry point returns
+// cudaGetLastError() of its launch.
 
 #pragma once
 
@@ -118,19 +83,15 @@ constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kOwn = 16 * kWarps;  // rows a block owns: 16 per warp
 
-// Rows of the streamed tiles: 64; 32 for dK/dV from D = 64, whose two
-// accumulators would not fit in registers beside 64-row score tiles; 16 at
-// D = 128, where the tiles' shared memory would otherwise leave room for one
-// block per SM. And the padded row stride of every tile, in floats: a row
-// plus 16 bytes.
-template <int D, bool kTwoAccumulators>
-__host__ __device__ constexpr int stream_rows() {
-  return D > 64 ? 16 : (kTwoAccumulators && D > 32) ? 32 : 64;
-}
+// Rows of the streamed tiles: 64; 16 at D = 128, where the tiles' shared
+// memory would otherwise leave room for one block per SM. And the padded row
+// stride of every tile, in floats: a row plus 16 bytes.
+template <int D>
+__host__ __device__ constexpr int stream_rows() { return D > 64 ? 16 : 64; }
 template <int D>
 __host__ __device__ constexpr int tile_ld() { return D + 4; }
-// Column groups of 8 whose tile partials one pass of the O/dQ/dK/dV product
-// holds in registers at once.
+// Column groups of 8 whose tile partials one pass of the dQ product holds in
+// registers at once.
 template <int D>
 __host__ __device__ constexpr int col_groups() { return D / 8 < 4 ? D / 8 : 4; }
 
@@ -143,12 +104,6 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src, bool vali
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
                "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(src),
-               "r"(valid ? 4 : 0));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -175,18 +130,6 @@ __device__ __forceinline__ void async_rows(float* dst, const float* __restrict__
     const int t = row0 + r;
     const bool ok = t < T;
     cp_async16(dst + r * tile_ld<D>() + c, src + (size_t)(ok ? t : 0) * stride + c, ok);
-  }
-}
-
-// Entries row0 .. row0+ROWS-1 of one [T] row of lse or corr, 4 bytes a thread
-// (a row of ragged T need not be 16-byte aligned); entries >= T are zero.
-template <int ROWS>
-__device__ __forceinline__ void async_vec(float* dst, const float* __restrict__ src, int row0,
-                                          int T) {
-  for (int i = threadIdx.x; i < ROWS; i += kThreads) {
-    const int t = row0 + i;
-    const bool ok = t < T;
-    cp_async4(dst + i, src + (ok ? t : 0), ok);
   }
 }
 
@@ -271,185 +214,6 @@ __device__ __forceinline__ void accum_to_a(Frag<4>& f, const float (&c)[4]) {
   split_frag(f, x);
 }
 
-// O and lse for one 64-row query tile, looping over streamed key tiles with
-// an online softmax (source note above).
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
-                 int T, int H, float scale) {
-  constexpr int LD = tile_ld<D>(), BN = stream_rows<D, false>(), KD = D / 8, NJ = BN / 8,
-                KC = col_groups<D>();
-  constexpr bool kQInRegs = D <= 32;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Qs = reinterpret_cast<float*>(smem_raw);
-  float* Ks = Qs + kOwn * LD;  // [2][BN][LD]
-  float* Vs = Ks + 2 * BN * LD;
-
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * kOwn;  // heaviest causal tiles first
-  const int stride = H * D;
-  const size_t base = ((size_t)b * T * H + h) * D;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;  // this warp's rows of the tile
-  const float scale2 = scale * kLog2e;  // scores in log2 units
-
-  async_rows<D, kOwn>(Qs, q + base, q0, T, stride);
-  cp_async_commit();
-  async_rows<D, BN>(Ks, k + base, 0, T, stride);
-  async_rows<D, BN>(Vs, v + base, 0, T, stride);
-  cp_async_commit();
-
-  Frag<4> qf[kQInRegs ? KD : 1];
-  if constexpr (kQInRegs) {
-    cp_async_wait<1>();  // Q only
-    __syncthreads();
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) load_a(qf[kd], Qs + r0 * LD + kd * 8, LD, g, t4);
-  }
-
-  // rows g and g+8 of this warp: running max (log2 units) and this lane's
-  // part of the running sum
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-  float acc[KD][4];
-#pragma unroll
-  for (int nd = 0; nd < KD; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nd][e] = 0.f;
-
-  const int n_all = (T + BN - 1) / BN;
-  const int n_tiles = kCausal ? min(n_all, (q0 + kOwn + BN - 1) / BN) : n_all;
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_tiles) {  // the next tile's copy runs under this tile's products
-      async_rows<D, BN>(Ks + (cur ^ 1) * BN * LD, k + base, (kt + 1) * BN, T, stride);
-      async_rows<D, BN>(Vs + (cur ^ 1) * BN * LD, v + base, (kt + 1) * BN, T, stride);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* Kt = Ks + cur * BN * LD;
-    const float* Vt = Vs + cur * BN * LD;
-    const int k0 = kt * BN;
-
-    // S = Q K^T, summed from zero in the tensor cores over each 32 columns
-    // of D, the chunks added in f32: one chain of truncating adds over all
-    // of D = 64 or 128 would bias the scores, and so lse, toward zero
-    float s[NJ][4];
-#pragma unroll
-    for (int c0 = 0; c0 < KD; c0 += 4) {
-      float part[NJ][4] = {};
-#pragma unroll
-      for (int kd = c0; kd < c0 + 4 && kd < KD; ++kd) {
-        Frag<4> aq;
-        if constexpr (kQInRegs) {
-          aq = qf[kd];
-        } else {
-          load_a(aq, Qs + r0 * LD + kd * 8, LD, g, t4);
-        }
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          Frag<2> bk;
-          load_b_trans(bk, Kt + j * 8 * LD + kd * 8, LD, g, t4);
-          mma_split(part[j], aq, bk);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        if (c0 == 0) {
-#pragma unroll
-          for (int e = 0; e < 4; ++e) s[j][e] = part[j][e];
-        } else {
-          acc_add(s[j], part[j]);
-        }
-      }
-    }
-
-    // scale, and mask where the tile crosses the ragged edge or, for this
-    // warp's rows, the causal diagonal (a warp-uniform test)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] *= scale2;
-    if (k0 + BN > T || (kCausal && k0 + BN - 1 > q0 + r0)) {
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qpos = q0 + r0 + g + 8 * (e >> 1);
-          const int kpos = k0 + j * 8 + 2 * t4 + (e & 1);
-          if (kpos >= T || (kCausal && kpos > qpos)) s[j][e] = kNegInf;
-        }
-    }
-
-    // online softmax: P in place of S
-    float corr[2], mx[2] = {kNegInf, kNegInf}, rs[2] = {0.f, 0.f};
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) mx[e >> 1] = fmaxf(mx[e >> 1], s[j][e]);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m_r[i], mx[i]);
-      corr[i] = exp2f(m_r[i] - m_new);
-      m_r[i] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[j][e] = exp2f(s[j][e] - m_r[e >> 1]);
-        rs[e >> 1] += s[j][e];
-      }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) l_r[i] = l_r[i] * corr[i] + rs[i];
-
-    // O = O corr + P V, the tile's P V summed from zero in the tensor cores
-#pragma unroll
-    for (int n1 = 0; n1 < KD; n1 += KC) {
-      float part[KC][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < NJ; ++kk) {
-        Frag<4> ap;
-        accum_to_a(ap, s[kk]);
-#pragma unroll
-        for (int nd = 0; nd < KC; ++nd) {
-          Frag<2> bv;
-          load_b_perm(bv, Vt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
-          mma_split(part[nd], ap, bv);
-        }
-      }
-#pragma unroll
-      for (int nd = 0; nd < KC; ++nd)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[n1 + nd][e] *= corr[e >> 1];
-#pragma unroll
-      for (int nd = 0; nd < KC; ++nd) acc_add(acc[n1 + nd], part[nd]);
-    }
-    __syncthreads();  // every warp is done with this buffer before it is refilled
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float l = l_r[i];  // the quad's four parts of the row sum
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const int t = q0 + r0 + g + 8 * i;
-    if (t < T) {
-      const float l_safe = fmaxf(l, 1e-30f);
-      float* row = o + base + (size_t)t * stride + 2 * t4;
-#pragma unroll
-      for (int nd = 0; nd < KD; ++nd)
-        store2(row + nd * 8, acc[nd][2 * i] / l_safe, acc[nd][2 * i + 1] / l_safe);
-      if (t4 == 0) lse[(size_t)bh * T + t] = m_r[i] * kLn2 + logf(l_safe);
-    }
-  }
-}
-
 // dQ for one 64-row query tile: P = exp(S - lse), dS = P * (dO V^T + corr),
 // dQ = scale * dS K, looping over streamed key tiles.
 template <int D, bool kCausal>
@@ -458,7 +222,7 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                 const float* __restrict__ v, const float* __restrict__ dout,
                 const float* __restrict__ lse, const float* __restrict__ corr,
                 float* __restrict__ dq, int T, int H, float scale) {
-  constexpr int LD = tile_ld<D>(), BN = stream_rows<D, false>(), KD = D / 8, NJ = BN / 8,
+  constexpr int LD = tile_ld<D>(), BN = stream_rows<D>(), KD = D / 8, NJ = BN / 8,
                 KC = col_groups<D>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* Qs = reinterpret_cast<float*>(smem_raw);
@@ -573,145 +337,6 @@ flash_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// dK, dV for one 64-row key tile, looping over streamed query tiles: with the
-// scores held transposed (key rows x query cols), dV += P^T dO and
-// dK += scale * dS^T Q.
-template <int D, bool kCausal>
-__global__ void __launch_bounds__(kThreads)
-flash_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ dout,
-                 const float* __restrict__ lse, const float* __restrict__ corr,
-                 float* __restrict__ dk, float* __restrict__ dv, int T, int H, float scale) {
-  constexpr int LD = tile_ld<D>(), BN = stream_rows<D, true>(), KD = D / 8, NJ = BN / 8,
-                KC = col_groups<D>();
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* Ks = reinterpret_cast<float*>(smem_raw);
-  float* Vs = Ks + kOwn * LD;
-  float* Qs = Vs + kOwn * LD;     // [2][BN][LD]
-  float* dOs = Qs + 2 * BN * LD;  // [2][BN][LD]
-  float* Ls = reinterpret_cast<float*>(dOs + 2 * BN * LD);  // [2][BN]
-  float* Cs = Ls + 2 * BN;                                   // [2][BN]
-
-  const int bh = blockIdx.x, b = bh / H, h = bh - b * H;
-  const int k0 = blockIdx.y * kOwn;  // tile 0 visits the most query tiles: first
-  const int stride = H * D;
-  const size_t base = ((size_t)b * T * H + h) * D;
-  const float* lse_h = lse + (size_t)bh * T;
-  const float* corr_h = corr + (size_t)bh * T;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
-  const int r0 = warp * 16;
-
-  // causal: the first query tile holding a query at or after this tile's first key
-  const int qt0 = kCausal ? k0 / BN : 0;
-  const int n_tiles = (T + BN - 1) / BN;
-  async_rows<D, kOwn>(Ks, k + base, k0, T, stride);
-  async_rows<D, kOwn>(Vs, v + base, k0, T, stride);
-  async_rows<D, BN>(Qs, q + base, qt0 * BN, T, stride);
-  async_rows<D, BN>(dOs, dout + base, qt0 * BN, T, stride);
-  async_vec<BN>(Ls, lse_h, qt0 * BN, T);
-  async_vec<BN>(Cs, corr_h, qt0 * BN, T);
-  cp_async_commit();
-
-  float acc_k[KD][4], acc_v[KD][4];
-#pragma unroll
-  for (int nd = 0; nd < KD; ++nd)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[nd][e] = acc_v[nd][e] = 0.f;
-
-  for (int qt = qt0; qt < n_tiles; ++qt) {
-    const int cur = (qt - qt0) & 1, nxt = cur ^ 1;
-    if (qt + 1 < n_tiles) {
-      const int q1 = (qt + 1) * BN;
-      async_rows<D, BN>(Qs + nxt * BN * LD, q + base, q1, T, stride);
-      async_rows<D, BN>(dOs + nxt * BN * LD, dout + base, q1, T, stride);
-      async_vec<BN>(Ls + nxt * BN, lse_h, q1, T);
-      async_vec<BN>(Cs + nxt * BN, corr_h, q1, T);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const float* Qt = Qs + cur * BN * LD;
-    const float* dOt = dOs + cur * BN * LD;
-    const float* Lt = Ls + cur * BN;
-    const float* Ct = Cs + cur * BN;
-    const int q0 = qt * BN;
-
-    float s[NJ][4], dp[NJ][4];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      Frag<4> ak, av;
-      load_a(ak, Ks + r0 * LD + kd * 8, LD, g, t4);
-      load_a(av, Vs + r0 * LD + kd * 8, LD, g, t4);
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        Frag<2> bq, bdo;
-        load_b_trans(bq, Qt + j * 8 * LD + kd * 8, LD, g, t4);
-        load_b_trans(bdo, dOt + j * 8 * LD + kd * 8, LD, g, t4);
-        mma_split(s[j], ak, bq);
-        mma_split(dp[j], av, bdo);
-      }
-    }
-
-    // P^T in place of S^T, dS^T = P^T * (dP^T + corr) in place of dP^T
-#pragma unroll
-    for (int j = 0; j < NJ; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + r0 + g + 8 * (e >> 1);
-        const int c = j * 8 + 2 * t4 + (e & 1);
-        const int qpos = q0 + c;
-        const bool ok = kpos < T && qpos < T && (!kCausal || kpos <= qpos);
-        const float p = expf((ok ? s[j][e] * scale : kNegInf) - Lt[c]);
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] + Ct[c]);
-      }
-
-#pragma unroll
-    for (int n1 = 0; n1 < KD; n1 += KC) {
-      float part_v[KC][4] = {}, part_k[KC][4] = {};
-#pragma unroll
-      for (int kk = 0; kk < NJ; ++kk) {
-        Frag<4> ap, ads;
-        accum_to_a(ap, s[kk]);
-        accum_to_a(ads, dp[kk]);
-#pragma unroll
-        for (int nd = 0; nd < KC; ++nd) {
-          Frag<2> bdo, bq;
-          load_b_perm(bdo, dOt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
-          load_b_perm(bq, Qt + kk * 8 * LD + (n1 + nd) * 8, LD, g, t4);
-          mma_split(part_v[nd], ap, bdo);
-          mma_split(part_k[nd], ads, bq);
-        }
-      }
-#pragma unroll
-      for (int nd = 0; nd < KC; ++nd) {
-        acc_add(acc_v[n1 + nd], part_v[nd]);
-        acc_add(acc_k[n1 + nd], part_k[nd]);
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int t = k0 + r0 + g + 8 * i;
-    if (t < T) {
-      const size_t off = base + (size_t)t * stride + 2 * t4;
-#pragma unroll
-      for (int nd = 0; nd < KD; ++nd) {
-        store2(dk + off + nd * 8, acc_k[nd][2 * i] * scale, acc_k[nd][2 * i + 1] * scale);
-        store2(dv + off + nd * 8, acc_v[nd][2 * i], acc_v[nd][2 * i + 1]);
-      }
-    }
-  }
-}
-
 // Shared memory above 48 KB must be opted into per kernel before its launch.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -722,46 +347,21 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // most causal work go first for every head.
 inline dim3 tile_grid(int B, int T, int H) { return dim3(B * H, (T + kOwn - 1) / kOwn); }
 
-// kOwned owned tiles and two double-buffered streamed tiles.
-template <int D, int kOwned, int kStreamRows>
-constexpr size_t tiles_smem() {
-  return (kOwned * kOwn + 4 * kStreamRows) * tile_ld<D>() * sizeof(float);
-}
-
-template <int D, bool kCausal>
-cudaError_t run_fwd(const float* q, const float* k, const float* v, float* o, float* lse, int B,
-                    int T, int H, float scale, cudaStream_t st) {
-  const size_t smem = tiles_smem<D, 1, stream_rows<D, false>()>();
-  cudaError_t err = allow_smem(flash_fwd_kernel<D, kCausal>, smem);
-  if (err != cudaSuccess) return err;
-  flash_fwd_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(q, k, v, o, lse, T,
-                                                                           H, scale);
-  return cudaGetLastError();
+// The owned Q and dO tiles and the double-buffered streamed K and V tiles.
+template <int D>
+constexpr size_t dq_smem() {
+  return (2 * kOwn + 4 * stream_rows<D>()) * tile_ld<D>() * sizeof(float);
 }
 
 template <int D, bool kCausal>
 cudaError_t run_dq(const float* q, const float* k, const float* v, const float* dout,
                    const float* lse, const float* corr, float* dq, int B, int T, int H,
                    float scale, cudaStream_t st) {
-  const size_t smem = tiles_smem<D, 2, stream_rows<D, false>()>();
+  const size_t smem = dq_smem<D>();
   cudaError_t err = allow_smem(flash_dq_kernel<D, kCausal>, smem);
   if (err != cudaSuccess) return err;
   flash_dq_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(
       q, k, v, dout, lse, corr, dq, T, H, scale);
-  return cudaGetLastError();
-}
-
-template <int D, bool kCausal>
-cudaError_t run_dkv(const float* q, const float* k, const float* v, const float* dout,
-                    const float* lse, const float* corr, float* dk, float* dv, int B, int T,
-                    int H, float scale, cudaStream_t st) {
-  // + lse and corr, double-buffered
-  constexpr int BN = stream_rows<D, true>();
-  const size_t smem = tiles_smem<D, 2, BN>() + 4 * BN * sizeof(float);
-  cudaError_t err = allow_smem(flash_dkv_kernel<D, kCausal>, smem);
-  if (err != cudaSuccess) return err;
-  flash_dkv_kernel<D, kCausal><<<tile_grid(B, T, H), kThreads, smem, st>>>(
-      q, k, v, dout, lse, corr, dk, dv, T, H, scale);
   return cudaGetLastError();
 }
 
