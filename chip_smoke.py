@@ -12,13 +12,11 @@ Phases, in order:
            side; the build's seconds); ptxas's registers and spills and the
            counts of tensor-core instructions in the built SASS (HMMA for
            mma.sync, HGMMA for wgmma), per instantiation; fails unless every
-           instantiation of the wgmma kernels (the bf16 forward, dQ and
-           dK/dV, the float32 forward and dK/dV) has HGMMA and ptxas
-           serialized none of their wgmma, every one of the float32 dQ
-           (mma.sync) has HMMA, the bf16 library holds no mma.sync kernel
-           and the float32 one no mma.sync forward or dK/dV (the register
-           share that setmaxnreg needs is checked by the host code at
-           launch)
+           instantiation of the six wgmma kernels (forward, dQ and dK/dV, in
+           bf16 and in float32) has HGMMA and ptxas serialized none of their
+           wgmma, and neither library holds an mma.sync kernel or an HMMA
+           instruction (the register share that setmaxnreg needs is checked
+           by the host code at launch)
   kernels  each kernel against its plain PyTorch version on the card, at the
            shape the slice's training steps give it (the cohort folded into
            B), at its eval's shape and at ragged shapes of every head dim
@@ -28,11 +26,10 @@ Phases, in order:
            F32_ERR_FACTOR x its plain float32 version's error; its time,
            the plain version's time and scaled_dot_product_attention's,
            whose CUDA kernels are named; at small shapes that complete
-           every head dim x causal pair of the float32 wgmma kernels
-           (F32_WGMMA) and leave consumer warpgroups with no row below T,
-           the same checks untimed, of those kernels alone; a [B,T,H,D]
-           view off a 16-byte boundary refused by all three wrappers before
-           any launch. Then
+           every head dim x causal pair of the float32 kernels (F32_WGMMA:
+           all three) and leave consumer warpgroups with no row below T,
+           the same checks untimed; a [B,T,H,D] view off a 16-byte boundary
+           refused by all three wrappers before any launch. Then
            the bf16 kernels (all three on wgmma) on bf16 q, k, v, dO at the
            same shapes and at small ones that complete every head dim x
            causal pair of the wgmma kernels and leave consumer warpgroups
@@ -43,8 +40,7 @@ Phases, in order:
            beside the bf16 bound, the plain versions' and SDPA's bf16 times;
            bf16 views off a 16-byte boundary, mixed dtypes, float16 and a
            bf16 lse refused before any launch; at the small shapes of each
-           dtype its wgmma kernels (bf16: forward, dQ and dK/dV; float32:
-           forward and dK/dV) rerun BF16_REPEATS times, each run
+           dtype its three kernels rerun BF16_REPEATS times, each run
            synchronized and bitwise the first
   slice    FedAvg over TransformerLM("transformer_flash", vocab 1024, dim
            256, depth 4, heads 8, T 2048): 2 rounds of 4 clients x 2 local
@@ -362,8 +358,8 @@ PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
 # 165 TFLOP/s: the least time the card needs for f32-accurate work, so each
 # kernel's bound_ms takes it; the CUDA-core f32 figure is bound_f32_ms. Six
-# bf16 passes at PEAK_BF16_FLOPS (the float32 forward's and dK/dV's recipe)
-# cost the same: 6 / 989.4e12 against 3 / 495e12 s a flop.
+# bf16 passes at PEAK_BF16_FLOPS (the float32 kernels' recipe) cost the
+# same: 6 / 989.4e12 against 3 / 495e12 s a flop.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
@@ -372,7 +368,7 @@ PEAK_BYTES_PER_S = 3.35e12
 # einsum; the grads add a second such sum (dS) and sum over T queries.
 TOL_FWD = 1e-4
 TOL_BWD = 1e-3
-# the kernels (six bf16 passes or 3xTF32 on the tensor cores) against a
+# the kernels (six bf16 passes on the tensor cores) against a
 # float64 oracle: max |err| at most this many times that of their plain
 # float32 versions
 F32_ERR_FACTOR = 4
@@ -428,18 +424,17 @@ BF16_SMALL_SHAPES = (dict(B=1, T=128, H=1, D=32, causal=False),
 # float32: with RAGGED_SHAPES every head dim of the float32 wgmma kernels
 # (F32_WGMMA) causal and not, and grids whose last block holds a consumer
 # warpgroup that owns only rows >= T (64 rows a consumer, two a block at
-# D <= 64). They hold those kernels only: the mma.sync dQ, never held here,
-# lands at 4.9x plain f32's error against float64 at the first (ROADMAP
-# queue C), a recipe its redesign replaces
+# D <= 64). The first is the shape where a dQ that added each k-step's
+# passes into the full partial missed the float64 gate (4.9x plain f32's)
 F32_SMALL_SHAPES = (dict(B=1, T=64, H=1, D=32, causal=False),
                     dict(B=1, T=192, H=2, D=32, causal=True),
                     dict(B=1, T=300, H=2, D=64, causal=True),
                     dict(B=1, T=300, H=2, D=16, causal=False),
                     dict(B=1, T=100, H=2, D=128, causal=True))
 BF16_REPEATS = 200  # reruns of the wgmma kernels at each small shape
-# the slice's instantiations (D = 32, causal): float32 (forward and dK/dV
-# on wgmma, dQ on mma.sync), bf16 (wgmma)
-SLICE_KERNELS = ("flash_fwd_wgmma_f32_kernel<32,1>", "flash_dq_kernel<32,1>",
+# the slice's instantiations (D = 32, causal): float32 and bf16, all wgmma
+SLICE_KERNELS = ("flash_fwd_wgmma_f32_kernel<32,1>",
+                 "flash_dq_wgmma_f32_kernel<32,1>",
                  "flash_dkv_wgmma_f32_kernel<32,1>", "flash_fwd_wgmma_kernel<32,1>",
                  "flash_dq_wgmma_kernel<32,1>", "flash_dkv_wgmma_kernel<32,1>")
 # the kernel template behind each wrapper and element type, and the file
@@ -448,7 +443,8 @@ _CSRC = "fedml_tpu_torch/ops/csrc/"
 KERNEL_OF = {
     "flash_fwd": ("flash_fwd_wgmma_f32_kernel",
                   _CSRC + "flash_attention_sm90_f32.cuh"),
-    "flash_bwd_dq": ("flash_dq_kernel", _CSRC + "flash_attention.cuh"),
+    "flash_bwd_dq": ("flash_dq_wgmma_f32_kernel",
+                     _CSRC + "flash_attention_sm90_f32.cuh"),
     "flash_bwd_dkv": ("flash_dkv_wgmma_f32_kernel",
                       _CSRC + "flash_attention_sm90_f32.cuh"),
     "flash_fwd_bf16": ("flash_fwd_wgmma_kernel",
@@ -551,12 +547,10 @@ def phase_build(report):
     for lib in libs:
         sass = _sass_counts(lib)
         counts.update(sass)
-        # the bf16 library holds wgmma kernels only, the float32 one no
-        # mma.sync forward or dK/dV
-        retired = (r"flash_(fwd|dq|dkv)_kernel<"
-                   if lib.name.startswith("flash_attention_bf16-")
-                   else r"flash_(fwd|dkv)_kernel<")
-        stale += [fn for fn in sass if re.match(retired, fn)]
+        # both libraries hold wgmma kernels only: no retired mma.sync kernel
+        # and no HMMA instruction
+        stale += [fn for fn in sass
+                  if re.match(r"flash_(fwd|dq|dkv)_kernel<", fn) or sass[fn][0]]
         log = lib.with_suffix(".log").read_text()
         print(f"  {lib.name}: {len(sass)} kernels")
         for fn, regs, spill in _ptxas_report(log):
@@ -574,27 +568,24 @@ def phase_build(report):
                 serialized.append(fn)
                 print(f"  ptxas: {fn}: {line.split('due to')[-1].strip()}")
     report["ptxas"] = ptxas
-    # the bf16 kernels and the float32 forward and dK/dV run on wgmma at
-    # every head dim, causal and not; the float32 dQ on mma.sync; the
-    # slice's instantiations (D=32, causal) among them
+    # all six kernels (bf16 and float32) run on wgmma at every head dim,
+    # causal and not; the slice's instantiations (D=32, causal) among them
     every = [(d, c) for d in fa.HEAD_DIMS for c in (0, 1)]
-    wgmma = {f"flash_{k}_wgmma_kernel<{d},{c}>" for k in ("fwd", "dq", "dkv")
-             for d, c in every} | {f"flash_{k}_wgmma_f32_kernel<{d},{c}>"
-                                   for k in ("fwd", "dkv") for d, c in every}
-    sync = {f"flash_dq_kernel<{d},{c}>" for d, c in every}
-    assert set(SLICE_KERNELS) <= wgmma | sync
-    missing = sorted(fn for fn in wgmma | sync if fn not in counts)
+    wgmma = {f"flash_{k}_wgmma{t}_kernel<{d},{c}>"
+             for k in ("fwd", "dq", "dkv") for t in ("", "_f32")
+             for d, c in every}
+    assert set(SLICE_KERNELS) <= wgmma
+    missing = sorted(fn for fn in wgmma if fn not in counts)
     no_hgmma = sorted(fn for fn in wgmma & set(counts) if not counts[fn][1])
-    no_hmma = sorted(fn for fn in sync & set(counts) if not counts[fn][0])
     # ptxas waits after every wgmma of a kernel it cannot pipeline
     serial = sorted(fn for fn in serialized if "wgmma" in fn)
-    if missing or no_hgmma or no_hmma or stale or serial:
+    if missing or no_hgmma or stale or serial:
         raise AssertionError(
             f"kernels missing from the SASS {missing}; without HGMMA "
-            f"{no_hgmma}; without HMMA {no_hmma}; retired mma.sync kernels "
-            f"{sorted(stale)}; wgmma serialized by ptxas in {serial}")
-    print(f"  HGMMA in all {len(wgmma)} wgmma instantiations, HMMA in all "
-          f"{len(sync)} mma.sync ones")
+            f"{no_hgmma}; mma.sync kernels {sorted(stale)}; wgmma "
+            f"serialized by ptxas in {serial}")
+    print(f"  HGMMA in all {len(wgmma)} wgmma instantiations, no mma.sync "
+          f"kernel")
 
 
 def _time_ms(fn, reps=7, inner=5):
@@ -990,8 +981,8 @@ def phase_kernels(report):
 
 
 def check_repeats(B, T, H, D, causal, dtype, n=None):
-    """The wgmma kernels of ``dtype`` (bf16: the forward, dQ and dK/dV;
-    float32: the forward and dK/dV) run ``n`` (BF16_REPEATS) times on one
+    """The three kernels of ``dtype`` (forward, dQ and dK/dV, all on
+    wgmma) run ``n`` (BF16_REPEATS) times on one
     set of inputs, each launch synchronized (a fault or a trapped wait
     names its run) and bitwise the first run's outputs."""
     n = BF16_REPEATS if n is None else n
@@ -1007,8 +998,6 @@ def check_repeats(B, T, H, D, causal, dtype, n=None):
                                                      causal),),
             "flash_bwd_dkv": lambda: fa.flash_bwd_dkv(q, k, v, do, lse, corr,
                                                       causal)}
-    runs = {name: run for name, run in runs.items()
-            if "wgmma" in KERNEL_OF[name + sfx][0]}
     for name, run in runs.items():
         first = run()
         t0 = time.perf_counter()

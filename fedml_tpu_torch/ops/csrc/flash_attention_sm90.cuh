@@ -8,17 +8,27 @@
 // swizzle of the tile's row width, D = 128 as two 64-column panels) or a
 // bf16 A fragment in registers; split3 carries a float32 value as three
 // bf16 parts (hi + mid + lo = x). The source notes of the two kernel headers
-// say how each kernel uses them.
+// say how each kernel uses them. Here too: the mask value, the log2
+// constants, the dispatch over head dims and the C entry points' macro.
+//
+// Layouts: q, k, v, dO, o, dQ, dK, dV are contiguous [B, T, H, D]; lse and
+// corr (= lse cotangent - rowsum(dO * O)) are contiguous [B, H, T], float32.
+// Kernels launch on the caller's stream, allocate nothing, and each C entry
+// point returns cudaGetLastError() of its launch.
 
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is fetched at run time
 #include <cuda_bf16.h>
-
-#include "flash_attention.cuh"
+#include <cuda_runtime.h>
+#include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
+constexpr float kNegInf = -1e30f;  // the TPU kernels' mask value
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kWgThreads = 128;
 
 // A block: the producer warpgroup and kConsumers consumer warpgroups of 64
@@ -354,8 +364,11 @@ __device__ __forceinline__ float row_reduce(const float (&x)[N / 2], int r, Op o
 }
 
 // Two neighbouring output values (columns 2t, 2t+1 of an accumulator row),
-// rounded once to bf16, to nearest even (as astype does); the float32
-// overload is flash_attention.cuh's.
+// as they are in float32, or rounded once to bf16, to nearest even (as
+// astype does).
+__device__ __forceinline__ void store2(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
 __device__ __forceinline__ void store2(__nv_bfloat16* p, float a, float b) {
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
@@ -507,4 +520,43 @@ cudaError_t check_share(Kernel kernel) {
 // do the most causal work go first for every head.
 inline dim3 wg_grid(int B, int T, int H, int rows) { return dim3(B * H, (T + rows - 1) / rows); }
 
+// Shared memory above 48 KB must be opted into per kernel before its launch.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t bytes) {
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+
 }  // namespace
+
+// Instantiate RUN<D, causal> for the head dims the kernels support.
+#define FLASH_DISPATCH(RUN, ...)                                                   \
+  switch (D) {                                                                     \
+    case 16: return causal ? RUN<16, true>(__VA_ARGS__) : RUN<16, false>(__VA_ARGS__); \
+    case 32: return causal ? RUN<32, true>(__VA_ARGS__) : RUN<32, false>(__VA_ARGS__); \
+    case 64: return causal ? RUN<64, true>(__VA_ARGS__) : RUN<64, false>(__VA_ARGS__); \
+    case 128:                                                                      \
+      return causal ? RUN<128, true>(__VA_ARGS__) : RUN<128, false>(__VA_ARGS__);  \
+    default: return cudaErrorInvalidValue;                                         \
+  }
+
+// The three C entry points for element type E, named NAME_fwd, NAME_bwd_dq
+// and NAME_bwd_dkv, over the run functions FWD, DQ and DKV.
+#define FLASH_ENTRY_POINTS(NAME, E, FWD, DQ, DKV)                                          \
+  extern "C" int NAME##_fwd(const E* q, const E* k, const E* v, E* o, float* lse, int B,   \
+                            int T, int H, int D, int causal, float scale, void* stream) {  \
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);                             \
+    FLASH_DISPATCH(FWD, q, k, v, o, lse, B, T, H, scale, st)                               \
+  }                                                                                        \
+  extern "C" int NAME##_bwd_dq(const E* q, const E* k, const E* v, const E* dout,          \
+                               const float* lse, const float* corr, E* dq, int B, int T,   \
+                               int H, int D, int causal, float scale, void* stream) {      \
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);                             \
+    FLASH_DISPATCH(DQ, q, k, v, dout, lse, corr, dq, B, T, H, scale, st)                   \
+  }                                                                                        \
+  extern "C" int NAME##_bwd_dkv(const E* q, const E* k, const E* v, const E* dout,         \
+                                const float* lse, const float* corr, E* dk, E* dv, int B,  \
+                                int T, int H, int D, int causal, float scale,              \
+                                void* stream) {                                            \
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);                             \
+    FLASH_DISPATCH(DKV, q, k, v, dout, lse, corr, dk, dv, B, T, H, scale, st)              \
+  }

@@ -4,9 +4,9 @@
 // flash_attention_bf16_bwd_dkv (flash_attention_bf16.cu). They replace, on
 // bf16 inputs, the Pallas TPU kernels _fwd_kernel
 // (fedml_tpu/ops/flash_attention.py:79), _bwd_dq_kernel (:213) and
-// _bwd_dkv_kernel (:238), and in this port the bf16 instantiations of the
-// mma.sync kernels of flash_attention.cuh, which ran them as TF32 products on
-// operands converted to float32 per fragment.
+// _bwd_dkv_kernel (:238). They took the place of the port's first bf16
+// kernels, mma.sync kernels that ran them as TF32 products on operands
+// converted to float32 per fragment.
 //
 // What they compute is the reference's on bf16 inputs (:84-107, :218-235,
 // :243-265): every tile is read as float32 and the math is float32; o, dQ,

@@ -1,12 +1,10 @@
 """Flash attention (forward + backward) as hand-written CUDA kernels.
 
 Port of fedml_tpu/ops/flash_attention.py. The three Pallas TPU kernels
-(_fwd_kernel, _bwd_dq_kernel, _bwd_dkv_kernel) become CUDA kernels: for
-float32, ``csrc/flash_attention_sm90_f32.cuh``'s wgmma forward and dK/dV
-(six bf16 passes a product on operands split in three) and
-``csrc/flash_attention.cuh``'s mma.sync dQ; for bf16,
-``csrc/flash_attention_sm90_bf16.cuh``'s wgmma kernels. All wgmma kernels
-are fed by TMA. ``jax.custom_vjp`` becomes
+(_fwd_kernel, _bwd_dq_kernel, _bwd_dkv_kernel) become CUDA kernels on
+wgmma, fed by TMA: for float32, ``csrc/flash_attention_sm90_f32.cuh``'s
+(six bf16 passes a product on operands split in three); for bf16,
+``csrc/flash_attention_sm90_bf16.cuh``'s. ``jax.custom_vjp`` becomes
 ``torch.autograd.Function``. As the reference's, they take q, k, v and dO
 in float32 or bfloat16 (one dtype for all four), compute in float32 and
 write o, dQ, dK and dV in that dtype; lse and corr are float32. Each dtype
@@ -167,9 +165,9 @@ def _check(name, xs, rows=()):
 
 
 def _check_aligned(name, *tensors):
-    """The kernels copy [B,T,H,D] rows by TMA or 16 bytes a thread
-    (cp.async) and store two values at a time: a view off a 16-byte
-    boundary must raise here, not fault on the card."""
+    """The kernels copy [B,T,H,D] rows by TMA and store two values at a
+    time: a view off a 16-byte boundary must raise here, not fault on the
+    card."""
     for t in tensors:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: [B,T,H,D] tensors must start on a "

@@ -8,10 +8,12 @@ at that of :52. The CUDA kernels themselves are held against the same plain
 version on the card by chip_smoke.py.
 
 The float32 kernels run their products on the tensor cores at float32
-accuracy: the forward and dK/dV as six bf16 passes on operands split into
-three bf16 parts, dQ as 3xTF32. test_3xtf32_products_keep_f32_accuracy
-(backward) and test_3xtf32_forward_keeps_f32_accuracy emulate both recipes
-on the CPU and pin why each pass is needed.
+accuracy, as six bf16 passes on operands split into three bf16 parts.
+test_3xtf32_products_keep_f32_accuracy (backward) and
+test_3xtf32_forward_keeps_f32_accuracy (named for the TF32 recipe the
+kernels ran before) emulate the recipe on the CPU and pin why each pass is
+needed; test_dq_arithmetic_order_keeps_f32_accuracy emulates the dQ
+kernel's order of summation and the tensor cores' truncating adds.
 """
 
 import functools
@@ -177,13 +179,6 @@ def test_kernel_library_needs_a_card():
         load_library("flash_attention.cu")
 
 
-def _tf32_rna(x):
-    """float32 x rounded to TF32 (10-bit mantissa), to nearest with ties away
-    from zero, as cvt.rna.tf32.f32 and the kernels' tf32_rna round it."""
-    u = x.contiguous().view(torch.int32)
-    return ((u + 0x1000) & -0x2000).view(torch.float32)
-
-
 def _split3(x):
     """float32 x as its (lo, mid, hi) bf16 parts, bitwise the kernels'
     split3: hi = rn(x), mid = rn(x - hi), lo = rn(x - hi - mid), each
@@ -202,25 +197,17 @@ PASSES = {"6xbf16": ((0, 2), (2, 0), (1, 1), (1, 2), (2, 1), (2, 2)),
 
 def _matmul(a, b, mode):
     """a @ b with every product emulated as the tensor cores take it: f32
-    (or f64) as is, "1xtf32" from TF32-rounded operands, "3xtf32" as
-    big*small + small*big + big*big of each operand's TF32 split; "6xbf16"
-    (and "5xbf16") as the bf16 passes of PASSES over each operand's split3
-    parts, each pass exact (float64) and rounded once to float32, the
-    passes summed in float32 smallest first."""
+    (or f64) as is; "6xbf16" (and "5xbf16") as the bf16 passes of PASSES
+    over each operand's split3 parts, each pass exact (float64) and rounded
+    once to float32, the passes summed in float32 smallest first."""
     if mode in ("f64", "f32"):
         return a @ b
-    if mode in PASSES:
-        pa, pb = _split3(a), _split3(b)
-        out = None
-        for i, j in PASSES[mode]:
-            part = (pa[i].double() @ pb[j].double()).float()
-            out = part if out is None else out + part
-        return out
-    big_a, big_b = _tf32_rna(a), _tf32_rna(b)
-    if mode == "1xtf32":
-        return big_a @ big_b
-    small_a, small_b = _tf32_rna(a - big_a), _tf32_rna(b - big_b)
-    return (big_a @ small_b + small_a @ big_b) + big_a @ big_b
+    pa, pb = _split3(a), _split3(b)
+    out = None
+    for i, j in PASSES[mode]:
+        part = (pa[i].double() @ pb[j].double()).float()
+        out = part if out is None else out + part
+    return out
 
 
 def _emulated_bwd(q, k, v, do, lse, corr, causal, mode):
@@ -238,29 +225,26 @@ def _emulated_bwd(q, k, v, do, lse, corr, causal, mode):
             _matmul(p.transpose(1, 2), do, mode))
 
 
-# recipe -> (its mode, the mode short of a pass, and how that one fails: on
-# every output past 100x plain f32's error, or past the 4x gate on some
-# output): 3xTF32 (dQ) against one TF32 pass; six bf16 passes (the forward
-# and dK/dV) against five (no mid*mid)
-RECIPES = {"3xtf32": ("3xtf32", "1xtf32", all, 100),
-           "6xbf16": ("6xbf16", "5xbf16", any, 4)}
+# recipe -> (its mode, the mode short of a pass, and how that one fails:
+# past the 4x gate on some output): six bf16 passes against five (no
+# mid*mid)
+RECIPES = {"6xbf16": ("6xbf16", "5xbf16", any, 4)}
 
 
 @pytest.mark.parametrize("recipe", sorted(RECIPES))
 @pytest.mark.parametrize("causal", [False, True])
 def test_3xtf32_products_keep_f32_accuracy(causal, recipe):
-    """Against float64, 3xTF32 products, and six bf16 passes on split3's
-    parts, give dQ, dK and dV within 4x of plain float32's error. Single-
-    pass TF32 is over 100x worse, far outside the kernels' 1e-3 tolerance at
-    long T; five bf16 passes (mid*mid dropped) fail the 4x gate (every output
-    7.2-21x here), so each of the six is needed.
+    """Against float64, six bf16 passes on split3's parts give dQ, dK and
+    dV within 4x of plain float32's error; five bf16 passes (mid*mid
+    dropped) fail the 4x gate (every output 7.2-21x here), so each of the
+    six is needed.
 
     This pins the operand split only. Each product here is one exactly
     rounded f32 matmul, so it does not model the tensor cores' truncating
     adds along a long accumulation chain, which the kernels avoid by adding
-    each tile's product into an f32 register sum (acc_add). That half is
-    held by chip_smoke.py's float64 check on the card (at most 4x plain
-    f32's error at T = 2048)."""
+    each tile's product into an f32 register sum (acc_add):
+    test_dq_arithmetic_order_keeps_f32_accuracy models them, and
+    chip_smoke.py's float64 check holds the kernels on the card."""
     rs = np.random.RandomState(3)
     BH, T, D = 2, 256, 32
     q, k, v, do = (torch.tensor(rs.randn(BH, T, D).astype(np.float32))
@@ -314,11 +298,10 @@ def _emulated_fwd(q, k, v, causal, mode, block=64):
 @pytest.mark.parametrize("recipe", sorted(RECIPES))
 @pytest.mark.parametrize("causal", [False, True])
 def test_3xtf32_forward_keeps_f32_accuracy(causal, recipe):
-    """Against float64, the forward kernel's arithmetic with 3xTF32 products
-    gives o and lse within 4x of the same arithmetic in plain float32 (1.0-
-    1.5x at this seed); single-pass TF32 is over 100x worse (600-2200x).
-    Six bf16 passes also land within 4x (0.4-1.1x); five (mid*mid dropped)
-    fail the gate (o 8.9-14x).
+    """Against float64, the forward kernel's arithmetic with six bf16
+    passes gives o and lse within 4x of the same arithmetic in plain float32
+    (0.4-1.1x at this seed); five (mid*mid dropped) fail the gate (o
+    8.9-14x).
     Like the backward test, each product here rounds its sums to nearest;
     the tensor cores' truncating adds are held by chip_smoke.py's float64
     check on the card."""
@@ -342,17 +325,109 @@ def test_3xtf32_forward_keeps_f32_accuracy(causal, recipe):
     assert fails(b > worse * f for f, b in zip(err["f32"], err[short])), err
 
 
+def _rz_add(acc, x):
+    """float32 ``acc`` + float64 ``x``, rounded toward zero: the tensor
+    cores' add of a k-step's products into their accumulator."""
+    s = acc.double() + x
+    f = s.float()
+    return torch.where(f.double().abs() > s.abs(),
+                       torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _tc_product(a, b, order):
+    """a [.., M, K] @ b [.., K, N] as one wgmma partial: six bf16 passes of
+    PASSES over k-steps of 16, from zero, each k-step's products summed
+    exactly and added into the float32 partial by _rz_add; "passes" runs
+    every k-step of a pass before the next pass (the kernels' order),
+    "steps" every pass of a k-step before the next k-step."""
+    pa, pb = _split3(a), _split3(b)
+    acc = torch.zeros(a.shape[:-1] + b.shape[-1:])
+    steps = range(0, a.shape[-1], 16)
+    order_ = ([(ij, k0) for ij in PASSES["6xbf16"] for k0 in steps]
+              if order == "passes" else
+              [(ij, k0) for k0 in steps for ij in PASSES["6xbf16"]])
+    for (i, j), k0 in order_:
+        acc = _rz_add(acc, pa[i][..., k0:k0 + 16].double()
+                      @ pb[j][..., k0:k0 + 16, :].double())
+    return acc
+
+
+def _emulated_dq(q, k, v, do, lse, corr, causal, order):
+    """dQ [BH, T, D] by the f32 dQ kernel's arithmetic: key tiles of 32 rows
+    (16 from D = 64); S and dP as partials of at most 32 columns of D from
+    zero (_tc_product), added in float32; P = exp of the argument rounded
+    once; dS = P (dP + corr); each tile's dS K from zero in panels of at
+    most 64 columns, added into a float32 sum; dQ = sum * scale."""
+    T, D = q.shape[1], q.shape[2]
+    bk, width, panel = (32 if D <= 32 else 16), min(D, 32), min(D, 64)
+    scale = torch.tensor(D ** -0.5, dtype=torch.float32)
+
+    def scores(a, b):  # a @ b^T in partials over `width` columns of D
+        return sum(_tc_product(a[..., c:c + width],
+                               b[..., c:c + width].transpose(1, 2), order)
+                   for c in range(0, D, width))
+
+    acc = torch.zeros_like(q)
+    for k0 in range(0, T, bk):
+        kt, vt = k[:, k0:k0 + bk], v[:, k0:k0 + bk]
+        s = scores(q, kt)
+        if causal:
+            above = torch.arange(k0, k0 + kt.shape[1]) > torch.arange(T)[:, None]
+            s = s.masked_fill(above, -1e30)
+        p = torch.exp((s.double() * float(scale) - lse[..., None].double()).float())
+        ds = p * (scores(do, vt) + corr[..., None])
+        for c in range(0, D, panel):
+            acc[..., c:c + panel] += _tc_product(ds, kt[..., c:c + panel], order)
+    return acc * scale
+
+
+@pytest.mark.parametrize("T,D,causal", [(64, 32, False), (256, 32, True),
+                                        (64, 128, False), (256, 128, True)])
+def test_dq_arithmetic_order_keeps_f32_accuracy(T, D, causal):
+    """The f32 dQ kernel's order of summation, with the tensor cores'
+    truncating adds, lands within 4x of plain float32's error against
+    float64, at the shape where the 3xTF32 dQ it replaced missed that gate
+    on the card ([1, 64, 1, 32] non-causal: 4.9x), at a causal T = 256 and
+    at D = 128 (four score partials, two panels). Running each k-step's six
+    passes before the next k-step instead adds the small passes into the
+    full partial: the emulation separates the two orders, that one worse
+    at every case here (1.8-5.7x at D = 32 over four seeds, passes
+    outermost 0.7-1.8x)."""
+    rs = np.random.RandomState(0)
+    q, k, v, do = (torch.tensor(rs.randn(1, T, D).astype(np.float32))
+                   for _ in range(4))
+    g_lse = torch.tensor(rs.randn(1, T))
+    s = (q.double() @ k.double().transpose(1, 2)) * D ** -0.5
+    if causal:
+        s = s.masked_fill(~torch.ones(T, T, dtype=torch.bool).tril(),
+                          float("-inf"))
+    lse = torch.logsumexp(s, -1).float()
+    corr = (g_lse - (do.double() * (torch.softmax(s, -1) @ v.double()))
+            .sum(-1)).float()
+    exact = _emulated_bwd(q, k, v, do, lse, corr, causal, "f64")[0]
+    plain = fa.dense_bwd_dq(*(x.view(1, T, 1, D) for x in (q, k, v, do)),
+                            lse.view(1, 1, T), corr.view(1, 1, T), causal)
+    err = {name: float((x.double().view(1, T, D) - exact).abs().max())
+           for name, x in (("plain", plain), *(
+               (o, _emulated_dq(q, k, v, do, lse, corr, causal, o))
+               for o in ("passes", "steps")))}
+    assert err["passes"] <= 4 * err["plain"], err
+    assert err["steps"] > err["passes"], err
+
+
 def test_kernel_labels_name_the_f32_wgmma_instantiations():
     """chip_smoke.py's build phase finds each instantiation by the label it
     reads from the mangled name (these from an sm_90a build of
-    flash_attention.cu): the float32 wgmma forward and dK/dV of the slice,
-    named as the slice's kernels and the kernel line name them."""
+    flash_attention.cu): the float32 wgmma forward, dQ and dK/dV of the
+    slice, named as the slice's kernels and the kernel line name them."""
     import chip_smoke
 
     ns = "_ZN51_GLOBAL__N__b69a0f6a_18_flash_attention_cu_2c138979"
     names = {
         "26flash_fwd_wgmma_f32_kernelILi32ELb1EEEv14CUtensorMap_stS1_S1_"
         "PfS2_iif": "flash_fwd_wgmma_f32_kernel<32,1>",
+        "25flash_dq_wgmma_f32_kernelILi32ELb1EEEv14CUtensorMap_stS1_S1_S1_"
+        "PKfS3_Pfiif": "flash_dq_wgmma_f32_kernel<32,1>",
         "26flash_dkv_wgmma_f32_kernelILi32ELb1EEEv14CUtensorMap_stS1_S1_S1_"
         "PKfS3_PfS4_iif": "flash_dkv_wgmma_f32_kernel<32,1>",
     }
