@@ -317,6 +317,26 @@ Phases, in order:
            threads, ResNet-56, 1 round of 2 batches, against the engine's
            round from the same net (params and statistics; its bitwise
            equality printed), 287 leaves a frame
+  extras   a model's extras (BatchNorm statistics) and keys (dropout)
+           through the robust, DP, masked and async engines and servers,
+           cuDNN deterministic: (a) ResNet-56 at resnet's cross-silo widths
+           (10 silos, batch 64), rounds cut to 2 batches, the median behind
+           the gate with slot 2 sign-flipped x10 for 2 rounds, the engine
+           against a loopback job (ledgers equal, nets within
+           TOL_RESNET_WIRE); (b) FedAvgRobustAPI's round: the clip at a
+           bound that does not bind keeps the plain round's statistics
+           bitwise (params within TOL_EXTRAS_CLIP), dp keeps the clip-only
+           uniform round's statistics bitwise and moves the params; (c)
+           TurboAggregateAPI's round: params within the masked bound of
+           the plain round, statistics within TOL_EXTRAS_STATS; (d)
+           ResNet-20 loopback jobs of one round: the 5 x 2 edge tier
+           against the flat pairwise run, async K = 10 bound 0 against the
+           dense run (each within TOL_RESNET_WIRE, bitwise printed),
+           delta-int8 finite against dense, the masked flat server within
+           the masked bound (statistics TOL_EXTRAS_STATS); (e) CNNDropOut
+           at main's configuration cut to 2 batches, a TurboAggregateAPI
+           round and 2 async updates under a straggler, each run twice,
+           bitwise. No flash kernel launches; the phase's seconds
 Then one JSON line listing every kernel, and as the last line
 {"ok": true, "device": {...}}. Any failed phase exits non-zero and prints
 no result line. Imports nothing of JAX or of the JAX package.
@@ -352,7 +372,7 @@ fa = importlib.import_module("fedml_tpu_torch.ops.flash_attention")
 
 PHASES = ("device", "build", "kernels", "slice", "main", "distributed",
           "wire", "robust", "hier", "recover", "harden", "observe",
-          "secure", "pipeline", "seq", "resnet")
+          "secure", "pipeline", "seq", "resnet", "extras")
 # H100 SXM peaks (NVIDIA data sheet, 700 W): float32 outside the tensor
 # cores, TF32 on the tensor cores (dense), and HBM3 bandwidth. f32-accurate
 # work on the tensor cores (3xTF32) takes three TF32 products per product,
@@ -5669,6 +5689,314 @@ def phase_resnet(report):
     print("resnet: no flash kernel launched (the path runs on cuDNN / "
           "cuBLAS and plain torch ops)")
     report["resnet"] = rec
+
+
+# The extras phase (PR 21): a model's extras (BatchNorm statistics) and its
+# keys (dropout) through the robust, DP, masked and async engines and
+# servers. (a)-(c) run the cross-silo row's ResNet-56 + BatchNorm at
+# RESNET_CFG's widths (10 silos, all 10 a round, batch 64), each round cut
+# to EXTRAS_BATCHES batches; (d) the cross-process tiers at a ResNet-20 of
+# the same widths (less depth, for time); (e) CNNDropOut at MAIN_CFG cut
+# to EXTRAS_BATCHES. cuDNN deterministic for the phase, so a run repeats
+# bitwise and each twin is held as resnet's (d) holds its loopback job.
+EXTRAS_BATCHES = 2
+EXTRAS_ROUNDS = 2                 # (a)
+EXTRAS_WIRE_DEPTH = 20            # (d)
+EXTRAS_EDGES = 5                  # (d): hier's 5 x 2 tree
+EXTRAS_PLAN = {"seed": 3, "rules": [
+    {"attack": "sign_flip", "ranks": [2], "factor": 10.0}]}
+EXTRAS_DP = dict(norm_bound=1.0, noise_multiplier=1.1)
+EXTRAS_STRAGGLE = {"seed": 7, "rules": [
+    {"fault": "straggle", "src": [2], "delay_s": 2.0}]}
+# (b): the clip at a bound that does not bind scales each update by exactly
+# 1.0, so a param comes back as g + (w - g): w itself or one rounding of it
+TOL_EXTRAS_CLIP = 1e-6
+# (c): the statistics' mean is the plain round's computation
+TOL_EXTRAS_STATS = 1e-6
+
+
+def _rel_gap(got, want, keys=None):
+    """max over tensors of max|got - want| / max(1, max|want|)."""
+    return max(float((got[k] - want[k]).abs().max())
+               / max(1.0, float(want[k].abs().max()))
+               for k in (want if keys is None else keys))
+
+
+def _abs_gap(got, want, keys):
+    return max(float((got[k] - want[k]).abs().max()) for k in keys)
+
+
+def _masked_bound(gaps, plain, keys, K):
+    """The masked tier's bound by tensor (secure's (a)): K * 0.5 / 2^16
+    (each slot rounds once to the grid) plus K float32 ulps of the
+    tensor's largest value; the worst gap's share of it."""
+    eps32 = float(np.finfo(np.float32).eps)
+    return max(gaps[k] / (K * 0.5 / SECURE_SCALE + K * eps32 * float(
+        plain[k].abs().max())) for k in keys)
+
+
+def _extras_engines(data, cfg):
+    """(a) median behind the gate under a sign-flip on slot 2 for
+    EXTRAS_ROUNDS rounds, the engine against a loopback job; (b) the clip
+    and dp rounds against the plain and the clip-only ones; (c) the
+    masked engine's round against the plain one."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI
+    from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobustAPI
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateAPI
+    from fedml_tpu_torch.chaos import AdversaryPlan
+    from fedml_tpu_torch.distributed.fedavg import run_simulated
+
+    out = {}
+    kw = dict(aggregator="median", sanitize=True)
+    t0 = time.perf_counter()
+    api = FedAvgAPI(data, _resnet_task("resnet56", 10), cfg,
+                    device_data=True,
+                    adversary_plan=AdversaryPlan.from_json(EXTRAS_PLAN), **kw)
+    extra = api.task.extra_keys
+    for r in range(cfg.comm_round):
+        api.run_round(r)
+    torch.cuda.synchronize()
+    eng_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    agg = run_simulated(data, _resnet_task("resnet56", 10), cfg,
+                        job_id="smoke-extras-robust",
+                        adversary_plan=AdversaryPlan.from_json(EXTRAS_PLAN),
+                        **kw)
+    torch.cuda.synchronize()
+    wire_s = time.perf_counter() - t0
+    ledger, wledger = api.quarantine.canonical(), agg.quarantine.canonical()
+    got, want = _cpu_state(agg.net), _cpu_state(api.net)
+    gap, stats = _rel_gap(got, want), _rel_gap(got, want, extra)
+    flagged = {(e[0], e[1]) for e in ledger}
+    print(f"extras: (a) ResNet-56 + BatchNorm, median behind the gate, "
+          f"slot 2 sign-flipped x10, {cfg.comm_round} rounds of "
+          f"{api.num_batches} batches: engine {eng_s:.2f} s, loopback job "
+          f"(1 server + {cfg.client_num_per_round} client threads) "
+          f"{wire_s:.2f} s; ledgers equal {ledger == wledger} ({ledger}); "
+          f"nets max|diff| / max(1, max|engine|) by tensor {gap:.3e} (tol "
+          f"{TOL_RESNET_WIRE:g}; statistics alone {stats:.3e}), bitwise "
+          f"{_bitwise(got, want)} {_card_tag()}")
+    if (ledger != wledger or gap > TOL_RESNET_WIRE or not all(
+            (r, 2) in flagged for r in range(cfg.comm_round))):
+        raise AssertionError(f"(a): ledgers {ledger} / {wledger}, gap {gap}")
+    out["robust"] = dict(ledger=[list(e) for e in ledger], gap=gap,
+                         stats_gap=stats, engine_s=eng_s, loopback_s=wire_s)
+
+    one = dataclasses.replace(cfg, comm_round=1, frequency_of_the_test=1)
+
+    def round0(cls=FedAvgAPI, **kw):
+        api = cls(data, _resnet_task("resnet56", 10), one, device_data=True,
+                  **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        api.run_round(0)
+        torch.cuda.synchronize()
+        return api, _cpu_state(api.net), time.perf_counter() - t0
+
+    _, plain, plain_s = round0()
+    params = [k for k in plain if k not in extra]
+    _, clip, clip_s = round0(FedAvgRobustAPI,
+                             defense_type="norm_diff_clipping",
+                             norm_bound=1e9)
+    _, clip_u, _ = round0(FedAvgRobustAPI, defense_type="norm_diff_clipping",
+                          norm_bound=EXTRAS_DP["norm_bound"],
+                          uniform_avg=True)
+    dp_api, dp, dp_s = round0(FedAvgRobustAPI, defense_type="dp",
+                              **EXTRAS_DP)
+    clip_gap = _abs_gap(clip, plain, params)
+    clip_stats = _bitwise({k: clip[k] for k in extra},
+                          {k: plain[k] for k in extra})
+    dp_stats = _bitwise({k: dp[k] for k in extra},
+                        {k: clip_u[k] for k in extra})
+    dp_moved = _abs_gap(dp, clip_u, params)
+    print(f"extras: (b) FedAvgRobustAPI round 0: the clip at a bound that "
+          f"does not bind against the plain round: statistics bitwise "
+          f"{clip_stats}, params max|diff| {clip_gap:.3e} (tol "
+          f"{TOL_EXTRAS_CLIP:g}; bitwise {_bitwise(clip, plain)}); dp (C "
+          f"{EXTRAS_DP['norm_bound']:g}, z {EXTRAS_DP['noise_multiplier']:g},"
+          f" eps {dp_api.epsilon():.4f}) against the clip-only uniform "
+          f"round: statistics bitwise {dp_stats}, params moved by the noise "
+          f"max|diff| {dp_moved:.3e}; walls plain {plain_s:.3f}, clip "
+          f"{clip_s:.3f}, dp {dp_s:.3f} s {_card_tag()}")
+    if not (clip_stats and dp_stats) or clip_gap > TOL_EXTRAS_CLIP \
+            or dp_moved == 0.0:
+        raise AssertionError(f"(b): clip {clip_stats} {clip_gap}, dp "
+                             f"{dp_stats} {dp_moved}")
+    out["dp"] = dict(clip_stats_bitwise=clip_stats, clip_params_gap=clip_gap,
+                     dp_stats_bitwise=dp_stats, dp_params_moved=dp_moved,
+                     epsilon=dp_api.epsilon(), plain_s=plain_s,
+                     clip_s=clip_s, dp_s=dp_s)
+
+    _, masked, masked_s = round0(TurboAggregateAPI)
+    gaps = {k: float((masked[k].double() - plain[k].double()).abs().max())
+            for k in plain}
+    worst = _masked_bound(gaps, plain, params, one.client_num_per_round)
+    stats = max(gaps[k] for k in extra)
+    same = _bitwise({k: masked[k] for k in extra},
+                    {k: plain[k] for k in extra})
+    print(f"extras: (c) TurboAggregateAPI round 0 against the plain round: "
+          f"params worst at {worst:.3f} of the bound K*0.5/2^16 + K ulps; "
+          f"statistics max|diff| {stats:.3e} (tol {TOL_EXTRAS_STATS:g}; "
+          f"bitwise {same}); wall {masked_s:.3f} s {_card_tag()}")
+    if worst > 1.0 or stats > TOL_EXTRAS_STATS:
+        raise AssertionError(f"(c): params {worst}, statistics {stats}")
+    out["masked"] = dict(bound_share=worst, stats_gap=stats, wall_s=masked_s)
+    return out
+
+
+def _extras_wire(data, cfg):
+    """(d): ResNet-20 loopback jobs of one round: the edge tier against the
+    flat pairwise run, async K = cohort bound 0 and delta-int8 against the
+    dense run, the masked flat server against the dense run."""
+    from fedml_tpu_torch.core.tasks import classification_task
+    from fedml_tpu_torch.distributed import turboaggregate as ta
+    from fedml_tpu_torch.distributed.fedavg import run_simulated
+    from fedml_tpu_torch.models.resnet import ResNetCIFAR
+
+    wcfg = dataclasses.replace(cfg, comm_round=1, frequency_of_the_test=1)
+    K = wcfg.client_num_per_round
+    task = classification_task(ResNetCIFAR(EXTRAS_WIRE_DEPTH,
+                                           num_classes=10).cuda())
+    extra = task.extra_keys
+    runs, walls = {}, {}
+    for name, kw in (("dense", {}), ("pairwise", dict(sum_assoc="pairwise")),
+                     ("edges", dict(edges=EXTRAS_EDGES)),
+                     ("async", dict(async_buffer_k=K, staleness_bound=0)),
+                     ("delta-int8", dict(update_codec="delta-int8")),
+                     ("masked", None)):
+        t0 = time.perf_counter()
+        if kw is None:
+            agg = ta.run_simulated(data, task, wcfg,
+                                   job_id="smoke-extras-masked")
+        else:
+            agg = run_simulated(data, task, wcfg,
+                                job_id=f"smoke-extras-{name}", **kw)
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        runs[name] = (_cpu_state(agg.net), agg.quarantine.canonical())
+    dense = runs["dense"][0]
+    params = [k for k in dense if k not in extra]
+    moved = _abs_gap(dense, _cpu_state(task.init(
+        torch.Generator().manual_seed(wcfg.seed), data.train_x[:64])),
+        params)
+    out = {"walls_s": walls}
+    for name, twin in (("edges", "pairwise"), ("async", "dense")):
+        got, want = runs[name][0], runs[twin][0]
+        gap, same = _rel_gap(got, want), _bitwise(got, want)
+        print(f"extras: (d) ResNet-{EXTRAS_WIRE_DEPTH} {name} against the "
+              f"{twin} run: max|diff| / max(1, max|twin|) {gap:.3e} (tol "
+              f"{TOL_RESNET_WIRE:g}; statistics "
+              f"{_rel_gap(got, want, extra):.3e}), bitwise {same}; walls "
+              f"{walls[name]:.2f} / {walls[twin]:.2f} s {_card_tag()}")
+        if gap > TOL_RESNET_WIRE or runs[name][1]:
+            raise AssertionError(f"(d) {name}: {gap}, {runs[name][1]}")
+        out[name] = dict(gap=gap, bitwise=same)
+    # a lossy tier is held as wire holds it: finite, nothing quarantined
+    # (its deadzone zeroes entries under 1.5 x the leaf's rms, which error
+    # feedback returns in later rounds, so one round's gap is printed)
+    got = runs["delta-int8"][0]
+    gap = _abs_gap(got, dense, params) / moved
+    finite = all(bool(torch.isfinite(v).all()) for v in got.values())
+    print(f"extras: (d) delta-int8 uplink against the dense run: params "
+          f"max|diff| {gap:.3f} x the round's largest update "
+          f"({moved:.3e}), statistics {_rel_gap(got, dense, extra):.3e}; "
+          f"finite {finite}, quarantine {runs['delta-int8'][1]} "
+          f"{_card_tag()}")
+    if not finite or runs["delta-int8"][1]:
+        raise AssertionError(f"(d) delta-int8: finite {finite}, "
+                             f"{runs['delta-int8'][1]}")
+    out["delta-int8"] = dict(update_share=gap)
+    got = runs["masked"][0]
+    gaps = {k: float((got[k].double() - dense[k].double()).abs().max())
+            for k in dense}
+    worst = _masked_bound(gaps, dense, params, K)
+    stats = max(gaps[k] for k in extra)
+    print(f"extras: (d) masked flat server against the dense run: params "
+          f"worst at {worst:.3f} of the bound, statistics max|diff| "
+          f"{stats:.3e} (tol {TOL_EXTRAS_STATS:g}); quarantine "
+          f"{runs['masked'][1]}; wall {walls['masked']:.2f} s {_card_tag()}")
+    if worst > 1.0 or stats > TOL_EXTRAS_STATS or runs["masked"][1]:
+        raise AssertionError(f"(d) masked: {worst}, {stats}")
+    out["masked"] = dict(bound_share=worst, stats_gap=stats)
+    return out
+
+
+def _extras_dropout():
+    """(e): CNNDropOut at MAIN_CFG cut to EXTRAS_BATCHES, one masked round
+    and two async updates under a straggler, each twice: bitwise."""
+    from fedml_tpu_torch.algorithms import FedAvgAPI, FedAvgConfig
+    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateAPI
+    from fedml_tpu_torch.chaos import FaultPlan
+    from fedml_tpu_torch.data import load_dataset
+
+    data = load_dataset("femnist", seed=0, uint8_pixels=True)
+    cfg = FedAvgConfig(comm_round=2, frequency_of_the_test=2,
+                       **{**MAIN_CFG, "max_batches": EXTRAS_BATCHES})
+    out = {}
+    for name, run in (
+            ("TurboAggregateAPI round", lambda api: api.run_round(0)),
+            ("async runner, K = 5 under a straggler, 2 updates",
+             lambda api: api.run_async(2, buffer_k=5, staleness="poly:0.5",
+                                       chaos_plan=FaultPlan.from_json(
+                                           EXTRAS_STRAGGLE)))):
+        nets, walls = [], []
+        for _ in range(2):
+            cls = TurboAggregateAPI if name.startswith("Turbo") else FedAvgAPI
+            api = cls(data, _resnet_task("cnn_dropout", 62), cfg,
+                      device_data=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run(api)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            nets.append(_cpu_state(api.net))
+        same = _bitwise(nets[0], nets[1])
+        print(f"extras: (e) CNNDropOut {name}, run twice: bitwise {same}; "
+              f"walls {walls[0]:.3f} / {walls[1]:.3f} s {_card_tag()}")
+        if not same:
+            raise AssertionError(f"(e) {name} does not repeat")
+        out[name] = dict(bitwise=same, walls_s=walls)
+    return out
+
+
+def phase_extras(report):
+    from fedml_tpu_torch.algorithms import FedAvgConfig
+    from fedml_tpu_torch.data import load_dataset
+
+    was = torch.backends.cudnn.deterministic
+    fa.reset_launches()
+    t_phase = time.perf_counter()
+    rec = {}
+    try:
+        torch.backends.cudnn.deterministic = True
+        t0 = time.perf_counter()
+        data = load_dataset("cifar10", seed=0, uint8_pixels=True)
+        cfg = FedAvgConfig(comm_round=EXTRAS_ROUNDS,
+                           frequency_of_the_test=EXTRAS_ROUNDS,
+                           **{**RESNET_CFG, "max_batches": EXTRAS_BATCHES})
+        print(f"extras: cifar10 stand-in set-up "
+              f"{time.perf_counter() - t0:.1f} s")
+        for name, fn in (("engines", lambda: _extras_engines(data, cfg)),
+                         ("wire", lambda: _extras_wire(data, cfg))):
+            t0 = time.perf_counter()
+            rec[name] = fn()
+            rec[name]["seconds"] = time.perf_counter() - t0
+            print(f"extras: {name} checks {rec[name]['seconds']:.1f} s")
+        del data
+        t0 = time.perf_counter()
+        rec["dropout"] = _extras_dropout()
+        rec["dropout"]["seconds"] = time.perf_counter() - t0
+        print(f"extras: dropout checks {rec['dropout']['seconds']:.1f} s")
+    finally:
+        torch.backends.cudnn.deterministic = was
+    torch.cuda.synchronize()
+    if any(fa.LAUNCHES.values()):
+        raise AssertionError(f"flash kernels launched by the extras phase: "
+                             f"{fa.LAUNCHES}")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"extras: no flash kernel launched; the phase took "
+          f"{rec['seconds']:.1f} s {_card_tag()}")
+    report["extras"] = rec
 
 
 def _initial_state(data, cfg):

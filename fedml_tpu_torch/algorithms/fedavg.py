@@ -37,7 +37,10 @@ round splits off a key and splits that three ways into (rng, kh, kp):
 ``post_aggregate_hook(net, key)`` that ``_update_from_aggregate`` applies,
 the one server-side composition the round and the async flush share.
 DP-FedAvg rides these hooks (algorithms/fedavg_robust.py), and so its
-noise is the JAX package's own draw.
+noise is the JAX package's own draw. A hook sees the whole net, extras
+included (the reference's hooks take the ``NetState``); one that must
+leave them alone splits with ``split_net(net, task.extra_keys)``, as the
+DP clip and noise do.
 
 Byzantine robustness (core/robust_agg.py, chaos/adversary.py):
 ``aggregator`` swaps the weighted mean for a robust estimator behind the
@@ -77,7 +80,10 @@ A model with extras (BatchNorm statistics, core/local.py) carries them in
 round averages them with the params' weights; eval reads them. A model that
 draws randomness (dropout) gets the JAX engine's per-client key chain
 (``_fit_keys``). The robust, adversarial, hooked (DP) and async rounds
-refuse a model with extras (ROADMAP.md queue A, item 4).
+treat the net as the reference treats its ``NetState``: the adversary
+perturbs params and extras, the gate's norms, krum's distances and the
+evidence sketch cover both (flattened in the wire order, params then
+extras), and the estimators fold both.
 
 Mesh/SPMD round loops and the other engine options are queued in
 ROADMAP.md (queue A); passing one raises.
@@ -123,7 +129,7 @@ from fedml_tpu_torch.core.local import (
     make_cohort_eval_fn,
     make_eval_fn,
     make_local_update,
-    refuse_extras,
+    split_net,
 )
 from fedml_tpu_torch.core.sampling import prepare_sampling, sample_for
 from fedml_tpu_torch.device import resolve_device
@@ -164,7 +170,7 @@ def _client_drift(nets: dict, avg: dict, nsamp: torch.Tensor):
 
 
 def round_stats(old_net: dict, new_net: dict, nets: dict, avg: dict,
-                nsamp: torch.Tensor) -> dict:
+                nsamp: torch.Tensor, extra_keys=()) -> dict:
     """Telemetry round stats as device scalars (no host read here; they
     ride out with the round's metrics):
 
@@ -173,10 +179,14 @@ def round_stats(old_net: dict, new_net: dict, nets: dict, avg: dict,
     - ``client_drift_mean``/``client_drift_max``: per-client ||net_k - avg||
       over the round's REAL clients (zero-sample padding excluded) — the
       non-IID dispersion statistic FedProx/FedNova papers reason about.
+
+    Both read the params only: a model's extras (``extra_keys``) are not
+    part of the step.
     """
+    new_p, _ = split_net(new_net, extra_keys)
     out = {"update_norm": _sq_norm(
-        {k: new_net[k] - old_net[k] for k in new_net}).sqrt()}
-    drift, real = _client_drift(nets, avg, nsamp)
+        {k: v - old_net[k] for k, v in new_p.items()}).sqrt()}
+    drift, real = _client_drift(split_net(nets, extra_keys)[0], avg, nsamp)
     out["client_drift_mean"] = (drift * real).sum() / real.sum().clamp_min(1.0)
     out["client_drift_max"] = (drift * real).max()
     return out
@@ -362,13 +372,6 @@ class FedAvgAPI:
             raise NotImplementedError(
                 f"FedAvgAPI options {sorted(unported)} are not ported yet: "
                 "ROADMAP.md queue A, items 5-6, 8-9 and 12")
-        # the robust, adversarial and hooked rounds do not carry a
-        # model's extras yet (ROADMAP.md queue A, item 4)
-        refuse_extras(task, type(self).__name__, {
-            "aggregator": aggregator, "sanitize": sanitize or None,
-            "adversary_plan": adversary_plan,
-            "client_result_hook": client_result_hook,
-            "post_aggregate_hook": post_aggregate_hook})
         self.data = dataset
         self.task = task
         self.cfg = config
@@ -662,7 +665,7 @@ class FedAvgAPI:
             metrics = {k: v.sum() for k, v in metrics.items()}
             if self._emit_stats:
                 metrics.update(round_stats(self.net, new_net, nets, avg,
-                                           nsamp))
+                                           nsamp, self.task.extra_keys))
             self.net = new_net
             if reasons is not None:
                 metrics["__quarantine"] = reasons

@@ -12,7 +12,9 @@ Here, as in the JAX package, clipping is the engine's
 ``client_result_hook`` (vmapped over the stacked cohort, one global norm a
 client) and the noise its ``post_aggregate_hook``, keyed by the engine's
 key chain: the noise is the JAX package's draw, weight for weight, on the
-engine's device (core/robust.py). ``defense_type='dp'`` is DP-FedAvg
+engine's device (core/robust.py). Both act on the params: a model's extras
+(BatchNorm statistics) stay out of the clip's norm and draw no noise, and
+pass through as the fits returned them. ``defense_type='dp'`` is DP-FedAvg
 (McMahan et al. 2018): clip to C, a UNIFORM average, N(0, (z·C/m)²) on the
 m-client mean, and an RDP accountant (core/privacy.py) charged before each
 round, so the round record's ``privacy`` block and ``epsilon(delta)``
@@ -30,7 +32,6 @@ from fedml_tpu_torch.algorithms.fedavg import (
     float32_compute,
 )
 from fedml_tpu_torch.core.client_data import batch_global
-from fedml_tpu_torch.core.local import refuse_extras
 from fedml_tpu_torch.core.robust import add_gaussian_noise, norm_diff_clipping
 
 DEFENSES = ("norm_diff_clipping", "weak_dp", "dp", "none")
@@ -47,8 +48,6 @@ class FedAvgRobustAPI(FedAvgAPI):
         ``norm_bound`` (= C), the server adds N(0, (z·C/m)²) to the
         m-client average, and ``self.accountant`` tracks cumulative Rényi
         DP — ``self.epsilon(delta)`` gives the (ε, δ) spent so far."""
-        # its clip and noise act on the params (ROADMAP.md queue A, item 4)
-        refuse_extras(task, "FedAvgRobustAPI")
         if defense_type not in DEFENSES:
             raise ValueError(f"unknown defense_type {defense_type!r} "
                              f"(one of {DEFENSES})")
@@ -56,9 +55,13 @@ class FedAvgRobustAPI(FedAvgAPI):
         self.accountant = None
         self._privacy_cache = None
         hooks = {}
+        # the clip and the noise act on the params; a model's extras pass
+        # through as they arrived (the reference's NetState(..., extra))
+        extra_keys = tuple(task.extra_keys)
         if defense_type in ("norm_diff_clipping", "weak_dp", "dp"):
             def clip_hook(net_k, net_global, key):
-                return norm_diff_clipping(net_k, net_global, norm_bound)
+                return norm_diff_clipping(net_k, net_global, norm_bound,
+                                          extra_keys)
             hooks["client_result_hook"] = clip_hook
         if defense_type in ("weak_dp", "dp"):
             if defense_type == "dp":
@@ -88,7 +91,7 @@ class FedAvgRobustAPI(FedAvgAPI):
                 self._dp_C = norm_bound
 
             def noise_hook(net, key):
-                return add_gaussian_noise(key, net, stddev)
+                return add_gaussian_noise(key, net, stddev, extra_keys)
             hooks["post_aggregate_hook"] = noise_hook
 
         super().__init__(dataset, task, config, device=device, **hooks,

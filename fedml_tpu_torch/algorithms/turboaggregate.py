@@ -14,16 +14,23 @@ exists on the aggregation path.
 
 The cohort fits once, batched (``local_update`` gives the nets stacked
 ``[K, ...]``), and each slot is masked, folded, unmasked and decoded on the
-engine's device. The key chain is the reference's: one split a round
-(``self.rng, rk = split(self.rng)``), whose ``rk`` keys the K fits there
-(``split(rk, K)``); the port's models draw no randomness in a fit, so
-only the chain's advance is kept. The full-cohort protocol only: a
-simulated cohort cannot drop mid-round; dropout recovery lives on the
-cross-process tier (distributed/turboaggregate.py).
+engine's device. The key chain is the reference's own, not the main
+engine's ``client_keys``: one split a round (``self.rng, rk =
+split(self.rng)``), and slot ``k``'s fit is keyed by ``split(rk, K)[k]``,
+split per epoch and batch (utils/prng ``fit_keys``), so a dropout model's
+masks are flax's. The full-cohort protocol only: a simulated cohort cannot
+drop mid-round; dropout recovery lives on the cross-process tier
+(distributed/turboaggregate.py).
+
+Only the params go through the masked field (``params_vectorize``, the
+JAX package's ``tree_vectorize(net.params)``). A model's extras
+(BatchNorm statistics) are not secret: they take the plain weighted mean
+with the float32 sample counts, as the reference averages them.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from fedml_tpu_torch.algorithms.fedavg import (
@@ -33,9 +40,12 @@ from fedml_tpu_torch.algorithms.fedavg import (
 )
 from fedml_tpu_torch.convert import num_heads_of
 from fedml_tpu_torch.core import secure_agg as sa
-from fedml_tpu_torch.core.local import refuse_extras
 from fedml_tpu_torch.utils import prng
-from fedml_tpu_torch.utils.tree import tree_unvectorize, tree_vectorize
+from fedml_tpu_torch.utils.tree import (
+    params_unvectorize,
+    params_vectorize,
+    tree_weighted_mean,
+)
 
 
 class TurboAggregateAPI(FedAvgAPI):
@@ -46,8 +56,6 @@ class TurboAggregateAPI(FedAvgAPI):
                  threshold_t: int | None = None,
                  quant_scale: float = 2**16,
                  secagg_max_abs: float = 4.0, device=None, **kwargs):
-        # the masked round folds params only, and keys no fit
-        refuse_extras(task, "TurboAggregateAPI", key=True)
         if config.client_num_per_round > 32:
             raise ValueError("TurboAggregate secure path is for cross-silo "
                              "scale")
@@ -72,15 +80,18 @@ class TurboAggregateAPI(FedAvgAPI):
         metrics (device tensors)."""
         x, y, mask, nsamp = batch
         with self.tracer.span("round"):
-            # the reference splits rk K ways for the fits; the port's
-            # fits draw nothing, so the chain's advance is all that stays
-            self.rng, _rk = prng.split(self.rng)
-            with float32_compute():
-                nets, metrics = self.local_update(self.net, x, y, mask)
+            # the reference's chain: rk split K ways keys the fits
+            self.rng, rk = prng.split(self.rng)
             K = int(x.shape[0])
+            with float32_compute():
+                nets, metrics = self.local_update(
+                    self.net, x, y, mask, self._slot_keys(rk, K,
+                                                          x.shape[1]))
             n = nsamp.to(torch.float64).cpu().numpy()
             wts = n / max(n.sum(), 1e-12)
-            vecs = tree_vectorize(nets, self.num_heads, stacked=True)
+            extra_keys = self.task.extra_keys
+            vecs = params_vectorize(nets, extra_keys, self.num_heads,
+                                    stacked=True)
             cfg, seed = self.secagg, self.cfg.seed
             acc = None
             for k in range(K):
@@ -97,7 +108,24 @@ class TurboAggregateAPI(FedAvgAPI):
                     cfg.threshold_t, cfg.p)
                 for i in slots}
             vec_sum = sa.unmask_sum(acc, slots, [], self_seeds, {}, cfg)
-            self.net = tree_unvectorize(vec_sum.to(torch.float32), self.net,
-                                        self.num_heads)
+            new_net = params_unvectorize(vec_sum.to(torch.float32),
+                                         self.net, extra_keys,
+                                         self.num_heads)
+            if extra_keys:
+                # the extras are not secret: the plain weighted mean with
+                # the float32 sample counts
+                new_net.update(tree_weighted_mean(
+                    {k: nets[k] for k in extra_keys},
+                    nsamp.to(torch.float32)))
+            self.net = new_net
             metrics = {k: v.sum() for k, v in metrics.items()}
         return metrics
+
+    def _slot_keys(self, rk, K: int, B: int):
+        """The fits' per-batch keys ``[E, B, K, 2]`` on the device, slot
+        ``k`` keyed by ``split(rk, K)[k]`` (the reference's chain); None for
+        a task that draws no randomness."""
+        if not self.task.needs_key:
+            return None
+        keys = prng.fit_keys(prng.split(rk, K), self.local_spec.epochs, B)
+        return torch.from_numpy(keys.astype(np.int64)).to(self.device)

@@ -322,6 +322,12 @@ class VirtualClockAsyncRunner:
     post-aggregate hook (DP noise) applies on top of the buffered aggregate
     as it does synchronously.
 
+    A model's extras (BatchNorm statistics) ride each arrival's net and
+    are stacked and folded with the params; a model that draws randomness
+    (dropout) keys arrival ``(wave, client)`` by ``fold_in(fold_in(
+    key(seed), wave), client)``, the reference's chain, which is the
+    engine's ``_fit_keys`` at round ``wave``.
+
     Everything is a pure function of (engine seed, chaos plan, policy), so
     a seeded async chaos run replays bit for bit. The reference's
     refusals stand: no ``client_result_hook``, no in-graph adversary (an
@@ -335,11 +341,8 @@ class VirtualClockAsyncRunner:
                  capacity: int | None = None,
                  chaos_plan=None, adversary_plan=None,
                  base_duration_s: float = 1.0):
-        from fedml_tpu_torch.core.local import refuse_extras
         from fedml_tpu_torch.obs import perf_instrument as _perf
 
-        # its fits key nothing and its buffer folds params only
-        refuse_extras(engine.task, "the async runner", key=True)
         if engine.client_result_hook is not None or \
                 engine._adversary is not None:
             raise ValueError(
@@ -407,8 +410,8 @@ class VirtualClockAsyncRunner:
         heapq.heappush(heap, (t + dur, self._seq, "arrival", item))
 
     def _fit_group(self, group: dict) -> None:
-        """The batched fit of one dispatch group: the engine's packing
-        and ``local_update`` over its clients in slot order."""
+        """The batched fit of one dispatch group: the engine's packing,
+        keys and ``local_update`` over its clients in slot order."""
         from fedml_tpu_torch.algorithms.fedavg import float32_compute
 
         eng = self.engine
@@ -416,7 +419,9 @@ class VirtualClockAsyncRunner:
         cids = np.asarray([int(group["ids"][s]) for s in slots], np.int64)
         x, y, mask, nsamp = eng._round_batch(group["wave"], cids)
         with float32_compute():
-            nets, _ = eng.local_update(group["net"], x, y, mask)
+            nets, _ = eng.local_update(group["net"], x, y, mask,
+                                       eng._fit_keys(group["wave"], cids,
+                                                     x.shape[1]))
         nsamp = nsamp.cpu().numpy()
         group["out"] = {s: ({k: v[i] for k, v in nets.items()},
                             float(nsamp[i])) for i, s in enumerate(slots)}
@@ -510,8 +515,10 @@ class VirtualClockAsyncRunner:
         }
         self.history.append(rec)
         if eng.telemetry is not None:
+            # the step over the params (a model's extras are no step)
             upd = float(torch.sqrt(sum(((eng.net[k] - old_net[k]) ** 2).sum()
-                                       for k in eng.net)))
+                                       for k in eng.net
+                                       if k not in eng.task.extra_keys)))
             q = eng.quarantine.for_round(self.version)
             eng.telemetry.emit_round(
                 self.version, clients=[e.client for e in entries],

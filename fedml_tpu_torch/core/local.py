@@ -105,7 +105,10 @@ def refuse_extras(task: Task, owner: str, options: dict | None = None,
     ``task``'s model carries extras (or, with ``key``, draws randomness)
     and ``owner`` does not carry them yet: always when ``options`` is
     None, else when one of ``options`` (name -> value; None / False =
-    unset) is set."""
+    unset) is set. Every engine and server carries them but the
+    sequence-parallel path: ``FedAvgSeqAPI`` with a keyed model, and
+    ``sequence_task(seq_axis=)`` with a stateful one (no sequence model of
+    either package has dropout or running statistics yet)."""
     if not (task.extra_keys or (key and task.needs_key)):
         return
     set_ = [k for k, v in (options or {}).items()

@@ -390,29 +390,41 @@ def _order_on(spec: tuple, device: str) -> torch.Tensor:
 
 
 def _is_model_state(keys) -> bool:
-    return bool({"conv1.weight", "linear.weight", "pos_emb"} & set(keys))
+    """A model's net (the CNNs, the LR, a TransformerLM or a ResNet),
+    rather than a plain dict of positions or sketches."""
+    return bool({"conv1.weight", "linear.weight", "pos_emb",
+                 "blocks.0.conv1.weight"} & set(keys))
+
+
+def model_leaves(index: dict) -> list:
+    """The leaves of a net of index tensors in the JAX package's order,
+    ``jax.tree.leaves(NetState(params, extra))``: its flax params in
+    sorted paths and flax layouts, then its extras likewise (the wire
+    order, comm/message.net_items); a plain dict's in sorted keys."""
+    from fedml_tpu_torch.comm.message import _flat_items
+    from fedml_tpu_torch.convert import to_flax_net
+
+    if not _is_model_state(index):
+        return [leaf for _, leaf in _flat_items(index)]
+    # the attention kernels' flattening does not depend on the head count,
+    # so any divisor of the width will do
+    params, extra = to_flax_net(index, num_heads=1)
+    return [leaf for _, leaf in (*_flat_items(params), *_flat_items(extra))]
 
 
 @functools.lru_cache(maxsize=8)
 def reference_order(spec: tuple) -> np.ndarray | None:
     """For a state whose entries are ``spec`` = ((key, per-client shape),
     ...) in dict order: the index that reorders its flattened row into the
-    JAX package's flattening of the same state, ``jax.tree.leaves`` of
-    the flax params (sorted paths, flax layouts: ``convert.to_flax``), or
-    of a plain dict (sorted keys). None when the orders already agree."""
-    from fedml_tpu_torch.comm.message import _flat_items
-    from fedml_tpu_torch.convert import to_flax
-
+    JAX package's flattening of the same state (``model_leaves``: the
+    flax params, then a model's extras), or of a plain dict (sorted
+    keys). None when the orders already agree."""
     index, off = {}, 0
     for key, shape in spec:
         n = int(np.prod(shape, dtype=np.int64))
         index[key] = torch.arange(off, off + n).reshape(shape)
         off += n
-    # the wire's leaf order (pack_pytree): sorted paths of the flax params;
-    # the attention kernels' flattening does not depend on the head count,
-    # so any divisor of the width will do
-    tree = to_flax(index, num_heads=1) if _is_model_state(index) else index
-    leaves = [np.asarray(leaf).ravel() for _, leaf in _flat_items(tree)]
+    leaves = [np.asarray(leaf).ravel() for leaf in model_leaves(index)]
     perm = np.concatenate(leaves) if leaves else np.zeros(0, np.int64)
     if np.array_equal(perm, np.arange(off)):
         return None

@@ -12,7 +12,10 @@ dropped, counted and quarantined, never averaged.
 
 Uploads arrive as wire leaves (flax layout) and are staged on the server's
 device in the port's layout as they arrive (``_stage_upload``), the
-counterpart of the reference's ``jax.device_put``.
+counterpart of the reference's ``jax.device_put``. A model's extras
+(BatchNorm statistics) ride the frames after the params and are staged,
+gated, estimated and folded with them in every mode (stacked, robust,
+pairwise and fused), as the reference treats its whole staged tree.
 
 Byzantine-robust aggregation (core/robust_agg.py): ``aggregator=`` swaps
 the weighted mean for a robust estimator, ``sanitize=`` arms the
@@ -50,7 +53,7 @@ from fedml_tpu_torch.comm.message import pack_pytree, unpack_pytree
 from fedml_tpu_torch.convert import num_heads_of
 from fedml_tpu_torch.core.client_data import FederatedData, batch_global
 from fedml_tpu_torch.core.client_source import ClientDataSource
-from fedml_tpu_torch.core.local import Task, make_eval_fn, refuse_extras
+from fedml_tpu_torch.core.local import Task, make_eval_fn
 from fedml_tpu_torch.core.robust_agg import (
     DEFAULT_NORM_MULT,
     REASON_OK,
@@ -89,13 +92,6 @@ class FedAvgAggregator:
         refuse_unported("FedAvgAggregator", {
             "shard_server_state": (bool(shard_server_state), 12),
             "partition_rules": (partition_rules is not None, 12)})
-        # the dense synchronous flat server carries a model's extras; the
-        # robust, fused, DP, masked and tree servers do not yet
-        if type(self) is not FedAvgAggregator:
-            refuse_extras(task, type(self).__name__)
-        refuse_extras(task, "FedAvgAggregator", {
-            "aggregator": aggregator, "sanitize": sanitize or None,
-            "fused_agg": fused_agg})
         if sum_assoc not in ("auto", "pairwise"):
             raise ValueError(f"sum_assoc={sum_assoc!r} "
                              "(expected 'auto' or 'pairwise')")
@@ -210,8 +206,9 @@ class FedAvgAggregator:
 
     def wire_to_state(self, leaves) -> dict:
         """Dense wire leaves on the device -> the server's state dict on
-        the device (``convert.from_flax`` of the device tensors: a
-        permutation of their values)."""
+        the device (``convert.from_flax`` of the device tensors, the
+        ``batch_stats`` leaves as the extras: a permutation of their
+        values)."""
         from fedml_tpu_torch.convert import from_flax
 
         params: dict = {}
@@ -220,7 +217,9 @@ class FedAvgAggregator:
             for key in path[:-1]:
                 node = node.setdefault(key, {})
             node[path[-1]] = leaf
-        state = from_flax(params)
+        extra = ({"batch_stats": params.pop("batch_stats")}
+                 if "batch_stats" in params else None)
+        state = from_flax(params, extra)
         return {k: state[k].to(v.device, v.dtype)
                 for k, v in self.net.items()}
 

@@ -24,7 +24,9 @@ wire leaves after the honest fit and before the uplink tier encodes them
 attacker would send. In the hierarchical topology (hierarchy.py) a
 worker's ``server_rank`` is its edge aggregator: uploads go there, and
 ``adversary_rank`` is its cohort slot + 1, so one plan drives a flat and a
-tree run alike.
+tree run alike. The attack and the uplink tiers act on every wire leaf, a
+model's extras (BatchNorm statistics, after the params) included, as the
+reference's do; a non-float leaf would ship dense.
 
 Buffered-async dispatch: a frame carrying a ``dispatch_wave`` keys the fit
 by the wave (a requeued dispatch within one global version draws fresh
@@ -47,7 +49,6 @@ import torch
 
 from fedml_tpu_torch.comm.managers import ClientManager
 from fedml_tpu_torch.comm.message import Message
-from fedml_tpu_torch.core.local import refuse_extras
 from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage
 from fedml_tpu_torch.distributed.fedavg.trainer import DistributedTrainer
 from fedml_tpu_torch.obs.fleet import TELEMETRY_KEY, DigestEmitter, attach_digest
@@ -101,12 +102,6 @@ class FedAvgClientManager(ClientManager):
                     "update_codec and sparsify_ratio are mutually "
                     "exclusive uplink tiers — pick one")
         self.update_codec = update_codec
-        # the codecs and the adversaries act on dense params-only uploads
-        if trainer is not None:
-            refuse_extras(trainer.task, "FedAvgClientManager", {
-                "sparsify_ratio": sparsify_ratio,
-                "adversary_plan": adversary_plan,
-                "update_codec": update_codec})
         # one shared error-feedback residual (comm/ef.py) owned by ALL
         # lossy tiers (top-k AND the quantized delta tiers);
         # error_feedback=False is the convergence-ablation knob only

@@ -80,7 +80,6 @@ from fedml_tpu_torch.comm.message import (
     check_wire_leaves,
     codec_roundtrip,
 )
-from fedml_tpu_torch.core.local import refuse_extras
 from fedml_tpu_torch.data import dataset_source
 from fedml_tpu_torch.distributed.fedavg.aggregator import FedAvgAggregator
 from fedml_tpu_torch.distributed.fedavg.message_define import MyMessage
@@ -123,9 +122,6 @@ class FedAvgServerManager(ServerManager):
         # suspect/undeliverable bookkeeping, no reprobe or backoff churn —
         # and subtracted from the barrier's denominator; only a rank the
         # trace expects here rides the suspected-dead paths
-        refuse_extras(aggregator.task, "FedAvgServerManager", {
-            "async_buffer_k": async_buffer_k,
-            "delta_broadcast": delta_broadcast})
         self.churn_trace = churn_trace
         self._offline_now: set[int] = set()
         # ranks whose dispatch was skipped for scheduled offline — the

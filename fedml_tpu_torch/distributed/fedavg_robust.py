@@ -8,7 +8,9 @@ fedml_core/robustness defenses before / after the weighted average
 robust_aggregation.py:33-36). Each upload is norm-diff-clipped against the
 current global model, and noise is added to the aggregate, with the same
 functions the standalone FedAvgRobustAPI runs as engine hooks
-(core/robust.py).
+(core/robust.py): both act on the params, and a model's extras (BatchNorm
+statistics) pass the clip unchanged, draw no noise, and are averaged with
+the upload weights like any other entry.
 
 ``defense_type='dp'`` is ACCOUNTED DP-FedAvg (core/privacy.py): clip to C,
 a UNIFORM average over the m clients that actually reported (elastic
@@ -80,7 +82,8 @@ class FedAvgRobustAggregator(FedAvgAggregator):
             if self.defense_type in ("norm_diff_clipping", "weak_dp", "dp"):
                 with float32_compute():
                     net_r = norm_diff_clipping(net_r, self.net,
-                                               self._norm_bound)
+                                               self._norm_bound,
+                                               self.task.extra_keys)
             self.model_dict[r] = net_r
         m_received = len(self.model_dict)
         if self.defense_type == "dp":
@@ -117,7 +120,8 @@ class FedAvgRobustAggregator(FedAvgAggregator):
             else:
                 sd = self._stddev
             self._noise_rng, k = prng.split(self._noise_rng)
-            self.net = add_gaussian_noise(k, self.net, sd)
+            self.net = add_gaussian_noise(k, self.net, sd,
+                                          self.task.extra_keys)
         return pack_pytree(self.net, self.num_heads)
 
     def epsilon(self, delta: float = 1e-5) -> float:

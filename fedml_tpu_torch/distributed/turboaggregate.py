@@ -1,11 +1,15 @@
 """Distributed TurboAggregate — dropout-tolerant masked secure aggregation,
 port of fedml_tpu/distributed/turboaggregate.py.
 
-- Clients upload ONE masked field vector: the weighted update quantized
+- Clients upload ONE masked field vector: the weighted params quantized
   into GF(2^31-1) plus cancelling pairwise masks and a Shamir-shared
   self-mask (core/secure_agg.py), masked on the client's device. The
-  server never sees a cleartext update; its per-upload cost is one
-  streaming add mod p on its device (``fold_masked_device``).
+  server never sees cleartext params; its per-upload cost is one
+  streaming add mod p on its device (``fold_masked_device``). A model's
+  extras (BatchNorm statistics) are not secret: they ride the upload in
+  the clear after the masked vector and its shares, and the server takes
+  their sample-weighted mean over the round's survivors (the global
+  extras stay when no slot survives), as the reference does.
 - With ``round_timeout_s`` armed, clients that crash inside the deadline
   degrade the round instead of wedging it: the server asks each survivor
   for its pairwise seeds of exactly the dead slots (``s2c_reveal`` /
@@ -46,6 +50,7 @@ they are ledgered ``secagg_shed``, and the round re-runs clean.
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 
@@ -55,7 +60,6 @@ import torch
 from fedml_tpu_torch.algorithms.fedavg import FedAvgConfig
 from fedml_tpu_torch.comm.message import Message, pack_pytree
 from fedml_tpu_torch.core import secure_agg as sa
-from fedml_tpu_torch.core.local import refuse_extras
 from fedml_tpu_torch.core.sampling import sample_clients
 from fedml_tpu_torch.distributed.fedavg.aggregator import FedAvgAggregator
 from fedml_tpu_torch.distributed.fedavg.api import (
@@ -82,7 +86,12 @@ from fedml_tpu_torch.obs import comm_instrument as _obs
 from fedml_tpu_torch.obs import perf_instrument as _perf
 from fedml_tpu_torch.obs.tracing import TRACE_KEY
 from fedml_tpu_torch.utils import prng
-from fedml_tpu_torch.utils.tree import tree_unvectorize, tree_vectorize
+from fedml_tpu_torch.utils.tree import (
+    params_size,
+    params_unvectorize,
+    params_vectorize,
+    tree_weighted_mean,
+)
 
 log = logging.getLogger("fedml_tpu_torch.distributed.fedavg")
 
@@ -126,19 +135,16 @@ def _secagg_config(cfg: FedAvgConfig, threshold_t: int | None,
 
 
 class SecureTrainer(DistributedTrainer):
-    """DistributedTrainer whose wire format is ``[masked_vec, b_shares]``
-    (the reference adds the plaintext extra state; a model with extras is
-    refused here, ROADMAP.md queue A, item 4): the update never leaves the
-    client unmasked. The masking runs
-    on the trainer's device."""
+    """DistributedTrainer whose wire format is ``[masked_vec, b_shares,
+    *extras]``: the params never leave the client unmasked; a model's
+    extras follow in the clear, as wire leaves (the reference's
+    ``pack_pytree(net.extra)``). The masking runs on the trainer's
+    device."""
 
     def __init__(self, client_rank, dataset, task, cfg, threshold_t=None,
                  quant_scale=2**16, defense_type: str = "none",
                  norm_bound: float = 30.0, secagg_max_abs: float = 4.0,
                  slot: int | None = None, peers=None, device=None):
-        # the reference sends the extras in plaintext beside the masked
-        # vector; the port's masked upload has no such slot yet
-        refuse_extras(task, "SecureTrainer")
         super().__init__(client_rank, dataset, task, cfg, device=device)
         # cohort SLOT (stable per rank), not the per-round client id. The
         # hierarchical tier passes it (worker rank = 1 + edges + slot) and
@@ -177,7 +183,9 @@ class SecureTrainer(DistributedTrainer):
                 for j in dead_slots]
 
     def _vector(self) -> torch.Tensor:
-        return tree_vectorize(self.net, self.num_heads).to(torch.float64)
+        """The params as one float64 vector in the JAX package's order."""
+        return params_vectorize(self.net, self.task.extra_keys,
+                                self.num_heads).to(torch.float64)
 
     def fit(self, round_idx: int) -> int:
         if self.defense_type == "dp":
@@ -189,8 +197,8 @@ class SecureTrainer(DistributedTrainer):
         return n
 
     def wire_leaves(self) -> list:
-        """The last fit's upload: its masked field vector and the Shamir
-        shares of its self-mask seed."""
+        """The last fit's upload: its masked field vector, the Shamir
+        shares of its self-mask seed, and its extras' wire leaves."""
         r = self._fit_round
         if self.defense_type == "dp":
             # clip the ROUND DELTA to the L2 ball C, mask unweighted: the
@@ -208,7 +216,8 @@ class SecureTrainer(DistributedTrainer):
                                 self.secagg, peers=self.peers)
         b_shares = sa.self_mask_shares(self.cfg.seed, r, self.slot,
                                        self.secagg)
-        return [masked, b_shares]
+        return [masked, b_shares, *_extra_leaves(self.net, self.num_heads,
+                                                 self.task.extra_keys)]
 
 
 class TAAggregator(FedAvgAggregator):
@@ -371,7 +380,8 @@ class TAAggregator(FedAvgAggregator):
             self._noise_rng, k = prng.split(self._noise_rng)
             noise = prng.normal_torch(k, tuple(delta.shape),
                                       self.device).to(torch.float64) * sd
-            global_vec = tree_vectorize(self.net, self.num_heads).to(
+            global_vec = params_vectorize(
+                self.net, self.task.extra_keys, self.num_heads).to(
                 torch.float64)
             new_vec = global_vec + delta + noise
             from fedml_tpu_torch.core.privacy import charge_and_record
@@ -389,10 +399,14 @@ class TAAggregator(FedAvgAggregator):
                 _batch_cap(self.dataset, self.cfg))
             new_vec = vec_sum * (max(sum(counts), 1)
                                  / max(float(nsamp.sum()), 1e-12))
-        # the port's models carry no extra state, so the survivors' extras
-        # (a plain weighted mean in the reference) are empty lists
-        self.net = tree_unvectorize(new_vec.to(torch.float32), self.net,
-                                    self.num_heads)
+        new_net = params_unvectorize(new_vec.to(torch.float32), self.net,
+                                     self.task.extra_keys, self.num_heads)
+        if self.task.extra_keys and survivors:
+            # the extras are not secret: the plain mean over the
+            # survivors' cleartext leaves, weighted by their float32
+            # sample counts
+            new_net.update(self._extras_mean(survivors, nsamp))
+        self.net = new_net
         self._acc, self._recovery = None, None
         self._round_slots, self._b_shares, self._extras = set(), {}, {}
         self.sample_num_dict.clear()
@@ -401,19 +415,68 @@ class TAAggregator(FedAvgAggregator):
         self._last_flush = {"fused": True, "flush_s": round(flush_s, 6)}
         return pack_pytree(self.net, self.num_heads)
 
+    def _extras_mean(self, survivors, nsamp) -> dict:
+        """The survivors' extras (wire leaves) staged on the device and
+        averaged with the ``nsamp`` weights, in the port's layout."""
+        stacked = [torch.stack([torch.from_numpy(np.array(
+            self._extras[i][j])) for i in survivors]).to(self.device)
+            for j in range(len(self._extras[survivors[0]]))]
+        avg = tree_weighted_mean(dict(enumerate(stacked)), torch.tensor(
+            nsamp, dtype=torch.float32, device=self.device))
+        keys = _extra_keys_of(self.net, self.num_heads, self.task.extra_keys)
+        return {k: avg[j].to(self.net[k].dtype) for j, k in enumerate(keys)}
+
     def privacy_record(self) -> dict | None:
         """The round record's ``privacy`` block (None outside dp mode)."""
         return self._privacy_cache
 
 
-def _masked_leaves_ok(leaves, n: int, cohort: int) -> bool:
+@functools.lru_cache(maxsize=8)
+def _extra_wire_keys(shapes: tuple, num_heads, extra_keys: tuple) -> tuple:
+    """The port keys of a net's extras in wire order (the trailing leaves
+    of ``net_items``), for a net of these sorted ``(key, shape)`` entries.
+    Each extra is a vector the wire copies as it is (``convert``), so a
+    leaf is its entry's values."""
+    from fedml_tpu_torch.comm.message import net_items
+
+    index = {k: torch.full(shape, float(i), dtype=torch.float64)
+             for i, (k, shape) in enumerate(shapes)}
+    items = net_items(index, num_heads)
+    names = [k for k, _ in shapes]
+    keys = tuple(names[int(np.asarray(leaf).reshape(-1)[0])]
+                 for _, leaf in items[len(items) - len(extra_keys):])
+    if sorted(keys) != sorted(extra_keys):
+        raise ValueError("the extras are not the trailing wire leaves")
+    return keys
+
+
+def _extra_keys_of(net: dict, num_heads, extra_keys) -> tuple:
+    return _extra_wire_keys(tuple((k, tuple(v.shape))
+                                  for k, v in sorted(net.items())),
+                            num_heads, tuple(sorted(extra_keys)))
+
+
+def _extra_leaves(net: dict, num_heads, extra_keys) -> list:
+    """A net's extras as wire leaves (host float arrays in wire order, the
+    reference's ``pack_pytree(net.extra)``)."""
+    if not extra_keys:
+        return []
+    return [net[k].detach().cpu().numpy()
+            for k in _extra_keys_of(net, num_heads, extra_keys)]
+
+
+def _masked_leaves_ok(leaves, n: int, cohort: int,
+                      extra_shapes=()) -> bool:
     """A masked upload's structure: ``[masked int64 [n], shares int64
-    [cohort], *extras]``."""
-    if not isinstance(leaves, list) or len(leaves) < 2:
+    [cohort], *extras]``, one float32 leaf of each of ``extra_shapes``."""
+    if not isinstance(leaves, list) or len(leaves) != 2 + len(extra_shapes):
         return False
     masked, shares = np.asarray(leaves[0]), np.asarray(leaves[1])
     return (masked.dtype == np.int64 and masked.shape == (n,)
-            and shares.dtype == np.int64 and shares.shape == (cohort,))
+            and shares.dtype == np.int64 and shares.shape == (cohort,)
+            and all(np.asarray(e).dtype == np.float32
+                    and np.shape(e) == shape
+                    for e, shape in zip(leaves[2:], extra_shapes)))
 
 
 class TASecureClientManager(FedAvgClientManager):
@@ -506,14 +569,17 @@ class TASecureServerManager(FedAvgServerManager):
         as the dense check does."""
         agg: TAAggregator = self.aggregator
         leaves = msg_params.get(MyMessage.MSG_ARG_KEY_MODEL_PARAMS)
-        n = sum(int(v.numel()) for v in agg.net.values())
-        if _masked_leaves_ok(leaves, n, agg.secagg.cohort):
+        extra_keys = agg.task.extra_keys
+        n = params_size(agg.net, extra_keys)
+        shapes = [tuple(agg.net[k].shape) for k in
+                  _extra_keys_of(agg.net, agg.num_heads, extra_keys)]
+        if _masked_leaves_ok(leaves, n, agg.secagg.cohort, shapes):
             return leaves
         agg.quarantine.record(self.round_idx, sender, "undecodable")
         _obs.record_update_rejected("undecodable")
         log.warning("quarantining upload from rank %d: not a masked "
-                    "field vector of %d elements with %d shares", sender,
-                    n, agg.secagg.cohort)
+                    "field vector of %d elements with %d shares and %d "
+                    "extras", sender, n, agg.secagg.cohort, len(shapes))
         return None
 
     # ------------------------------------------------------------ recovery
@@ -893,7 +959,11 @@ class TASecureEdgeManager(FedAvgEdgeManager):
                            recovery_s) -> None:
         """The ONE per-round uplink: the unmasked field partial, the
         block's survivor/dead slots, sample counts, plaintext extras, and
-        how the block decoded. Caller holds _lock."""
+        how the block decoded. The extras (EDGE_EXTRAS) are one empty list
+        a survivor for a model with none, the reference's frame, and for
+        a model with extras ONE flat list of their wire leaves, survivor
+        by survivor in slot order: a frame carries a list of arrays, not a
+        list of lists of them. Caller holds _lock."""
         msg = Message(MyMessage.MSG_TYPE_E2S_SEND_MASKED_AGG_TO_SERVER,
                       self.rank, 0)
         msg.add_params(MyMessage.MSG_ARG_KEY_EDGE_FIELD_SUM,
@@ -905,8 +975,12 @@ class TASecureEdgeManager(FedAvgEdgeManager):
                        [int(d) for d in dead])
         msg.add_params(MyMessage.MSG_ARG_KEY_EDGE_SLOT_SAMPLES,
                        [float(self._msamples[s]) for s in survivors])
-        msg.add_params(MyMessage.MSG_ARG_KEY_EDGE_EXTRAS,
-                       [self._mextras[s] for s in survivors])
+        extras = [self._mextras[s] for s in survivors]
+        if any(extras):
+            # a model with extras: one flat list of wire leaves (a frame
+            # carries a list of arrays, not a list of lists of them)
+            extras = [leaf for ex in extras for leaf in ex]
+        msg.add_params(MyMessage.MSG_ARG_KEY_EDGE_EXTRAS, extras)
         msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_OUTCOME, str(outcome))
         if recovery_s is not None:
             msg.add_params(MyMessage.MSG_ARG_KEY_SECAGG_RECOVERY_S,
@@ -991,8 +1065,11 @@ class HierTAAggregator(TAAggregator):
                                round_idx: int | None = None) -> None:
         """Slot one edge's e2s_masked_agg frame: fold the unmasked field
         partial mod p and stage the block's per-slot samples and extras
-        under their GLOBAL slot ids. Stale, unknown and duplicate frames
-        are rejected and counted as on the per-worker path."""
+        under their GLOBAL slot ids (``extras`` nested, one list a
+        survivor, or flat, every survivor's leaves in turn: the two forms
+        ``TASecureEdgeManager._send_masked_frame`` sends). Stale, unknown
+        and duplicate frames are rejected and counted as on the
+        per-worker path."""
         edge_idx = int(edge_idx)
         if edge_idx not in self.flag_client_model_uploaded:
             _obs.record_stale_upload("unknown_rank")
@@ -1011,6 +1088,12 @@ class HierTAAggregator(TAAggregator):
                         edge_idx)
             return
         survivors = [int(s) for s in survivors]
+        extras = list(extras)
+        if survivors and extras and not isinstance(extras[0], (list, tuple)):
+            # the flat form: each survivor's extras leaves in turn
+            n = len(extras) // len(survivors)
+            extras = [extras[i * n:(i + 1) * n]
+                      for i in range(len(survivors))]
         if survivors:
             self._acc = sa.fold_masked_device(self._acc, field_sum,
                                               self.secagg.p,

@@ -9,11 +9,14 @@ coordinate order: its flax params (``convert.to_flax_net``: HWIO convolution
 kernels, ``[in, out]`` dense kernels, the first dense layer's rows in NHWC
 order) raveled leaf by leaf in sorted-path order, then its extras
 (BatchNorm statistics) likewise, as ``jax.tree.leaves`` flattens a
-``NetState`` (comm/message.net_items). Coordinate k of a port vector is then coordinate k of the
-JAX package's vector for the same model, so a flat vector that crosses the
-wire (a masked upload) means the same thing to both. The layout change is
-one gather over the port's concatenated entries, computed once per model
-shape from ``net_items`` of an index-valued state.
+``NetState`` (comm/message.net_items). Coordinate k of a port vector is
+then coordinate k of the JAX package's vector for the same model, so a
+flat vector that crosses the wire (a masked upload) means the same thing
+to both. The layout change is one gather over the port's concatenated
+entries, computed once per model shape from ``net_items`` of an
+index-valued state. The params' coordinates come first, so
+``params_vectorize`` (the JAX package's ``tree_vectorize(net.params)``)
+is the vector's first ``params_size`` coordinates.
 """
 
 from __future__ import annotations
@@ -90,3 +93,34 @@ def tree_unvectorize(vec: torch.Tensor, like: dict,
         out[key] = port[start:start + n].reshape(v.shape).to(v.dtype)
         start += n
     return {k: out[k] for k in like}
+
+
+def params_size(state: dict, extra_keys=(), stacked: bool = False) -> int:
+    """The number of param coordinates of a state (its entries not named
+    in ``extra_keys``; per client when ``stacked``)."""
+    lead = 1 if stacked else 0
+    return sum(int(np.prod(v.shape[lead:], dtype=np.int64))
+               for k, v in state.items() if k not in extra_keys)
+
+
+def params_vectorize(state: dict, extra_keys=(), num_heads: int | None = None,
+                     stacked: bool = False) -> torch.Tensor:
+    """The params of a state as one vector in the JAX package's coordinate
+    order, ``tree_vectorize(net.params)`` there: the leading
+    ``params_size`` coordinates of :func:`tree_vectorize` (the extras
+    follow the params in that order)."""
+    vec = tree_vectorize(state, num_heads, stacked)
+    return vec[..., :params_size(state, extra_keys, stacked)]
+
+
+def params_unvectorize(vec: torch.Tensor, like: dict, extra_keys=(),
+                       num_heads: int | None = None) -> dict:
+    """Inverse of :func:`params_vectorize`: the params from ``vec``, each
+    in ``like``'s shape and dtype on ``vec``'s device, and ``like``'s
+    extras as they are."""
+    if not extra_keys:
+        return tree_unvectorize(vec, like, num_heads)
+    rest = tree_vectorize(like, num_heads)[vec.shape[0]:]
+    full = tree_unvectorize(torch.cat([vec, rest.to(vec.device, vec.dtype)]),
+                            like, num_heads)
+    return {k: like[k] if k in extra_keys else full[k] for k in like}

@@ -275,51 +275,46 @@ def test_loopback_round_matches_engine_round():
     assert not torch.equal(agg.net["norm.var"], torch.ones(16))
 
 
-def _refusals():
-    from fedml_tpu_torch.algorithms.fedavg_robust import FedAvgRobustAPI
-    from fedml_tpu_torch.algorithms.turboaggregate import TurboAggregateAPI
-    from fedml_tpu_torch.chaos import AdversaryPlan
-    from fedml_tpu_torch.distributed import fedavg_robust as dist_robust
-    from fedml_tpu_torch.distributed import turboaggregate as dist_ta
-    from fedml_tpu_torch.distributed.fedavg import run_simulated
+class _SeqMesh(dict):
+    """The two axes FedAvgSeqAPI reads before it builds the task."""
 
-    plan = AdversaryPlan.from_json({"seed": 1, "rules": [
-        {"attack": "sign_flip", "ranks": [2], "factor": 2.0}]})
+    axis_names = ("clients", "seq")
+    shape = {"clients": 1, "seq": 1}
+
+
+def _keyed_lm(seq_axis):
+    from fedml_tpu_torch.models.transformer import TransformerLM
+
+    lm = TransformerLM(vocab_size=16, dim=8, depth=1, num_heads=2,
+                       max_len=8, seq_axis=seq_axis)
+    lm.needs_key = True  # a sequence model that would draw dropout masks
+    return lm
+
+
+def _refusals():
+    from fedml_tpu_torch.algorithms.fedavg_seq import FedAvgSeqAPI
+    from fedml_tpu_torch.data.synthetic import synthetic_sequences
+
     cfg = FedAvgConfig(**{**CFG, "comm_round": 1})
-    eng = lambda **kw: lambda d, t: FedAvgAPI(d, t, cfg, device="cpu", **kw)
-    sim = lambda **kw: lambda d, t: run_simulated(d, t, cfg, device="cpu",
-                                                   **kw)
     return {
-        "robust_aggregator": eng(aggregator="median"),
-        "sanitize": eng(sanitize=True),
-        "adversary": eng(adversary_plan=plan),
-        "dp_engine": lambda d, t: FedAvgRobustAPI(d, t, cfg, device="cpu",
-                                                  defense_type="dp"),
-        "secure_engine": lambda d, t: TurboAggregateAPI(d, t, cfg,
-                                                        device="cpu"),
-        "async_runner": lambda d, t: FedAvgAPI(
-            d, t, cfg, device="cpu").run_async(2, buffer_k=2),
-        "seq_task": lambda d, t: sequence_task(t.module, seq_axis=object()),
-        "flat_robust": sim(aggregator="median"),
-        "flat_fused": sim(fused_agg=True),
-        "flat_async": sim(async_buffer_k=2),
-        "flat_codec": sim(update_codec="delta-int8"),
-        "flat_adversary": sim(adversary_plan=plan),
-        "edges": sim(edges=2),
-        "dist_dp": lambda d, t: dist_robust.run_simulated(
-            d, t, cfg, defense_type="dp", device="cpu"),
-        "dist_secure": lambda d, t: dist_ta.run_simulated(d, t, cfg,
-                                                          device="cpu"),
+        "seq_task": lambda: sequence_task(_task().module, seq_axis=object()),
+        "seq_engine": lambda: FedAvgSeqAPI(
+            synthetic_sequences(num_clients=4, seq_len=8, vocab_size=16,
+                                samples_per_client=4, test_samples=4),
+            _keyed_lm, cfg, _SeqMesh(clients=None, seq=None),
+            device="cpu"),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_refusals()))
 def test_engines_without_extras_refuse_a_stateful_model(name):
-    """Every engine and server this slice does not carry raises naming
-    ROADMAP item 4 when given a model with extras: never a silent drop."""
-    data = synthetic_images(**DATA)
+    """The sequence-parallel path, the one that does not carry extras or
+    keys yet, raises naming ROADMAP item 4 when given a model with
+    extras (or one that draws randomness): never a silent drop. Every
+    other engine and server carries them (test_torch_extras_engines.py,
+    _wire.py and _secure.py)."""
     with pytest.raises(NotImplementedError, match="queue A, item 4"):
-        _refusals()[name](data, _task())
+        _refusals()[name]()
 
 
 def test_stateless_models_keep_their_net_layout():
